@@ -1,0 +1,42 @@
+"""CUDA kernel: fused bucket norm + normalize + stochastic round.
+
+The per-step encode of Algorithm 1 (line 6).  Source:
+``csrc/quantize.cu``, which replaces the TPU kernel
+``repro/kernels/quantize.py::quantize_pallas``.  The uniforms ``u`` are
+an explicit input, so the kernel is a pure function of its inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import code_dtype
+from . import cuda
+
+
+def quantize_cuda(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor,
+                  norm_type: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nb, bs) f32/bf16 values + (nb, bs) f32 uniforms + (L,) f32 levels
+    -> (codes (nb, bs) int8, or int16 when L > 128; norms (nb,) f32)."""
+    dev = vb.device
+    cuda.check(vb.is_cuda and u.device == dev and levels.device == dev,
+               "quantize: vb, u and levels must lie on one CUDA device")
+    cuda.check(vb.dim() == 2 and u.shape == vb.shape,
+               f"quantize: vb {tuple(vb.shape)} and u {tuple(u.shape)} "
+               "must be one (nb, bs) shape")
+    cuda.check(vb.dtype in cuda.IN_CODES and u.dtype == torch.float32
+               and levels.dtype == torch.float32,
+               "quantize: vb f32 or bf16, u and levels f32")
+    cuda.check(levels.dim() == 1 and 2 <= levels.shape[0] <= cuda.MAX_LEVELS,
+               f"quantize: 2..{cuda.MAX_LEVELS} levels")
+    cuda.check(norm_type in cuda.NORM_CODES, f"quantize: norm {norm_type!r}")
+    cuda.check(vb.is_contiguous() and u.is_contiguous()
+               and levels.is_contiguous(), "quantize: contiguous inputs")
+    nb, bs = vb.shape
+    L = levels.shape[0]
+    codes = torch.empty((nb, bs), dtype=code_dtype(L), device=dev)
+    norms = torch.empty((nb,), dtype=torch.float32, device=dev)
+    cuda.launch("quantize", dev, vb.data_ptr(), u.data_ptr(),
+                levels.data_ptr(), codes.data_ptr(), norms.data_ptr(), nb,
+                bs, L, cuda.IN_CODES[vb.dtype], cuda.CODE_CODES[codes.dtype],
+                cuda.NORM_CODES[norm_type], cuda.block_threads(bs))
+    return codes, norms
