@@ -98,7 +98,8 @@ def kernel_grid(ops, ref, lv):
                     mismatches += ref.code_mismatches(c1, c2, vb, u, n2, levels)
                     worst["quantize"] = max(worst["quantize"],
                                             float((n1 - n2).abs().max()))
-                    for c in (c1, c1.to(torch.int32)):
+                    # x3: codes outside the table, as a corrupt wire gives
+                    for c in (c1, c1.to(torch.int32), c1.to(torch.int32) * 3):
                         d1 = ops.dequantize_op(c, n1, levels)
                         d2 = ref.dequantize_ref(c, n1, levels)
                         check(torch.equal(d1, d2), "dequantize not exact")
@@ -301,7 +302,7 @@ def main() -> None:
         "--batch", str(2 * M_B), "--seq", "1024", "--data", "uniform",
         "--scheme", "alq", "--bits", "3", "--bucket", str(BS_B),
         "--optim", "adamw", "--lr", "1e-4", "--update-at", "1",
-        "--steps", "5", "--time-stages", "--log-every", "1"]))
+        "--steps", "5", "--time-stages"]))
     counts_b = dict(cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(res["d"] == D_B, f"phase B d = {res['d']}, expected {D_B}")

@@ -26,11 +26,12 @@ __global__ void dequantize_kernel(const TCode* __restrict__ codes, const float* 
   const float norm = norms[blockIdx.x];
   for (int i = threadIdx.x; i < bs; i += blockDim.x) {
     const int c = (int)codes[base + i];
-    // a code outside the table (a corrupt symbol) reads the top level
-    // instead of memory outside the table
-    const int a = min(abs(c), L - 1);
+    // a code outside the table (a corrupt symbol) decodes to 0, as the
+    // TPU kernel's one-hot lookup gives
+    const int a = abs(c);
+    const float mag = a < L ? lv[a] : 0.0f;
     const float sign = (float)((c > 0) - (c < 0));
-    out[base + i] = lv[a] * sign * norm;
+    out[base + i] = mag * sign * norm;
   }
 }
 

@@ -8,16 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantize import NORM_L2, NORM_LINF, code_dtype
-
-
-def _norms(vb: torch.Tensor, norm_type: str) -> torch.Tensor:
-    v = vb.float()
-    if norm_type == NORM_L2:
-        return torch.sqrt(torch.sum(v * v, dim=-1))
-    if norm_type == NORM_LINF:
-        return torch.amax(torch.abs(v), dim=-1)
-    raise ValueError(norm_type)
+from repro_torch.core.quantize import bucket_norm, code_dtype
 
 
 def rounding(vb: torch.Tensor, norms: torch.Tensor, levels: torch.Tensor
@@ -40,7 +31,7 @@ def quantize_ref(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor,
     Returns (codes, norms): signed level indices as ``code_dtype(L)`` and
     float32 norms.
     """
-    norms = _norms(vb, norm_type)
+    norms = bucket_norm(vb.float(), norm_type)
     tau, rho = rounding(vb, norms, levels)
     codes = (tau + (u < rho)) * torch.sign(vb).to(torch.int64)
     return codes.to(code_dtype(levels.shape[0])), norms
@@ -70,15 +61,21 @@ def code_mismatches(got: torch.Tensor, want: torch.Tensor, vb: torch.Tensor,
 
 def dequantize_ref(codes: torch.Tensor, norms: torch.Tensor,
                    levels: torch.Tensor) -> torch.Tensor:
-    """Signed codes (any integer dtype) + norms -> float32 values."""
-    mags = levels.float()[torch.abs(codes.long())]
+    """Signed codes (any integer dtype) + norms -> float32 values.
+
+    A code outside the table (|c| >= L, which only a corrupt symbol
+    gives) decodes to 0, as the TPU kernel's one-hot lookup does.
+    """
+    idx = torch.abs(codes.long())
+    L = levels.shape[0]
+    mags = torch.where(idx < L, levels.float()[idx.clamp(max=L - 1)], 0.0)
     return mags * torch.sign(codes.float()) * norms[:, None]
 
 
 def bucket_stats_ref(vb: torch.Tensor, norm_type: str
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-bucket (norm, mean_r, var_r) with r = |v| / norm."""
-    norms = _norms(vb, norm_type)
+    norms = bucket_norm(vb.float(), norm_type)
     safe = torch.where(norms > 0, norms, torch.ones_like(norms))
     r = torch.abs(vb.float()) / safe[:, None]
     mu = torch.mean(r, dim=-1)

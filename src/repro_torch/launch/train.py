@@ -23,12 +23,13 @@ from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.train.optim import OptimConfig
 from repro_torch.train.train_step import TrainConfig, Trainer
 
+LOG_EVERY = 10  # steps between log lines (the last step is logged too)
+SEED = 0        # weights, data and the stochastic rounding
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-proxy")
-    ap.add_argument("--smoke", action="store_true",
-                    help="use the reduced config for this arch")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = as "
                          "configured)")
@@ -47,21 +48,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optim", default="adamw", choices=["sgdm", "adamw"])
     ap.add_argument("--update-at", default="2,10")
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--time-stages", action="store_true",
                     help="time the stages of every step (CUDA events)")
-    ap.add_argument("--log-every", type=int, default=5)
     return ap.parse_args(argv)
 
 
 def run(args: argparse.Namespace) -> dict:
-    cfg = (configs.get_smoke_config(args.arch) if args.smoke
-           else configs.get_config(args.arch))
+    cfg = configs.get_config(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = torch.device(args.device)
-    model = Model(cfg, device=device, seed=args.seed)
+    model = Model(cfg, device=device, seed=SEED)
     scheme = QuantScheme(name=args.scheme, bits=args.bits,
                          bucket_size=args.bucket)
     tcfg = TrainConfig(
@@ -71,10 +69,10 @@ def run(args: argparse.Namespace) -> dict:
         update_milestones=tuple(int(x) for x in args.update_at.split(",")
                                 if x),
         update_every=0, workers=args.workers)
-    trainer = Trainer(model, tcfg, seed=args.seed)
+    trainer = Trainer(model, tcfg, seed=SEED)
     pipe = Pipeline(DataConfig(kind=args.data, vocab_size=cfg.vocab_size,
                                seq_len=args.seq, global_batch=args.batch,
-                               seed=args.seed))
+                               seed=SEED))
     history = []
     t0 = time.perf_counter()
     for t in range(args.steps):
@@ -87,8 +85,7 @@ def run(args: argparse.Namespace) -> dict:
         if args.time_stages:
             metrics["stage_ms"] = clock.stage_ms()
         history.append(metrics)
-        if args.log_every and (t % args.log_every == 0
-                               or t == args.steps - 1):
+        if t % LOG_EVERY == 0 or t == args.steps - 1:
             lv = [round(x, 3) for x in metrics["levels"][:4]]
             stages = "".join(f" {k}={v:.1f}ms" for k, v in
                              metrics.get("stage_ms", {}).items())

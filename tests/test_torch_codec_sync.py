@@ -54,11 +54,15 @@ def test_uniform_codec_encode_decode_match_reference(name, bits, norm_dtype):
     np.testing.assert_array_equal(tlevels.numpy(), np.asarray(levels))
     key = jax.random.PRNGKey(5)
     vb = jc.bucketize(jnp.asarray(flat), jplan)
-    # one compiled program per call instead of one per operation
-    jpay = jax.jit(lambda v: jc.encode(v, levels, key, jplan,
-                                       use_pallas=False))(vb)
-    jdecode = jax.jit(lambda p: jc.decode(p, levels, jplan,
-                                          use_pallas=False))
+
+    @jax.jit  # one compiled program instead of one per operation
+    def reference(v):
+        pay = jc.encode(v, levels, key, jplan, use_pallas=False)
+        two = type(pay)(*(jnp.stack([x, x]) for x in pay))
+        return (pay, jc.decode(pay, levels, jplan, use_pallas=False),
+                jc.decode(two, levels, jplan, use_pallas=False))
+
+    jpay, jone, jtwo = reference(vb)
     tvb = tc.bucketize(torch.from_numpy(flat), plan)
     np.testing.assert_array_equal(tvb.numpy(), np.asarray(vb))
     tpay = tc.encode(tvb, tlevels, u=_uniforms(key, vb.shape))
@@ -73,13 +77,10 @@ def test_uniform_codec_encode_decode_match_reference(name, bits, norm_dtype):
     as_port = type(tpay)(*(torch.from_numpy(np.array(x).view(np.int32))
                            for x in jpay))
     np.testing.assert_array_equal(
-        tc.decode(as_port, tlevels, plan).numpy(),
-        np.asarray(jdecode(jpay)))
+        tc.decode(as_port, tlevels, plan).numpy(), np.asarray(jone))
     two = type(tpay)(*(torch.stack([x, x]) for x in as_port))
-    jtwo = type(jpay)(*(jnp.stack([x, x]) for x in jpay))
     np.testing.assert_array_equal(
-        tc.decode(two, tlevels, plan).numpy(),
-        np.asarray(jdecode(jtwo)))
+        tc.decode(two, tlevels, plan).numpy(), np.asarray(jtwo))
 
 
 def test_encode_draws_from_a_generator_when_no_uniforms_are_given():
@@ -133,5 +134,5 @@ def test_fp32_mode_is_the_plain_mean():
     grads = torch.from_numpy(_grads(3, 100))
     scheme = QuantScheme(name="fp32")
     out, m = sync.quantized_allreduce(grads, scheme, scheme.init_state())
-    torch.testing.assert_close(out, grads.mean(0), rtol=0, atol=0)
+    assert torch.equal(out, grads.mean(0))
     assert m.comm_bits_per_coord == 32.0

@@ -61,6 +61,20 @@ def test_kernels_match_plain_versions(dev, bs, grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("code_dtype", [torch.int8, torch.int32])
+def test_dequantize_outside_the_table_gives_zero(dev, code_dtype):
+    levels = lv.uniform_levels(3, device=dev)
+    L = levels.numel()
+    g = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(-(L + 7), L + 8, (16, 1024), generator=g,
+                          device=dev).to(code_dtype)
+    norms = torch.rand(16, generator=g, device=dev) + 0.1
+    got = ops.dequantize_op(codes, norms, levels)
+    assert torch.equal(got, ref.dequantize_ref(codes, norms, levels))
+    assert not got[codes.abs() >= L].any()
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     levels = lv.uniform_levels(3, device=dev)
     vb = torch.randn(8, 256, device=dev)

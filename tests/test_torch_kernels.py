@@ -13,6 +13,7 @@ exact, except that a code may differ by one where the reference's
 ``|u - rho| < 1e-5``, i.e. where a last-ulp norm difference moves rho
 across u.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +40,10 @@ LEVELS = {
 SWEEP = [(s, lv) for s in SHAPES for lv in ("uniform3", "exp4", "ternary")]
 SWEEP.append((SHAPES[0], "uniform8"))
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+# one compiled program per shape instead of one per operation
+_jquantize = jax.jit(jref.quantize_ref, static_argnums=3)
+_jdequantize = jax.jit(jref.dequantize_ref)
+_jbucket_stats = jax.jit(jref.bucket_stats_ref, static_argnums=1)
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -80,7 +85,7 @@ def _quantize_case(nb, bs, lname, norm, dt):
 def test_quantize_plain_matches_reference(shape, lname, norm, dt):
     nb, bs = shape
     levels, vj, u, c2, n2 = _quantize_case(nb, bs, lname, norm, dt)
-    c1, n1 = jref.quantize_ref(vj, jnp.asarray(u), levels, norm)
+    c1, n1 = _jquantize(vj, jnp.asarray(u), levels, norm)
     np.testing.assert_allclose(n2, np.asarray(n1), rtol=1e-6)
     assert_codes_match(c2, c1, vj, u, n1, levels)
 
@@ -114,7 +119,7 @@ def test_dequantize_plain_matches_reference(shape, lname, cdt):
     narrow = np.int8 if levels.shape[0] <= 128 else np.int16
     codes, norms = _codes(nb, bs, levels,
                           narrow if cdt == "narrow" else np.int32)
-    want = jref.dequantize_ref(jnp.asarray(codes), jnp.asarray(norms), levels)
+    want = _jdequantize(jnp.asarray(codes), jnp.asarray(norms), levels)
     got = tref.dequantize_ref(torch.from_numpy(codes),
                               torch.from_numpy(norms),
                               torch.from_numpy(np.array(levels)))
@@ -134,12 +139,29 @@ def test_dequantize_plain_matches_pallas(nb, bs, lname):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_dequantize_outside_the_table_gives_zero_like_pallas():
+    """A corrupt symbol can unbias to |c| >= L (at 3 bits a symbol has 4
+    bits, so c reaches L); the one-hot lookup of the TPU kernel gives 0."""
+    levels = LEVELS["uniform3"]()
+    L = levels.shape[0]
+    rng = np.random.default_rng(2)
+    codes = rng.integers(-(L + 7), L + 8, size=(8, 256)).astype(np.int32)
+    norms = (rng.random(8) + 0.1).astype(np.float32)
+    want = dequantize_pallas(jnp.asarray(codes), jnp.asarray(norms), levels,
+                             interpret=True)
+    got = tref.dequantize_ref(torch.from_numpy(codes),
+                              torch.from_numpy(norms),
+                              torch.from_numpy(np.array(levels)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not got.numpy()[np.abs(codes) >= L].any()
+
+
 @pytest.mark.parametrize("nb,bs", SHAPES)
 @pytest.mark.parametrize("norm", ["l2", "linf"])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_bucket_stats_plain_matches_reference(nb, bs, norm, dt):
     vj, vt, _ = _values(nb, bs, dt, seed=3)
-    want = jref.bucket_stats_ref(vj, norm)
+    want = _jbucket_stats(vj, norm)
     got = tref.bucket_stats_ref(vt, norm)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,

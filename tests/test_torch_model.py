@@ -1,7 +1,7 @@
 """The port's dense decoder against the reference's ``Model``.
 
-The reference initialises the weights; ``from_jax_params`` carries them
-over.  The flat parameter vector must equal ``ravel_pytree(params)``
+Both sides get the same weights, made with numpy from a seed in the
+reference's ``Model.init`` layout; ``from_jax_params`` carries them over.  The flat parameter vector must equal ``ravel_pytree(params)``
 exactly (the wire's bucket membership depends on that order), and the
 loss and the flat gradient must agree with ``jax.value_and_grad``.
 Tolerances: loss rtol 1e-5; gradient within 1e-4 of its largest entry
@@ -58,11 +58,28 @@ def _pair(arch, smoke):
     return jcfg, cfg
 
 
+def _random_params(jcfg, seed=0):
+    """Weights from numpy in the reference's ``Model.init`` layout: matrices
+    at 1/sqrt(fan-in), the embedding at unit scale, norm gains near 1."""
+    shapes = jax.eval_shape(JModel(jcfg, tp=1, dp=1).init,
+                            jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        z = rng.standard_normal(x.shape).astype(np.float32)
+        name = jax.tree_util.keystr(path)
+        if "norm" in name:
+            return 1.0 + 0.1 * z
+        return z if "embed" in name else z / np.sqrt(x.shape[-2])
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 @pytest.mark.parametrize("arch,smoke", CASES)
 def test_loss_and_flat_gradient_match_reference(arch, smoke):
     jcfg, cfg = _pair(arch, smoke)
-    params = JModel(jcfg, tp=1, dp=1).init(jax.random.PRNGKey(0))
-    np_params = jax.tree.map(np.asarray, params)
+    np_params = _random_params(jcfg)
+    params = jax.tree.map(jnp.asarray, np_params)
     flat = from_jax_params(np_params, cfg)
     np.testing.assert_array_equal(flat.numpy(), _ravel(np_params))
 

@@ -1,6 +1,8 @@
 """The port's bit packing against ``repro.core.packing``: packed words
 are bit-exact (the port carries uint32 words as int32 bit patterns) for
 widths 1-8, for fp32 and fp16 norm words, and across chunk boundaries."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +19,12 @@ def _words(w):
 
 # one compiled program per shape instead of one per operation
 _jpack = jax.jit(jpack.pack, static_argnums=1)
-_junpack = jax.jit(jpack.unpack, static_argnums=(1, 2))
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jpack_unpack(sym, bits):
+    words = jpack.pack(sym, bits)
+    return words, jpack.unpack(words, sym.shape[0], bits)
 
 
 @pytest.mark.parametrize("bits", range(1, 9))
@@ -25,15 +32,14 @@ _junpack = jax.jit(jpack.unpack, static_argnums=(1, 2))
 def test_pack_is_bit_exact_and_round_trips(bits, n):
     rng = np.random.default_rng([bits, n])
     sym = rng.integers(0, 2 ** bits, size=n).astype(np.int32)
-    want = _jpack(jnp.asarray(sym), bits)
+    want, want_back = _jpack_unpack(jnp.asarray(sym), bits)
     got = tpack.pack(torch.from_numpy(sym), bits)
     assert got.dtype == torch.int32
     assert got.numel() == tpack.packed_words(n, bits) == want.shape[0]
     np.testing.assert_array_equal(got.numpy(), _words(want))
     back = tpack.unpack(got, n, bits)
     np.testing.assert_array_equal(back.numpy(), sym)
-    np.testing.assert_array_equal(
-        back.numpy(), np.asarray(_junpack(want, n, bits)))
+    np.testing.assert_array_equal(back.numpy(), np.asarray(want_back))
 
 
 @pytest.mark.parametrize("bits", [3, 4, 7])
@@ -52,7 +58,8 @@ def test_chunked_pack_matches_one_piece(bits, monkeypatch):
 def test_signed_codes_pack_like_the_reference(num_levels):
     rng = np.random.default_rng(num_levels)
     codes = rng.integers(-(num_levels - 1), num_levels, size=777)
-    want = jpack.pack_signed(jnp.asarray(codes, jnp.int32), num_levels)
+    want = jax.jit(jpack.pack_signed, static_argnums=1)(
+        jnp.asarray(codes, jnp.int32), num_levels)
     got = tpack.pack_signed(torch.from_numpy(codes), num_levels)
     np.testing.assert_array_equal(got.numpy(), _words(want))
     np.testing.assert_array_equal(
@@ -65,10 +72,12 @@ def test_signed_codes_pack_like_the_reference(num_levels):
 def test_norm_words_are_bit_exact(norm_dtype, nb):
     rng = np.random.default_rng(nb)
     norms = (rng.random(nb) * 3 + 1e-3).astype(np.float32)
-    want = jpack.pack_norms(jnp.asarray(norms), norm_dtype)
+    want = jax.jit(jpack.pack_norms, static_argnums=1)(jnp.asarray(norms),
+                                                       norm_dtype)
     got = tpack.pack_norms(torch.from_numpy(norms), norm_dtype)
     assert got.numel() == tpack.norm_words(nb, norm_dtype)
     np.testing.assert_array_equal(got.numpy(), _words(want))
     np.testing.assert_array_equal(
         tpack.unpack_norms(got, nb, norm_dtype).numpy(),
-        np.asarray(jpack.unpack_norms(want, nb, norm_dtype)))
+        np.asarray(jax.jit(jpack.unpack_norms, static_argnums=(1, 2))(
+            want, nb, norm_dtype)))

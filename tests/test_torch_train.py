@@ -66,7 +66,9 @@ def _reference_step(jcfg, scheme_kw, batch_np):
     step_fn = make_train_step(model, tcfg, data_axes=("data",))
     pspecs = model.param_specs()
     with jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"))):
-        state = init_train_state(model, tcfg, jax.random.PRNGKey(0))
+        # one compiled program instead of one per operation
+        state = jax.jit(lambda k: init_train_state(model, tcfg, k))(
+            jax.random.PRNGKey(0))
         sspecs = TrainState(
             params=pspecs, opt=type(state.opt)(mu=pspecs, nu=None,
                                                count=P()),
@@ -151,6 +153,22 @@ def test_ten_m4_steps_learn_and_adapt_on_schedule():
     assert moved == [False, True, False, False, False, True, False, False,
                      False]
     assert trainer.scheme_state.num_updates == 2
+
+
+def test_launcher_trains_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import train
+    res = train.run(train.parse_args([
+        "--device", "cpu", "--workers", "2", "--steps", "3", "--batch", "4",
+        "--seq", "16", "--update-at", "1", "--time-stages"]))
+    hist = res["history"]
+    assert len(hist) == 3 and res["num_updates"] == 1
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert hist[1]["levels"] != hist[0]["levels"]
+    assert hist[2]["levels"] == hist[1]["levels"]
+    assert set(hist[0]["stage_ms"]) >= {"grad", "encode", "decode"}
+    logged = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("step")]
+    assert len(logged) == 2  # step 0 and the last step
 
 
 @pytest.mark.parametrize("name,nesterov", [("sgdm", False), ("sgdm", True),
