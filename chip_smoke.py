@@ -6,11 +6,15 @@
 Phases, each of which must pass:
   1. set-up: the card's name and power limit; the three CUDA kernels are
      built with nvcc from ``src/repro_torch/csrc`` (one nvcc each, all at
-     once) into ``build/kernels``;
+     once) into ``build/kernels``; each kernel's build line gives its
+     registers, shared memory and spill bytes (``-Xptxas -v``);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at buckets of 1024 and 8192, f32 and bf16 values, l2 and linf
-     norms, 3-bit and 8-bit grids, then at the shapes phase B gives
-     them, where the kernel, its plain version and its bound are timed;
+     norms, 3-bit and 8-bit grids, and in every bucket layout (shared
+     memory for odd sizes and unaligned pointers, read twice beyond
+     shared memory, persistent grids); then at the shapes phase B gives
+     them, where each kernel is timed in 3 rounds (median and spread)
+     beside its plain version, its bound and its other layouts;
   3. a 4-worker quantized all-reduce on the card against the same call on
      the CPU (the plain versions), with the same uniforms;
   4. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
@@ -31,6 +35,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +46,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 BS_B, D_B, M_B = 8192, 768_624_640, 4   # phase B: bucket, d, workers
+# a register-resident entry point; groups: threads, elements a thread
+REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
 
 def fail(msg: str) -> None:
@@ -66,6 +73,18 @@ def timed(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def timed_rounds(fns: dict, reps: int, rounds: int = 3
+                 ) -> dict[str, tuple[float, float]]:
+    """Median and spread (max - min) of ``rounds`` timings of each of
+    ``fns``, taken in turns."""
+    ts = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ts[k].append(timed(fn, reps))
+    return {k: (sorted(v)[len(v) // 2], max(v) - min(v))
+            for k, v in ts.items()}
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -116,9 +135,100 @@ def kernel_grid(ops, ref, lv):
     return worst
 
 
-def main_path_kernels(ops, ref, lv, codec_for_scheme, QuantScheme):
-    """Each kernel at the shapes phase B gives it: agreement, kernel ms,
-    plain ms (row chunks, to bound its temporaries) and the bound."""
+def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
+    """quantize and bucket_stats against their plain versions in each
+    bucket layout: odd sizes and unaligned pointers (shared memory),
+    buckets beyond shared memory (read twice), persistent grids."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    BL = cuda.BucketLaunch
+    cases = [  # (name, nb, bs, element offset, forced launch)
+        ("unaligned 8192", 40, 8192, 1, None),
+        ("4097", 40, 4097, 0, None),
+        ("16384", 40, 16384, 0, None),
+        ("65536 (read twice)", 8, 65536, 0, None),
+        ("stream forced 1024", 40, 1024, 0, BL("stream", 256,
+                                                persistent=False)),
+        ("persistent 8192", 2000, 8192, 0, BL("regs", 256, 32,
+                                              persistent=True)),
+        ("512x16 8192", 40, 8192, 0, BL("regs", 512, 16)),
+    ]
+    seen = set()
+    for name, nb, bs, off, launch in cases:
+        for dt, norm, bits in ((torch.float32, "l2", 3),
+                               (torch.bfloat16, "linf", 8)):
+            levels = lv.uniform_levels(bits, device=dev)
+            flat = torch.randn(nb * bs + off, generator=g, device=dev) * 1e-2
+            vb = flat.to(dt)[off:].view(nb, bs)
+            vb[0] = 0  # an all-zero bucket
+            u = torch.rand(nb, bs, generator=g, device=dev)
+            want = launch or cuda.bucket_launch(
+                bs, vb.element_size(), (vb.data_ptr(), u.data_ptr(), 0))
+            seen.add(want.layout + (" persistent" if want.persistent
+                                    else ""))
+            c1, n1 = quantize_cuda(vb, u, levels, norm, launch)
+            c2, n2 = ref.quantize_ref(vb, u, levels, norm)
+            check(bool(torch.allclose(n1, n2, rtol=1e-5, atol=0)),
+                  f"quantize norms, layout case {name}")
+            ref.code_mismatches(c1, c2, vb, u, n2, levels)
+            for a, b in zip(bucket_stats_cuda(vb, norm, launch),
+                            ref.bucket_stats_ref(vb, norm)):
+                check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
+                      f"bucket_stats, layout case {name}")
+    torch.cuda.synchronize()
+    print(f"layout grid: {len(cases) * 2} cases per kernel agree with the "
+          f"plain versions, layouts {sorted(seen)}", flush=True)
+
+
+def build_line(name: str, seconds, report: dict) -> str:
+    """A kernel's build time and its ``-Xptxas -v`` report in one line:
+    registers, static shared memory and spill bytes over its entry
+    points, and per register-resident shape (threads x elements)."""
+    regs = [v["registers"] for v in report.values()]
+    smem = [v.get("smem", 0) for v in report.values()]
+    spill = {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+             for k, v in report.items()}
+    shapes: dict[str, list[str]] = {}
+    for k in report:
+        if m := REG_ENTRY.search(k):
+            shapes.setdefault(f"{m[1]}x{m[2]}", []).append(k)
+    per_shape = "".join(
+        f"; register-resident {sh}: {len(ks)} entry points, registers "
+        f"{min(report[k]['registers'] for k in ks)}-"
+        f"{max(report[k]['registers'] for k in ks)}, spill bytes "
+        f"{sum(spill[k] for k in ks)}" for sh, ks in sorted(shapes.items()))
+    took = "built before" if seconds is None else f"{seconds:.1f} s"
+    return (f"build {name}: {took}, {len(report)} entry points, registers "
+            f"{min(regs)}-{max(regs)}, static smem <= {max(smem)} B, spill "
+            f"bytes {sum(spill.values())}{per_shape}")
+
+
+def label(launch) -> str:
+    name = (f"regs {launch.threads}x{launch.ept}" if launch.layout == "regs"
+            else launch.layout)
+    return name + (" persistent" if launch.persistent else "")
+
+
+def other_layouts(cuda, bs: int, itemsize: int) -> dict:
+    """The layouts timed beside the one the wrappers pick at bucket
+    ``bs``: the other grid, the other register shape, shared memory."""
+    import dataclasses
+    pick = cuda.bucket_launch(bs, itemsize, (0,))
+    out = [dataclasses.replace(pick, persistent=not pick.persistent),
+           cuda.BucketLaunch("smem", cuda.block_threads(bs),
+                             smem=bs * itemsize + 16, persistent=False)]
+    if bs in cuda.OTHER_REG_SHAPES:
+        out.append(cuda.BucketLaunch("regs", *cuda.OTHER_REG_SHAPES[bs],
+                                     persistent=pick.persistent))
+    return {label(x): x for x in out}
+
+
+def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
+                      quantize_cuda, bucket_stats_cuda):
+    """Each kernel at the shapes phase B gives it: agreement, kernel ms
+    (median and spread of 3 rounds) beside its other layouts, plain ms
+    (row chunks, to bound its temporaries) and the bound."""
     import torch
     dev = torch.device("cuda")
     plan = codec_for_scheme(QuantScheme(bits=3, bucket_size=BS_B)).plan(D_B)
@@ -128,52 +238,76 @@ def main_path_kernels(ops, ref, lv, codec_for_scheme, QuantScheme):
     L = levels.numel()
     chunks = 8
     rows = -(-nb // chunks)
+    parts = range(0, nb, rows)
+    others = other_layouts(cuda, BS_B, 4)
+    pick = label(cuda.bucket_launch(BS_B, 4, (0,)))
     out = []
 
     vb = torch.randn(nb, BS_B, generator=g, device=dev) * 1e-3
     u = torch.rand(nb, BS_B, generator=g, device=dev)
     codes, norms = ops.quantize_op(vb, u, levels)
     worst, mism = 0.0, 0
-    for i in range(0, nb, rows):
+    for i in parts:
         c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], levels, "l2")
         worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
         mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
                                     u[i:i + rows], n2, levels)
         del c2, n2
-    ms = timed(lambda: ops.quantize_op(vb, u, levels), 5)
+    for name, lay in others.items():  # agree with the picked layout
+        c, nm = quantize_cuda(vb, u, levels, "l2", lay)
+        check(bool(torch.allclose(nm, norms, rtol=1e-5, atol=0)),
+              f"quantize {name} norms at phase B's shape")
+        for i in parts:
+            ref.code_mismatches(c[i:i + rows], codes[i:i + rows],
+                                vb[i:i + rows], u[i:i + rows],
+                                norms[i:i + rows], levels)
+        del c, nm
+    del codes, norms
+    fns = {pick: lambda: ops.quantize_op(vb, u, levels)}
+    fns.update({k: (lambda lay=lay: quantize_cuda(vb, u, levels, "l2", lay))
+                for k, lay in others.items()})
+    t = timed_rounds(fns, 5)
     plain = timed(lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows],
-                                            levels, "l2")
-                           for i in range(0, nb, rows)], 1)
+                                            levels, "l2") for i in parts], 1)
     # reads v (4 B) and u (4 B), writes a code (1 B); ~20 operations each
     b, by = bound_ms(n * 9 + nb * 4, n * (20 + math.log2(L)))
     out.append(dict(name="quantize", source="src/repro_torch/csrc/quantize.cu",
                     replaces="src/repro/kernels/quantize.py:34",
-                    max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=None,
+                    max_abs_err=worst, timings=t, pick=pick, plain_ms=plain,
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    entry="quantize_regsIfaLi0ELi3ELi256ELi32E",
                     note=f"({nb}, {BS_B}) f32, {mism} codes off by one at ties"))
 
-    g2 = torch.Generator(device=dev).manual_seed(2)
     vals = ops.bucket_stats_op(vb)
     worst = 0.0
-    for i in range(0, nb, rows):
+    for i in parts:
         for a, r in zip(vals, ref.bucket_stats_ref(vb[i:i + rows], "l2")):
             check(torch.allclose(a[i:i + rows], r, rtol=1e-5, atol=1e-7),
                   "bucket_stats at phase B's shape beyond rtol 1e-5")
             worst = max(worst, float((a[i:i + rows] - r).abs().max()))
-    ms = timed(lambda: ops.bucket_stats_op(vb), 5)
+    for name, lay in others.items():
+        for a, r in zip(bucket_stats_cuda(vb, "l2", lay), vals):
+            check(torch.allclose(a, r, rtol=1e-5, atol=1e-7),
+                  f"bucket_stats {name} at phase B's shape")
+    fns = {pick: lambda: ops.bucket_stats_op(vb)}
+    fns.update({k: (lambda lay=lay: bucket_stats_cuda(vb, "l2", lay))
+                for k, lay in others.items()})
+    t = timed_rounds(fns, 5)
     plain = timed(lambda: [ref.bucket_stats_ref(vb[i:i + rows], "l2")
-                           for i in range(0, nb, rows)], 1)
+                           for i in parts], 1)
     # reads v (4 B), writes 3 floats a bucket; ~8 operations an element
     b, by = bound_ms(n * 4 + nb * 12, n * 8)
     out.append(dict(name="bucket_stats",
                     source="src/repro_torch/csrc/bucket_stats.cu",
                     replaces="src/repro/kernels/bucket_stats.py:21",
-                    max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=None,
+                    max_abs_err=worst, timings=t, pick=pick, plain_ms=plain,
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    entry="stats_regsIfLi0ELi256ELi32E",
                     note=f"({nb}, {BS_B}) f32"))
     del vb, u, vals
 
     # the decode path: int32 codes of all M workers' streams in one call
+    g2 = torch.Generator(device=dev).manual_seed(2)
     c32 = torch.randint(-(L - 1), L, (M_B * nb, BS_B), generator=g2,
                         device=dev, dtype=torch.int32)
     n4 = torch.rand(M_B * nb, generator=g2, device=dev) + 0.1
@@ -185,7 +319,8 @@ def main_path_kernels(ops, ref, lv, codec_for_scheme, QuantScheme):
                                              n4[i:i + rows4], levels)),
               "dequantize at phase B's shape not exact")
     del got
-    ms = timed(lambda: ops.dequantize_op(c32, n4, levels), 3)
+    t = timed_rounds({"one block a bucket":
+                      lambda: ops.dequantize_op(c32, n4, levels)}, 3)
     plain = timed(lambda: [ref.dequantize_ref(c32[i:i + rows4],
                                               n4[i:i + rows4], levels)
                            for i in range(0, M_B * nb, rows4)], 1)
@@ -194,17 +329,29 @@ def main_path_kernels(ops, ref, lv, codec_for_scheme, QuantScheme):
     out.append(dict(name="dequantize",
                     source="src/repro_torch/csrc/dequantize.cu",
                     replaces="src/repro/kernels/dequantize.py:18",
-                    max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=None,
+                    max_abs_err=0.0, timings=t, pick="one block a bucket",
+                    plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                    entry="dequantize_kernelIiE",
                     note=f"({M_B * nb}, {BS_B}) int32"))
     del c32, n4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for k in out:
-        print(f"main-path shape {k['name']}: {k['note']}: kernel "
-              f"{k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, bound "
-              f"{k['bound_ms']:.3f} ms ({k['bound_by']}), max abs err "
-              f"{k['max_abs_err']:.3g}", flush=True)
+        timings = k.pop("timings")
+        k["ms"], k["ms_spread"] = timings.pop(k["pick"])
+        k["bound_share"] = k["bound_ms"] / k["ms"]
+        k["other_layouts_ms"] = {name: ms for name, (ms, _) in timings.items()}
+        entry = [v for e, v in cuda.ptxas_report(k["name"]).items()
+                 if k["entry"] in e]
+        others_txt = "".join(f"; {name} {ms:.3f} ms (spread {sp:.3f})"
+                             for name, (ms, sp) in timings.items())
+        print(f"main-path shape {k['name']}: {k['note']}, {k['pick']}: "
+              f"kernel {k['ms']:.3f} ms (spread {k['ms_spread']:.3f} over 3 "
+              f"rounds), plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms ({k['bound_by']}), "
+              f"{k['bound_share']:.0%} of bound, max abs err "
+              f"{k['max_abs_err']:.3g}, ptxas {entry}{others_txt}",
+              flush=True)
     return out
 
 
@@ -218,7 +365,8 @@ def sync_check(sync, QuantScheme, codec_for_scheme):
     g = torch.Generator().manual_seed(3)
     grads = torch.randn(M, d, generator=g) * 1e-2
     u = [torch.rand(plan.nb, bs, generator=g) for _ in range(M)]
-    cpu, own, _ = sync.quantized_allreduce(grads, scheme, scheme.init_state(),
+    cpu, own, _ = sync.quantized_allreduce(grads, scheme,
+                                           scheme.init_state("cpu"),
                                            u=u, return_own=True)
     gpu, m = sync.quantized_allreduce(
         grads.cuda(), scheme, scheme.init_state("cuda"),
@@ -247,6 +395,8 @@ def main() -> None:
         from repro_torch.core.schemes import QuantScheme
         from repro_torch.dist import sync
         from repro_torch.kernels import cuda, ops, ref
+        from repro_torch.kernels.bucket_stats import bucket_stats_cuda
+        from repro_torch.kernels.quantize import quantize_cuda
         from repro_torch.launch import train
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
@@ -264,9 +414,14 @@ def main() -> None:
     built = cuda.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    for name in cuda.KERNELS:
+        print(build_line(name, built.get(name), cuda.ptxas_report(name)),
+              flush=True)
 
     kernel_grid(ops, ref, lv)
-    kernels = main_path_kernels(ops, ref, lv, codec_for_scheme, QuantScheme)
+    layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda)
+    kernels = main_path_kernels(ops, ref, lv, cuda, codec_for_scheme,
+                                QuantScheme, quantize_cuda, bucket_stats_cuda)
     sync_check(sync, QuantScheme, codec_for_scheme)
 
     # ---- phase A ----
@@ -304,6 +459,7 @@ def main() -> None:
         "--optim", "adamw", "--lr", "1e-4", "--update-at", "1",
         "--steps", "5", "--time-stages"]))
     counts_b = dict(cuda.LAUNCHES)
+    layouts_b = dict(cuda.LAYOUTS)
     peak = torch.cuda.max_memory_allocated()
     check(res["d"] == D_B, f"phase B d = {res['d']}, expected {D_B}")
     hist = res["history"]
@@ -311,24 +467,27 @@ def main() -> None:
           "phase B loss not finite")
     check(all(counts_b.get(k, 0) > 0 for k in cuda.KERNELS),
           f"phase B kernel launches {counts_b}")
+    check(all(layouts_b.get(f"{k}/regs", 0) == counts_b[k]
+              for k in ("quantize", "bucket_stats")),
+          f"phase B bucket layouts {layouts_b}")
     for t, h in enumerate(hist):
         split = ", ".join(f"{k} {v:.1f}" for k, v in h["stage_ms"].items())
         print(f"phase B step {t}: {h['step_ms']:.1f} ms/step; stages ms: "
               f"{split}; loss {h['loss']:.4f}", flush=True)
     print(f"phase B: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
-          f"launches {counts_b}", flush=True)
+          f"launches {counts_b}, layouts {layouts_b}", flush=True)
     print(json.dumps({"phase_b": {
         "card": smi, "d": res["d"], "peak_bytes": peak,
-        "launches": counts_b,
+        "launches": counts_b, "layouts": layouts_b,
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
                    "loss": h["loss"]} for h in hist]}}), flush=True)
 
     for k in kernels:
         k["launches"] = counts_b.get(k["name"], 0)
         k["route"] = "cuda"
-        del k["note"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_share", "ms_spread", "other_layouts_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ def num_inner(bits: int) -> int:
     return num_levels(bits) - 2
 
 
-def uniform_levels(bits: int, *, device="cpu") -> torch.Tensor:
+def uniform_levels(bits: int, *, device="cuda") -> torch.Tensor:
     """QSGD / QSGDinf grid: uniformly spaced levels on [0, 1].
 
     Level i is i * step with step the float32 of 1 / (n - 1), rounded
@@ -33,13 +33,13 @@ def uniform_levels(bits: int, *, device="cpu") -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device) * step
 
 
-def exp_levels(bits: int, p: float = 0.5, *, device="cpu") -> torch.Tensor:
+def exp_levels(bits: int, p: float = 0.5, *, device="cuda") -> torch.Tensor:
     """NUQSGD / AMQ grid: [0, p^s, ..., p^2, p, 1] (exponentially spaced)."""
     return multiplier_to_levels(
         torch.tensor(p, dtype=torch.float32, device=device), bits)
 
 
-def ternary_levels(*, device="cpu") -> torch.Tensor:
+def ternary_levels(*, device="cuda") -> torch.Tensor:
     """TernGrad: levels {0, 1} under L-inf normalization (s = 0)."""
     return torch.tensor([0.0, 1.0], dtype=torch.float32, device=device)
 

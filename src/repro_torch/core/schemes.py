@@ -91,7 +91,7 @@ class QuantScheme:
             return 2
         return levels_lib.num_levels(self.bits)
 
-    def init_levels(self, device="cpu") -> torch.Tensor:
+    def init_levels(self, device="cuda") -> torch.Tensor:
         if self.name == "trn":
             return levels_lib.ternary_levels(device=device)
         if self.name == "nuqsgd" or self._base.startswith("amq"):
@@ -103,7 +103,7 @@ class QuantScheme:
         """Fixed-width wire bits per magnitude+sign symbol."""
         return wire_bits_for(self.num_levels)
 
-    def init_state(self, device="cpu") -> SchemeState:
+    def init_state(self, device="cuda") -> SchemeState:
         return SchemeState(
             levels=self.init_levels(device),
             multiplier=torch.tensor(0.5, dtype=torch.float32, device=device),

@@ -45,17 +45,4 @@ __device__ __forceinline__ float block_reduce(float x, float* scratch, Op op) {
   return x;
 }
 
-// One pass over a bucket: its L2 norm or its L-inf norm, in every thread.
-template <int NORM, typename TIn>
-__device__ __forceinline__ float bucket_norm(const TIn* __restrict__ vb, int bs, float* scratch) {
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-    const float x = to_f32(vb[i]);
-    if (NORM == kNormL2) acc += x * x;
-    else acc = fmaxf(acc, fabsf(x));
-  }
-  if (NORM == kNormL2) return sqrtf(block_reduce(acc, scratch, SumOp()));
-  return block_reduce(acc, scratch, MaxOp());
-}
-
 }  // namespace repro

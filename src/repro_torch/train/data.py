@@ -55,7 +55,7 @@ class Pipeline:
             toks[:, t + 1] = np.argmax(u[:, t, None] < cdf[toks[:, t]], axis=-1)
         return toks
 
-    def batch(self, step: int, device="cpu") -> dict[str, torch.Tensor]:
+    def batch(self, step: int, device="cuda") -> dict[str, torch.Tensor]:
         """dict(ids (B, S), labels (B, S)) as int64 tensors."""
         toks = torch.from_numpy(self.tokens(step)).to(device=device,
                                                       dtype=torch.int64)

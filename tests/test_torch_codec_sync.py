@@ -50,7 +50,7 @@ def test_uniform_codec_encode_decode_match_reference(name, bits, norm_dtype):
     for f in plan._fields:
         assert getattr(plan, f) == getattr(jplan, f), f
     levels = jscheme.init_levels()
-    tlevels = scheme.init_levels()
+    tlevels = scheme.init_levels("cpu")
     np.testing.assert_array_equal(tlevels.numpy(), np.asarray(levels))
     key = jax.random.PRNGKey(5)
     vb = jc.bucketize(jnp.asarray(flat), jplan)
@@ -88,7 +88,7 @@ def test_encode_draws_from_a_generator_when_no_uniforms_are_given():
     codec = codec_for_scheme(scheme)
     plan = codec.plan(1000)
     vb = codec.bucketize(torch.from_numpy(_grads(1, 1000)[0]), plan)
-    lv = scheme.init_levels()
+    lv = scheme.init_levels("cpu")
 
     def enc(seed):
         g = torch.Generator().manual_seed(seed)
@@ -117,7 +117,7 @@ def test_m4_allreduce_matches_vmapped_reference(name, bits):
     nb = jcodec_for_scheme(jscheme).plan(d).nb
     u = [_uniforms(jax.random.fold_in(key, w), (nb, bs)) for w in range(M)]
     out, m = sync.quantized_allreduce(torch.from_numpy(grads), scheme,
-                                      scheme.init_state(), u=u)
+                                      scheme.init_state("cpu"), u=u)
     # each decoded term may differ by its norm's last ulp, so the bound
     # is rtol 1e-6 of the terms' mean magnitude (the sum may cancel)
     scale = np.mean(np.abs(np.asarray(jown)), axis=0)
@@ -133,6 +133,7 @@ def test_m4_allreduce_matches_vmapped_reference(name, bits):
 def test_fp32_mode_is_the_plain_mean():
     grads = torch.from_numpy(_grads(3, 100))
     scheme = QuantScheme(name="fp32")
-    out, m = sync.quantized_allreduce(grads, scheme, scheme.init_state())
+    out, m = sync.quantized_allreduce(grads, scheme,
+                                      scheme.init_state("cpu"))
     assert torch.equal(out, grads.mean(0))
     assert m.comm_bits_per_coord == 32.0

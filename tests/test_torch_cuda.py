@@ -6,9 +6,14 @@ PyTorch is installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: norms rtol 1e-5 and stats rtol 1e-5 (float32 sums of up to
-8192 terms in another order); dequantized values exact (one rounding in
+65536 terms in another order); dequantized values exact (one rounding in
 the same order); codes exact except off by one where the plain
 version's |u - rho| < 1e-5 (a last-ulp norm difference).
+
+quantize and bucket_stats lay a bucket out in registers, in shared
+memory or read twice (``kernels/cuda.py::bucket_launch``); the layout
+tests below reach each one, by bucket size and pointer alignment or by
+forcing it.
 """
 import pytest
 import torch
@@ -19,6 +24,8 @@ from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 from repro_torch.kernels import cuda as kcuda
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bucket_stats import bucket_stats_cuda
+from repro_torch.kernels.quantize import quantize_cuda
 
 GRIDS = {"uniform3": lambda d: lv.uniform_levels(3, device=d),
          "exp4": lambda d: lv.exp_levels(4, device=d),
@@ -98,7 +105,8 @@ def test_allreduce_on_card_matches_cpu(dev):
     g = torch.Generator().manual_seed(0)
     grads = torch.randn(M, d, generator=g) * 1e-2
     u = [torch.rand(plan.nb, bs, generator=g) for _ in range(M)]
-    cpu, own, _ = sync.quantized_allreduce(grads, scheme, scheme.init_state(),
+    cpu, own, _ = sync.quantized_allreduce(grads, scheme,
+                                           scheme.init_state("cpu"),
                                            u=u, return_own=True)
     gpu, _ = sync.quantized_allreduce(grads.to(dev), scheme,
                                       scheme.init_state(dev),
@@ -106,3 +114,110 @@ def test_allreduce_on_card_matches_cpu(dev):
     err = (gpu.cpu() - cpu).abs()
     close = err <= 1e-6 * own.abs().mean(0) + 1e-12
     assert float(close.float().mean()) >= 0.999
+
+
+def _values(dev, nb, bs, dt, offset=0, seed=0):
+    """(nb, bs) values in ``dt`` starting ``offset`` elements into a flat
+    buffer (offset 1 leaves the pointer off 16-byte alignment), with
+    bucket 0 all zero, and their uniforms."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = (torch.randn(nb * bs + offset, generator=g, device=dev)
+            * 0.1).to(dt)
+    vb = flat[offset:].view(nb, bs)
+    vb[0] = 0
+    return vb, torch.rand(nb, bs, generator=g, device=dev)
+
+
+def _check_layout(vb, u, levels, norm, launch=None):
+    """quantize and bucket_stats, in ``launch``'s layout or the one the
+    wrappers pick, against the plain versions; returns the layout."""
+    want = launch or kcuda.bucket_launch(vb.shape[1], vb.element_size(),
+                                         (vb.data_ptr(), u.data_ptr(), 0))
+    before = dict(kcuda.LAYOUTS)
+    c1, n1 = quantize_cuda(vb, u, levels, norm, launch)
+    c2, n2 = ref.quantize_ref(vb, u, levels, norm)
+    assert c1.dtype == c2.dtype
+    torch.testing.assert_close(n1, n2, rtol=1e-5, atol=0)
+    ref.code_mismatches(c1, c2, vb, u, n2, levels)
+    for a, b in zip(bucket_stats_cuda(vb, norm, launch),
+                    ref.bucket_stats_ref(vb, norm)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    torch.cuda.synchronize()
+    for k in ("quantize", "bucket_stats"):
+        key = f"{k}/{want.layout}"
+        assert kcuda.LAYOUTS[key] == before.get(key, 0) + 1
+    assert not c1[0].any() and not n1[0]  # the all-zero bucket
+    return want.layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1024, 8192])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_unaligned_base_pointer_is_staged_in_shared_memory(dev, bs, dt):
+    vb, u = _values(dev, 24, bs, dt, offset=1)
+    assert vb.is_contiguous() and vb.data_ptr() % 16
+    levels = lv.uniform_levels(3, device=dev)
+    assert _check_layout(vb, u, levels, "l2") == "smem"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,layout", [(4097, "smem"), (16384, "smem"),
+                                       (65536, "stream")])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_odd_and_large_buckets(dev, bs, layout, dt):
+    """4097 is no multiple of a vector; 16384 is beyond the register
+    shapes; 65536 f32 does not fit shared memory, and bf16 does."""
+    vb, u = _values(dev, 12, bs, dt)
+    levels = lv.exp_levels(4, device=dev)
+    if bs == 65536 and dt == torch.bfloat16:
+        layout = "smem"
+    assert _check_layout(vb, u, levels, "l2") == layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1024, 8192])
+def test_bf16_values_int16_codes_linf_norm(dev, bs):
+    vb, u = _values(dev, 24, bs, torch.bfloat16)
+    levels = lv.uniform_levels(8, device=dev)
+    assert _check_layout(vb, u, levels, "linf") == "regs"
+    codes, _ = ops.quantize_op(vb, u, levels, norm_type="linf")
+    assert codes.dtype == torch.int16 and int(codes.abs().max()) > 127
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [1024, 8192])
+def test_all_zero_buckets_give_zero_codes_and_stats(dev, bs):
+    vb = torch.zeros(16, bs, device=dev)
+    u = torch.rand(16, bs, device=dev)
+    for norm in ("l2", "linf"):
+        codes, norms = ops.quantize_op(vb, u, lv.uniform_levels(3, device=dev),
+                                       norm_type=norm)
+        assert not codes.any() and not norms.any()
+        for x in ops.bucket_stats_op(vb, norm_type=norm):
+            assert not x.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", [
+    kcuda.BucketLaunch("regs", 256, 32, persistent=True),
+    kcuda.BucketLaunch("regs", 512, 16),
+    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16, persistent=False),
+    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16, persistent=True),
+    kcuda.BucketLaunch("stream", 256, persistent=False),
+    kcuda.BucketLaunch("stream", 256, persistent=True),
+], ids=lambda x: f"{x.layout}-{x.threads}x{x.ept}-p{int(x.persistent)}")
+def test_every_layout_of_a_production_bucket(dev, launch):
+    """More buckets (3000) than the card holds resident blocks, so a
+    persistent block walks several buckets."""
+    vb, u = _values(dev, 3000, 8192, torch.float32)
+    _check_layout(vb, u, lv.exp_levels(3, device=dev), "l2", launch)
+    vb, u = _values(dev, 40, 8192, torch.bfloat16, seed=1)
+    _check_layout(vb, u, lv.uniform_levels(8, device=dev), "linf", launch)
+
+
+@pytest.mark.cuda
+def test_forced_launch_that_does_not_fit_is_refused(dev):
+    vb, u = _values(dev, 4, 8192, torch.float32, offset=1)
+    levels = lv.uniform_levels(3, device=dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        quantize_cuda(vb, u, levels, "l2", kcuda.BucketLaunch("regs", 256, 32))

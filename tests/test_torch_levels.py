@@ -31,8 +31,10 @@ from repro_torch.dist import sync
 @pytest.mark.parametrize("bits", range(1, 9))
 def test_level_grids_match_bit_for_bit(bits):
     for got, want in [
-            (levels.uniform_levels(bits), jlevels.uniform_levels(bits)),
-            (levels.exp_levels(bits, 0.5), jlevels.exp_levels(bits, 0.5))]:
+            (levels.uniform_levels(bits, device="cpu"),
+             jlevels.uniform_levels(bits)),
+            (levels.exp_levels(bits, 0.5, device="cpu"),
+             jlevels.exp_levels(bits, 0.5))]:
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     p = torch.tensor(0.37)
     np.testing.assert_allclose(
@@ -75,7 +77,7 @@ def test_one_level_update_matches_reference(name):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
 
     jnew = jscheme.update_state(jscheme.init_state(), jstats)
-    new = scheme.update_state(scheme.init_state(), stats)
+    new = scheme.update_state(scheme.init_state("cpu"), stats)
     assert new.num_updates == 1
     cd = jscheme._base in ("alq", "alq_n")
     np.testing.assert_allclose(new.levels.numpy(), np.asarray(jnew.levels),
@@ -84,12 +86,12 @@ def test_one_level_update_matches_reference(name):
     np.testing.assert_allclose(float(new.entropy_bits),
                                float(jnew.entropy_bits), rtol=1e-4)
     assert not np.allclose(new.levels.numpy(),
-                           scheme.init_levels().numpy())
+                           scheme.init_levels("cpu").numpy())
 
 
 def test_fixed_schemes_do_not_adapt():
     scheme = QuantScheme(name="qsgdinf", bits=3, bucket_size=256)
-    state = scheme.init_state()
+    state = scheme.init_state("cpu")
     grads = torch.from_numpy(_grads(2, 1000, seed=0))
     assert sync.maybe_update_levels(grads, scheme, state, True) is state
 
@@ -137,7 +139,7 @@ def test_mixture_functions_match_reference():
 def test_level_helpers_match_reference():
     for bits in (1, 2, 3):
         assert levels.num_inner(bits) == jlevels.num_inner(bits)
-    lv = levels.exp_levels(3, 0.5)
+    lv = levels.exp_levels(3, 0.5, device="cpu")
     jlv = jlevels.exp_levels(3, 0.5)
     np.testing.assert_array_equal(levels.level_gaps(lv).numpy(),
                                   np.asarray(jlevels.level_gaps(jlv)))

@@ -91,7 +91,7 @@ def test_one_step_matches_reference():
     jbatch = JPipeline(JDataConfig(kind="markov", vocab_size=256, seq_len=64,
                                    global_batch=8)).batch(0)
     batch = Pipeline(DataConfig(kind="markov", vocab_size=256, seq_len=64,
-                                global_batch=8)).batch(0)
+                                global_batch=8)).batch(0, "cpu")
     np.testing.assert_array_equal(batch["ids"].numpy(), jbatch["ids"])
     params0, new, jm = _reference_step(jcfg, scheme_kw,
                                        {k: np.asarray(v)
@@ -144,7 +144,7 @@ def test_ten_m4_steps_learn_and_adapt_on_schedule():
                                seq_len=64, global_batch=8))
     losses, levels = [], []
     for t in range(10):
-        losses.append(trainer.train_step(pipe.batch(t))["loss"])
+        losses.append(trainer.train_step(pipe.batch(t, "cpu"))["loss"])
         levels.append(trainer.scheme_state.levels.clone())
     assert np.all(np.isfinite(losses))
     assert np.mean(losses[-3:]) < np.mean(losses[:3]) - 0.05
@@ -207,6 +207,6 @@ def test_pipelines_give_the_same_batches(kind):
     tp = Pipeline(DataConfig(kind=kind, vocab_size=97, seq_len=16,
                              global_batch=4, seed=3))
     for step in (0, 5):
-        jb, tb = jp.batch(step), tp.batch(step)
+        jb, tb = jp.batch(step), tp.batch(step, "cpu")
         for k in ("ids", "labels"):
             np.testing.assert_array_equal(tb[k].numpy(), np.asarray(jb[k]))
