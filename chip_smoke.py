@@ -10,9 +10,9 @@ Phases, each of which must pass:
      registers, shared memory and spill bytes (``-Xptxas -v``);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at buckets of 1024 and 8192, f32 and bf16 values, l2 and linf
-     norms, 3-bit and 8-bit grids, and in every bucket layout (shared
-     memory for odd sizes and unaligned pointers, read twice beyond
-     shared memory, persistent grids); then at the shapes phase B gives
+     norms, 3-bit and 8-bit grids, and in every bucket layout (both
+     register shapes at 8192, shared memory for odd sizes and unaligned
+     pointers, read twice beyond shared memory); then at the shapes phase B gives
      them, where each kernel is timed in 3 rounds (median and spread)
      beside its plain version, its bound and its other layouts;
   3. a 4-worker quantized all-reduce on the card against the same call on
@@ -138,7 +138,8 @@ def kernel_grid(ops, ref, lv):
 def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
     """quantize and bucket_stats against their plain versions in each
     bucket layout: odd sizes and unaligned pointers (shared memory),
-    buckets beyond shared memory (read twice), persistent grids."""
+    buckets beyond shared memory (read twice), the other register
+    shape."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
@@ -148,11 +149,9 @@ def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
         ("4097", 40, 4097, 0, None),
         ("16384", 40, 16384, 0, None),
         ("65536 (read twice)", 8, 65536, 0, None),
-        ("stream forced 1024", 40, 1024, 0, BL("stream", 256,
-                                                persistent=False)),
-        ("persistent 8192", 2000, 8192, 0, BL("regs", 256, 32,
-                                              persistent=True)),
-        ("512x16 8192", 40, 8192, 0, BL("regs", 512, 16)),
+        ("stream forced 1024", 40, 1024, 0, BL("stream", 256)),
+        *((f"{t}x{e} {bs}", 40, bs, 0, BL("regs", t, e))
+          for bs, (t, e) in cuda.OTHER_REG_SHAPES.items()),
     ]
     seen = set()
     for name, nb, bs, off, launch in cases:
@@ -165,8 +164,7 @@ def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
             u = torch.rand(nb, bs, generator=g, device=dev)
             want = launch or cuda.bucket_launch(
                 bs, vb.element_size(), (vb.data_ptr(), u.data_ptr(), 0))
-            seen.add(want.layout + (" persistent" if want.persistent
-                                    else ""))
+            seen.add(label(want))
             c1, n1 = quantize_cuda(vb, u, levels, norm, launch)
             c2, n2 = ref.quantize_ref(vb, u, levels, norm)
             check(bool(torch.allclose(n1, n2, rtol=1e-5, atol=0)),
@@ -207,20 +205,16 @@ def build_line(name: str, seconds, report: dict) -> str:
 def label(launch) -> str:
     name = (f"regs {launch.threads}x{launch.ept}" if launch.layout == "regs"
             else launch.layout)
-    return name + (" persistent" if launch.persistent else "")
+    return name
 
 
 def other_layouts(cuda, bs: int, itemsize: int) -> dict:
     """The layouts timed beside the one the wrappers pick at bucket
-    ``bs``: the other grid, the other register shape, shared memory."""
-    import dataclasses
-    pick = cuda.bucket_launch(bs, itemsize, (0,))
-    out = [dataclasses.replace(pick, persistent=not pick.persistent),
-           cuda.BucketLaunch("smem", cuda.block_threads(bs),
-                             smem=bs * itemsize + 16, persistent=False)]
+    ``bs``: the other register shape and shared memory."""
+    out = [cuda.BucketLaunch("smem", cuda.block_threads(bs),
+                             smem=bs * itemsize + 16)]
     if bs in cuda.OTHER_REG_SHAPES:
-        out.append(cuda.BucketLaunch("regs", *cuda.OTHER_REG_SHAPES[bs],
-                                     persistent=pick.persistent))
+        out.append(cuda.BucketLaunch("regs", *cuda.OTHER_REG_SHAPES[bs]))
     return {label(x): x for x in out}
 
 
@@ -275,7 +269,8 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
                     replaces="src/repro/kernels/quantize.py:34",
                     max_abs_err=worst, timings=t, pick=pick, plain_ms=plain,
                     bound_ms=b, bound_by=by, library_ms=None,
-                    entry="quantize_regsIfaLi0ELi3ELi256ELi32E",
+                    entry="quantize_regsIfaLi0ELi3ELi%dELi%dE"
+                    % cuda.REG_SHAPES[BS_B],
                     note=f"({nb}, {BS_B}) f32, {mism} codes off by one at ties"))
 
     vals = ops.bucket_stats_op(vb)
@@ -302,7 +297,7 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
                     replaces="src/repro/kernels/bucket_stats.py:21",
                     max_abs_err=worst, timings=t, pick=pick, plain_ms=plain,
                     bound_ms=b, bound_by=by, library_ms=None,
-                    entry="stats_regsIfLi0ELi256ELi32E",
+                    entry="stats_regsIfLi0ELi%dELi%dE" % cuda.REG_SHAPES[BS_B],
                     note=f"({nb}, {BS_B}) f32"))
     del vb, u, vals
 

@@ -16,8 +16,8 @@
 // shared memory by one bulk async copy, and only a bucket larger than shared
 // memory is read twice (stats_any).  The norm is reduced first; then r is
 // formed exactly as in the plain version, |v| / norm, and the sums of r and
-// r^2 share one block reduction.  A block walks buckets blockIdx.x,
-// + gridDim.x, ... with 64-bit offsets (one block a bucket, or persistent).
+// r^2 share one block reduction.  One block a bucket; a block walks buckets
+// blockIdx.x, + gridDim.x, ... with 64-bit offsets.
 #include "bucket.cuh"
 
 namespace repro {
@@ -123,7 +123,7 @@ struct StatsArgs {
   const void* v;
   float *norms, *mu, *var;
   long long nb;
-  int bs, layout, threads, ept, smem, persistent;
+  int bs, layout, threads, ept, smem;
   cudaStream_t s;
 };
 
@@ -132,14 +132,13 @@ static int run(const StatsArgs& a) {
   if (a.layout == kRegs) {
     return with_reg_shape(a.threads, a.ept, [&](auto t, auto e) {
       return launch_buckets(stats_regs<TIn, NORM, decltype(t)::value, decltype(e)::value>, a.nb,
-                            a.threads, 0, a.persistent, a.s, (const TIn*)a.v, a.norms, a.mu, a.var,
-                            a.nb);
+                            a.threads, 0, a.s, (const TIn*)a.v, a.norms, a.mu, a.var, a.nb);
     });
   }
   auto k = &stats_any<TIn, NORM, false>;
   if (a.layout == kSmem) k = &stats_any<TIn, NORM, true>;
-  return launch_buckets(k, a.nb, a.threads, a.smem, a.persistent, a.s, (const TIn*)a.v, a.norms,
-                        a.mu, a.var, a.nb, a.bs);
+  return launch_buckets(k, a.nb, a.threads, a.smem, a.s, (const TIn*)a.v, a.norms, a.mu, a.var,
+                        a.nb, a.bs);
 }
 
 template <typename TIn>
@@ -153,17 +152,16 @@ static int run_norm(int norm_type, const StatsArgs& a) {
 }  // namespace repro
 
 // Returns the CUDA error of the launch (0 when it was accepted).  The launch
-// shape (layout, threads, ept, smem, persistent) comes from
+// shape (layout, threads, ept, smem) comes from
 // repro_torch/kernels/cuda.py::bucket_launch.
 extern "C" int repro_bucket_stats(const void* v, float* norms, float* mu, float* var, long long nb,
                                   int bs, int in_type, int norm_type, int layout, int threads,
-                                  int ept, int smem, int persistent, void* stream) {
+                                  int ept, int smem, void* stream) {
   using namespace repro;
   if (nb <= 0) return 0;
   if ((in_type != kF32 && in_type != kBF16) || (norm_type != kNormL2 && norm_type != kNormLinf) ||
       (layout != kRegs && layout != kSmem && layout != kStream))
     return (int)cudaErrorInvalidValue;
-  const StatsArgs a{v, norms, mu, var, nb, bs, layout, threads, ept, smem, persistent,
-                    (cudaStream_t)stream};
+  const StatsArgs a{v, norms, mu, var, nb, bs, layout, threads, ept, smem, (cudaStream_t)stream};
   return in_type == kF32 ? run_norm<float>(norm_type, a) : run_norm<__nv_bfloat16>(norm_type, a);
 }

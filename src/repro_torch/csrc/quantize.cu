@@ -35,8 +35,8 @@
 //    r = clamp(|x| / safe, 0, 1), tau = #(levels <= r) - 1 clamped to
 //    [0, L-2], rho = (r - a) / max(c - a, 1e-30), code = (tau + (u < rho))
 //    * sign(x).  Only the norm's sum order differs.
-//  - A block walks buckets blockIdx.x, + gridDim.x, ... with 64-bit offsets,
-//    so one kernel runs one block a bucket or as a persistent grid.
+//  - One block a bucket; a block walks buckets blockIdx.x, + gridDim.x, ...
+//    with 64-bit offsets, so any bucket count is covered.
 #include "bucket.cuh"
 
 namespace repro {
@@ -188,7 +188,7 @@ struct QuantizeArgs {
   void* codes;
   float* norms;
   long long nb;
-  int bs, L, layout, threads, ept, logp, smem, persistent;
+  int bs, L, layout, threads, ept, logp, smem;
   cudaStream_t s;
 };
 
@@ -196,7 +196,7 @@ template <typename TIn, typename TCode, int NORM, int LOGP>
 static int run_regs(const QuantizeArgs& a) {
   return with_reg_shape(a.threads, a.ept, [&](auto t, auto e) {
     return launch_buckets(quantize_regs<TIn, TCode, NORM, LOGP, decltype(t)::value, decltype(e)::value>,
-                          a.nb, a.threads, 0, a.persistent, a.s, (const TIn*)a.v, a.u, a.levels,
+                          a.nb, a.threads, 0, a.s, (const TIn*)a.v, a.u, a.levels,
                           (TCode*)a.codes, a.norms, a.nb, a.L);
   });
 }
@@ -205,7 +205,7 @@ template <typename TIn, typename TCode, int NORM>
 static int run_any(const QuantizeArgs& a) {
   auto k = &quantize_any<TIn, TCode, NORM, false>;
   if (a.layout == kSmem) k = &quantize_any<TIn, TCode, NORM, true>;
-  return launch_buckets(k, a.nb, a.threads, a.smem, a.persistent, a.s, (const TIn*)a.v, a.u,
+  return launch_buckets(k, a.nb, a.threads, a.smem, a.s, (const TIn*)a.v, a.u,
                         a.levels, (TCode*)a.codes, a.norms, a.nb, a.bs, a.L);
 }
 
@@ -238,12 +238,12 @@ static int run_norm(int code_type, int norm_type, const QuantizeArgs& a) {
 }  // namespace repro
 
 // Returns the CUDA error of the launch (0 when it was accepted).  The launch
-// shape (search_bits, layout, threads, ept, smem, persistent) comes from
+// shape (search_bits, layout, threads, ept, smem) comes from
 // repro_torch/kernels/cuda.py::search_bits and bucket_launch.
 extern "C" int repro_quantize(const void* v, const float* u, const float* levels, void* codes,
                               float* norms, long long nb, int bs, int L, int in_type,
                               int code_type, int norm_type, int search_bits, int layout,
-                              int threads, int ept, int smem, int persistent, void* stream) {
+                              int threads, int ept, int smem, void* stream) {
   using namespace repro;
   if (nb <= 0) return 0;
   if (L < 2 || L > kMaxLevels || search_bits < 1 || search_bits > 8 ||
@@ -251,9 +251,8 @@ extern "C" int repro_quantize(const void* v, const float* u, const float* levels
       (code_type != kI8 && code_type != kI16) || (norm_type != kNormL2 && norm_type != kNormLinf) ||
       (layout != kRegs && layout != kSmem && layout != kStream))
     return (int)cudaErrorInvalidValue;
-  const QuantizeArgs a{v,       u,    levels, codes, norms,       nb,         bs,
-                       L,       layout, threads, ept,  search_bits, smem, persistent,
-                       (cudaStream_t)stream};
+  const QuantizeArgs a{v,       u,      levels,  codes, norms,       nb,  bs,
+                       L,       layout, threads, ept,   search_bits, smem, (cudaStream_t)stream};
   return in_type == kF32 ? run_norm<float>(code_type, norm_type, a)
                          : run_norm<__nv_bfloat16>(code_type, norm_type, a);
 }

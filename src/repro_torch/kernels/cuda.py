@@ -50,23 +50,22 @@ LAYOUT_CODES = {"regs": 0, "smem": 1, "stream": 2}
 # Register-resident shapes, bucket size -> (threads, elements a thread),
 # that bucket_launch picks; csrc/bucket.cuh::with_reg_shape compiles these
 # and OTHER_REG_SHAPES, which chip_smoke.py times beside them.
-REG_SHAPES = {1024: (128, 8), 8192: (256, 32)}
-OTHER_REG_SHAPES = {8192: (512, 16)}
+REG_SHAPES = {1024: (128, 8), 8192: (512, 16)}
+OTHER_REG_SHAPES = {8192: (256, 32)}
 SMEM_LIMIT = 232_448   # shared memory a block may use on sm_90, bytes
 STATIC_SMEM = 4_096    # kept for the kernels' own tables and barrier
-PERSISTENT = False     # one block a bucket (chip_smoke.py times both)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> (C function, its argument types)
 KERNELS = {
     "quantize": ("repro_quantize",
                  (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                  _I, _I, _I, _I, _I, _I, _P)),
+                  _I, _I, _I, _I, _I, _P)),
     "dequantize": ("repro_dequantize",
                    (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P)),
     "bucket_stats": ("repro_bucket_stats",
                      (_P, _P, _P, _P, _LL, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _P)),
+                      _I, _I, _I, _I, _P)),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -171,11 +170,9 @@ class BucketLaunch:
     threads: int       # a block's threads
     ept: int = 0       # elements a thread holds in registers ("regs")
     smem: int = 0      # dynamic shared memory, bytes ("smem")
-    persistent: bool = PERSISTENT
 
-    def args(self) -> tuple[int, int, int, int, int]:
-        return (LAYOUT_CODES[self.layout], self.threads, self.ept, self.smem,
-                int(self.persistent))
+    def args(self) -> tuple[int, int, int, int]:
+        return (LAYOUT_CODES[self.layout], self.threads, self.ept, self.smem)
 
 
 def bucket_launch(bs: int, itemsize: int, ptrs: Sequence[int]
@@ -194,9 +191,8 @@ def bucket_launch(bs: int, itemsize: int, ptrs: Sequence[int]
         return BucketLaunch("regs", *REG_SHAPES[bs])
     smem = bs * itemsize + 16     # + room to align the bulk copy
     if smem + STATIC_SMEM <= SMEM_LIMIT:
-        return BucketLaunch("smem", block_threads(bs), smem=smem,
-                            persistent=False)
-    return BucketLaunch("stream", block_threads(bs), persistent=False)
+        return BucketLaunch("smem", block_threads(bs), smem=smem)
+    return BucketLaunch("stream", block_threads(bs))
 
 
 def checked_launch(launch: BucketLaunch | None, bs: int, itemsize: int,

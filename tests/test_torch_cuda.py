@@ -199,16 +199,15 @@ def test_all_zero_buckets_give_zero_codes_and_stats(dev, bs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("launch", [
-    kcuda.BucketLaunch("regs", 256, 32, persistent=True),
+    kcuda.BucketLaunch("regs", 256, 32),
     kcuda.BucketLaunch("regs", 512, 16),
-    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16, persistent=False),
-    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16, persistent=True),
-    kcuda.BucketLaunch("stream", 256, persistent=False),
-    kcuda.BucketLaunch("stream", 256, persistent=True),
-], ids=lambda x: f"{x.layout}-{x.threads}x{x.ept}-p{int(x.persistent)}")
+    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16),
+    kcuda.BucketLaunch("smem", 512, smem=8192 * 4 + 16),
+    kcuda.BucketLaunch("stream", 256),
+    kcuda.BucketLaunch("stream", 128),
+], ids=lambda x: f"{x.layout}-{x.threads}x{x.ept}")
 def test_every_layout_of_a_production_bucket(dev, launch):
-    """More buckets (3000) than the card holds resident blocks, so a
-    persistent block walks several buckets."""
+    """More buckets (3000) than the card holds resident blocks."""
     vb, u = _values(dev, 3000, 8192, torch.float32)
     _check_layout(vb, u, lv.exp_levels(3, device=dev), "l2", launch)
     vb, u = _values(dev, 40, 8192, torch.bfloat16, seed=1)

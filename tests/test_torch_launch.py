@@ -56,7 +56,6 @@ def test_shared_memory_stays_within_a_block(bs, itemsize):
     else:
         assert launch.layout == "stream" and launch.smem == 0
         assert bs * itemsize + 16 + cuda.STATIC_SMEM > cuda.SMEM_LIMIT
-    assert not (launch.layout != "regs" and launch.persistent)
 
 
 @pytest.mark.parametrize("L,bits", [(2, 3), (8, 3), (9, 3), (10, 4), (16, 4),
@@ -70,10 +69,10 @@ def test_search_table_holds_levels_below_the_top(L, bits):
 
 
 def test_launch_args_follow_the_c_interface():
-    launch = cuda.BucketLaunch("smem", 256, smem=4096, persistent=False)
-    assert launch.args() == (1, 256, 0, 4096, 0)
-    regs = cuda.BucketLaunch("regs", 256, 32, persistent=True)
-    assert regs.args() == (0, 256, 32, 0, 1)
+    launch = cuda.BucketLaunch("smem", 256, smem=4096)
+    assert launch.args() == (1, 256, 0, 4096)
+    regs = cuda.BucketLaunch("regs", 256, 32)
+    assert regs.args() == (0, 256, 32, 0)
 
 
 def test_c_and_python_name_the_same_layouts_and_shapes():
@@ -97,12 +96,12 @@ def test_c_and_python_name_the_same_layouts_and_shapes():
     (cuda.BucketLaunch("regs", 256, 32), ALIGNED, 1024, 4, "does not fit"),
     (cuda.BucketLaunch("regs", 64, 128), ALIGNED, 8192, 4, "does not fit"),
     (cuda.BucketLaunch("regs", 256, 32), (1, 16), 8192, 4, "does not fit"),
-    (cuda.BucketLaunch("smem", 256, smem=1000, persistent=False), ALIGNED,
-     8192, 4, "does not fit"),
-    (cuda.BucketLaunch("smem", 256, smem=240_000, persistent=False), ALIGNED,
-     8192, 4, "does not fit"),
-    (cuda.BucketLaunch("smem", 100, smem=40_000, persistent=False), ALIGNED,
-     8192, 4, "bad launch"),
+    (cuda.BucketLaunch("smem", 256, smem=1000), ALIGNED, 8192, 4,
+     "does not fit"),
+    (cuda.BucketLaunch("smem", 256, smem=240_000), ALIGNED, 8192, 4,
+     "does not fit"),
+    (cuda.BucketLaunch("smem", 100, smem=40_000), ALIGNED, 8192, 4,
+     "bad launch"),
     (cuda.BucketLaunch("tiles", 256), ALIGNED, 8192, 4, "bad launch"),
 ])
 def test_forced_launches_that_do_not_fit_are_refused(launch, ptrs, bs,
@@ -112,10 +111,10 @@ def test_forced_launches_that_do_not_fit_are_refused(launch, ptrs, bs,
 
 
 @pytest.mark.parametrize("launch,bs", [
-    (cuda.BucketLaunch("regs", 512, 16), 8192),
-    (cuda.BucketLaunch("regs", 128, 8, persistent=True), 1024),
-    (cuda.BucketLaunch("smem", 256, smem=32784, persistent=False), 8192),
-    (cuda.BucketLaunch("stream", 256, persistent=True), 8192),
+    (cuda.BucketLaunch("regs", 256, 32), 8192),
+    (cuda.BucketLaunch("regs", 128, 8), 1024),
+    (cuda.BucketLaunch("smem", 256, smem=32784), 8192),
+    (cuda.BucketLaunch("stream", 256), 8192),
 ])
 def test_forced_launches_that_fit_are_kept(launch, bs):
     assert cuda.checked_launch(launch, bs, 4, ALIGNED) is launch
