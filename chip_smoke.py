@@ -12,9 +12,10 @@ Phases, each of which must pass:
      card, at buckets of 1024 and 8192, f32 and bf16 values, l2 and linf
      norms, 3-bit and 8-bit grids, and in every bucket layout (both
      register shapes at 8192, shared memory for odd sizes and unaligned
-     pointers, read twice beyond shared memory); then at the shapes phase B gives
-     them, where each kernel is timed in 3 rounds (median and spread)
-     beside its plain version, its bound and its other layouts;
+     pointers, read twice beyond shared memory); then at the shapes
+     phase B gives them, where each kernel is timed in 3 rounds (median
+     and spread) beside its plain version, its bound and its other
+     layouts;
   3. a 4-worker quantized all-reduce on the card against the same call on
      the CPU (the plain versions), with the same uniforms;
   4. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
@@ -203,9 +204,8 @@ def build_line(name: str, seconds, report: dict) -> str:
 
 
 def label(launch) -> str:
-    name = (f"regs {launch.threads}x{launch.ept}" if launch.layout == "regs"
+    return (f"regs {launch.threads}x{launch.ept}" if launch.layout == "regs"
             else launch.layout)
-    return name
 
 
 def other_layouts(cuda, bs: int, itemsize: int) -> dict:
@@ -336,8 +336,11 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
         k["ms"], k["ms_spread"] = timings.pop(k["pick"])
         k["bound_share"] = k["bound_ms"] / k["ms"]
         k["other_layouts_ms"] = {name: ms for name, (ms, _) in timings.items()}
-        entry = [v for e, v in cuda.ptxas_report(k["name"]).items()
-                 if k["entry"] in e]
+        entry = "; ".join(
+            f"{v['registers']} registers, {v['spill_stores']} + "
+            f"{v['spill_loads']} spill bytes"
+            for e, v in cuda.ptxas_report(k["name"]).items()
+            if k["entry"] in e)
         others_txt = "".join(f"; {name} {ms:.3f} ms (spread {sp:.3f})"
                              for name, (ms, sp) in timings.items())
         print(f"main-path shape {k['name']}: {k['note']}, {k['pick']}: "
@@ -345,7 +348,7 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
               f"rounds), plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}), "
               f"{k['bound_share']:.0%} of bound, max abs err "
-              f"{k['max_abs_err']:.3g}, ptxas {entry}{others_txt}",
+              f"{k['max_abs_err']:.3g}, ptxas: {entry}{others_txt}",
               flush=True)
     return out
 

@@ -28,7 +28,8 @@ __host__ __device__ constexpr int vec_of() { return 16 / (int)sizeof(TIn); }
 
 // Calls f(threads, ept) as compile-time constants for each register-resident
 // shape (threads, elements a thread) the kernels are compiled for;
-// repro_torch/kernels/cuda.py::REG_SHAPES names the same shapes.
+// repro_torch/kernels/cuda.py's REG_SHAPES and OTHER_REG_SHAPES name the
+// same shapes.
 template <typename F>
 static int with_reg_shape(int threads, int ept, F&& f) {
   using std::integral_constant;
