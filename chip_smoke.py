@@ -10,12 +10,11 @@ Phases, each of which must pass:
      registers, shared memory and spill bytes (``-Xptxas -v``);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at buckets of 1024 and 8192, f32 and bf16 values, l2 and linf
-     norms, 3-bit and 8-bit grids, and in every bucket layout (both
-     register shapes at 8192, shared memory for odd sizes and unaligned
+     norms, 3-bit and 8-bit grids, and in every bucket layout (registers
+     at 1024 and 8192, shared memory for odd sizes and unaligned
      pointers, read twice beyond shared memory); then at the shapes
      phase B gives them, where each kernel is timed in 3 rounds (median
-     and spread) beside its plain version, its bound and its other
-     layouts;
+     and spread) beside its plain version and its bound;
   3. a 4-worker quantized all-reduce on the card against the same call on
      the CPU (the plain versions), with the same uniforms;
   4. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
@@ -137,25 +136,21 @@ def kernel_grid(ops, ref, lv):
 
 
 def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
-    """quantize and bucket_stats against their plain versions in each
-    bucket layout: odd sizes and unaligned pointers (shared memory),
-    buckets beyond shared memory (read twice), the other register
-    shape."""
+    """quantize and bucket_stats against their plain versions in the
+    bucket layouts that the kernel grid does not reach: odd sizes and
+    unaligned pointers (shared memory), buckets beyond shared memory
+    (read twice in f32)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
-    BL = cuda.BucketLaunch
-    cases = [  # (name, nb, bs, element offset, forced launch)
-        ("unaligned 8192", 40, 8192, 1, None),
-        ("4097", 40, 4097, 0, None),
-        ("16384", 40, 16384, 0, None),
-        ("65536 (read twice)", 8, 65536, 0, None),
-        ("stream forced 1024", 40, 1024, 0, BL("stream", 256)),
-        *((f"{t}x{e} {bs}", 40, bs, 0, BL("regs", t, e))
-          for bs, (t, e) in cuda.OTHER_REG_SHAPES.items()),
+    cases = [  # (name, nb, bs, element offset)
+        ("unaligned 8192", 40, 8192, 1),
+        ("4097", 40, 4097, 0),
+        ("16384", 40, 16384, 0),
+        ("65536", 8, 65536, 0),
     ]
     seen = set()
-    for name, nb, bs, off, launch in cases:
+    for name, nb, bs, off in cases:
         for dt, norm, bits in ((torch.float32, "l2", 3),
                                (torch.bfloat16, "linf", 8)):
             levels = lv.uniform_levels(bits, device=dev)
@@ -163,19 +158,20 @@ def layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda):
             vb = flat.to(dt)[off:].view(nb, bs)
             vb[0] = 0  # an all-zero bucket
             u = torch.rand(nb, bs, generator=g, device=dev)
-            want = launch or cuda.bucket_launch(
+            want = cuda.bucket_launch(
                 bs, vb.element_size(), (vb.data_ptr(), u.data_ptr(), 0))
             seen.add(label(want))
-            c1, n1 = quantize_cuda(vb, u, levels, norm, launch)
+            c1, n1 = quantize_cuda(vb, u, levels, norm)
             c2, n2 = ref.quantize_ref(vb, u, levels, norm)
             check(bool(torch.allclose(n1, n2, rtol=1e-5, atol=0)),
                   f"quantize norms, layout case {name}")
             ref.code_mismatches(c1, c2, vb, u, n2, levels)
-            for a, b in zip(bucket_stats_cuda(vb, norm, launch),
+            for a, b in zip(bucket_stats_cuda(vb, norm),
                             ref.bucket_stats_ref(vb, norm)):
                 check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
                       f"bucket_stats, layout case {name}")
     torch.cuda.synchronize()
+    check(seen == {"smem", "stream"}, f"layout grid reached {sorted(seen)}")
     print(f"layout grid: {len(cases) * 2} cases per kernel agree with the "
           f"plain versions, layouts {sorted(seen)}", flush=True)
 
@@ -208,21 +204,10 @@ def label(launch) -> str:
             else launch.layout)
 
 
-def other_layouts(cuda, bs: int, itemsize: int) -> dict:
-    """The layouts timed beside the one the wrappers pick at bucket
-    ``bs``: the other register shape and shared memory."""
-    out = [cuda.BucketLaunch("smem", cuda.block_threads(bs),
-                             smem=bs * itemsize + 16)]
-    if bs in cuda.OTHER_REG_SHAPES:
-        out.append(cuda.BucketLaunch("regs", *cuda.OTHER_REG_SHAPES[bs]))
-    return {label(x): x for x in out}
-
-
-def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
-                      quantize_cuda, bucket_stats_cuda):
+def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     """Each kernel at the shapes phase B gives it: agreement, kernel ms
-    (median and spread of 3 rounds) beside its other layouts, plain ms
-    (row chunks, to bound its temporaries) and the bound."""
+    (median and spread of 3 rounds), plain ms (row chunks, to bound its
+    temporaries) and the bound."""
     import torch
     dev = torch.device("cuda")
     plan = codec_for_scheme(QuantScheme(bits=3, bucket_size=BS_B)).plan(D_B)
@@ -233,7 +218,6 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
     chunks = 8
     rows = -(-nb // chunks)
     parts = range(0, nb, rows)
-    others = other_layouts(cuda, BS_B, 4)
     pick = label(cuda.bucket_launch(BS_B, 4, (0,)))
     out = []
 
@@ -243,24 +227,14 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
     worst, mism = 0.0, 0
     for i in parts:
         c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], levels, "l2")
+        check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5, atol=0)),
+              "quantize norms at phase B's shape beyond rtol 1e-5")
         worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
         mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
                                     u[i:i + rows], n2, levels)
         del c2, n2
-    for name, lay in others.items():  # agree with the picked layout
-        c, nm = quantize_cuda(vb, u, levels, "l2", lay)
-        check(bool(torch.allclose(nm, norms, rtol=1e-5, atol=0)),
-              f"quantize {name} norms at phase B's shape")
-        for i in parts:
-            ref.code_mismatches(c[i:i + rows], codes[i:i + rows],
-                                vb[i:i + rows], u[i:i + rows],
-                                norms[i:i + rows], levels)
-        del c, nm
     del codes, norms
-    fns = {pick: lambda: ops.quantize_op(vb, u, levels)}
-    fns.update({k: (lambda lay=lay: quantize_cuda(vb, u, levels, "l2", lay))
-                for k, lay in others.items()})
-    t = timed_rounds(fns, 5)
+    t = timed_rounds({pick: lambda: ops.quantize_op(vb, u, levels)}, 5)
     plain = timed(lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows],
                                             levels, "l2") for i in parts], 1)
     # reads v (4 B) and u (4 B), writes a code (1 B); ~20 operations each
@@ -280,14 +254,7 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
             check(torch.allclose(a[i:i + rows], r, rtol=1e-5, atol=1e-7),
                   "bucket_stats at phase B's shape beyond rtol 1e-5")
             worst = max(worst, float((a[i:i + rows] - r).abs().max()))
-    for name, lay in others.items():
-        for a, r in zip(bucket_stats_cuda(vb, "l2", lay), vals):
-            check(torch.allclose(a, r, rtol=1e-5, atol=1e-7),
-                  f"bucket_stats {name} at phase B's shape")
-    fns = {pick: lambda: ops.bucket_stats_op(vb)}
-    fns.update({k: (lambda lay=lay: bucket_stats_cuda(vb, "l2", lay))
-                for k, lay in others.items()})
-    t = timed_rounds(fns, 5)
+    t = timed_rounds({pick: lambda: ops.bucket_stats_op(vb)}, 5)
     plain = timed(lambda: [ref.bucket_stats_ref(vb[i:i + rows], "l2")
                            for i in parts], 1)
     # reads v (4 B), writes 3 floats a bucket; ~8 operations an element
@@ -335,20 +302,17 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme,
         timings = k.pop("timings")
         k["ms"], k["ms_spread"] = timings.pop(k["pick"])
         k["bound_share"] = k["bound_ms"] / k["ms"]
-        k["other_layouts_ms"] = {name: ms for name, (ms, _) in timings.items()}
         entry = "; ".join(
             f"{v['registers']} registers, {v['spill_stores']} + "
             f"{v['spill_loads']} spill bytes"
             for e, v in cuda.ptxas_report(k["name"]).items()
             if k["entry"] in e)
-        others_txt = "".join(f"; {name} {ms:.3f} ms (spread {sp:.3f})"
-                             for name, (ms, sp) in timings.items())
         print(f"main-path shape {k['name']}: {k['note']}, {k['pick']}: "
               f"kernel {k['ms']:.3f} ms (spread {k['ms_spread']:.3f} over 3 "
               f"rounds), plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.3f} ms ({k['bound_by']}), "
               f"{k['bound_share']:.0%} of bound, max abs err "
-              f"{k['max_abs_err']:.3g}, ptxas: {entry}{others_txt}",
+              f"{k['max_abs_err']:.3g}, ptxas: {entry}",
               flush=True)
     return out
 
@@ -419,7 +383,7 @@ def main() -> None:
     kernel_grid(ops, ref, lv)
     layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda)
     kernels = main_path_kernels(ops, ref, lv, cuda, codec_for_scheme,
-                                QuantScheme, quantize_cuda, bucket_stats_cuda)
+                                QuantScheme)
     sync_check(sync, QuantScheme, codec_for_scheme)
 
     # ---- phase A ----
@@ -485,7 +449,7 @@ def main() -> None:
         k["route"] = "cuda"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_share", "ms_spread", "other_layouts_ms")
+            "bound_share", "ms_spread")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,6 @@
 // norm, and the launch.
 #pragma once
 
-#include <algorithm>
 #include <climits>
 #include <initializer_list>
 #include <type_traits>
@@ -28,14 +27,11 @@ __host__ __device__ constexpr int vec_of() { return 16 / (int)sizeof(TIn); }
 
 // Calls f(threads, ept) as compile-time constants for each register-resident
 // shape (threads, elements a thread) the kernels are compiled for;
-// repro_torch/kernels/cuda.py's REG_SHAPES and OTHER_REG_SHAPES name the
-// same shapes.
+// repro_torch/kernels/cuda.py's REG_SHAPES names the same shapes.
 template <typename F>
 static int with_reg_shape(int threads, int ept, F&& f) {
   using std::integral_constant;
   if (threads == 128 && ept == 8) return f(integral_constant<int, 128>{}, integral_constant<int, 8>{});
-  if (threads == 256 && ept == 32)
-    return f(integral_constant<int, 256>{}, integral_constant<int, 32>{});
   if (threads == 512 && ept == 16)
     return f(integral_constant<int, 512>{}, integral_constant<int, 16>{});
   return (int)cudaErrorInvalidValue;
@@ -99,10 +95,10 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// Waits until phase `parity` of the barrier has completed.  A copy that has
-// not landed after 2^26 polls (each of which may itself wait) is a fault:
-// the kernel traps rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+// Waits until the barrier's first phase has completed.  A copy that has not
+// landed after 2^26 polls (each of which may itself wait) is a fault: the
+// kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {
     if (polls == (1u << 26)) __trap();
@@ -111,7 +107,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
         "selp.u32 %0, 1, 0, p;\n\t}"
         : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
+        : "r"(smem_addr(bar)), "r"(0)
         : "memory");
   }
 }
@@ -119,12 +115,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // Copies bucket g[0, bs) into the dynamic shared memory `dyn` (at least
 // bs * sizeof(TIn) + 16 bytes, 16-byte aligned) and returns where element 0
 // landed.  The whole 16-byte vectors between the bucket's unaligned ends go
-// by one bulk async copy (TMA) that completes phase `parity` of `bar`; the
-// ends, under 16 bytes each, are copied by the threads.  Synchronises the
-// block; the caller synchronises again before the next call reuses `dyn`.
+// by one bulk async copy (TMA) that completes the first phase of `bar`; the
+// ends, under 16 bytes each, are copied by the threads.  Called once a block;
+// synchronises the block.
 template <typename TIn>
 __device__ __forceinline__ const TIn* stage_bucket(const TIn* g, int bs, unsigned char* dyn,
-                                                   uint64_t* bar, uint32_t parity) {
+                                                   uint64_t* bar) {
   constexpr int A = vec_of<TIn>();
   const int head = min(bs, (int)(((16u - ((uint32_t)(uintptr_t)g & 15u)) & 15u) / sizeof(TIn)));
   const int body = (bs - head) / A * A;
@@ -132,8 +128,6 @@ __device__ __forceinline__ const TIn* stage_bucket(const TIn* g, int bs, unsigne
   TIn* s = reinterpret_cast<TIn*>(dyn) + (A - head) % A;
   if (threadIdx.x == 0) {
     const uint32_t bytes = (uint32_t)body * sizeof(TIn);
-    // the block's reads of the previous bucket are ordered before the copy
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
                  "r"(bytes)
                  : "memory");
@@ -147,15 +141,18 @@ __device__ __forceinline__ const TIn* stage_bucket(const TIn* g, int bs, unsigne
   for (int i = threadIdx.x; i < head; i += blockDim.x) s[i] = g[i];
   for (int i = head + body + threadIdx.x; i < bs; i += blockDim.x) s[i] = g[i];
   __syncthreads();
-  mbar_wait(bar, parity);
+  mbar_wait(bar);
   return s;
 }
 
-// Launches `kernel` over nb buckets on stream `s`, one block a bucket, and
-// returns the CUDA error of the launch (0 when it was accepted).  A block
-// walks buckets blockIdx.x, + gridDim.x, ..., so that more buckets than a
-// grid may have blocks are covered too.  (A persistent grid of as many
-// blocks as the card holds at once measured no faster on the H100.)
+// The most buckets a launch takes: one block a bucket, and a grid has at most
+// 2^31 - 1 blocks.
+constexpr long long kMaxBuckets = INT_MAX;
+
+// Launches `kernel` over nb buckets (1 <= nb <= kMaxBuckets) on stream `s`,
+// block b on bucket b, and returns the CUDA error of the launch (0 when it
+// was accepted).  (A persistent grid of as many blocks as the card holds at
+// once, each walking buckets, measured no faster on the H100.)
 template <typename... P, typename... A>
 static int launch_buckets(void (*kernel)(P...), long long nb, int threads, int smem,
                           cudaStream_t s, A... args) {
@@ -164,7 +161,7 @@ static int launch_buckets(void (*kernel)(P...), long long nb, int threads, int s
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<(unsigned)std::min(nb, (long long)INT_MAX), threads, smem, s>>>(args...);
+  kernel<<<(unsigned)nb, threads, smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 

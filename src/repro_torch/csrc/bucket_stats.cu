@@ -16,8 +16,8 @@
 // shared memory by one bulk async copy, and only a bucket larger than shared
 // memory is read twice (stats_any).  The norm is reduced first; then r is
 // formed exactly as in the plain version, |v| / norm, and the sums of r and
-// r^2 share one block reduction.  One block a bucket; a block walks buckets
-// blockIdx.x, + gridDim.x, ... with 64-bit offsets.
+// r^2 share one block reduction.  One block a bucket (block b on bucket b, up
+// to 2^31 - 1 buckets), with 64-bit offsets.
 #include "bucket.cuh"
 
 namespace repro {
@@ -49,7 +49,7 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float* scratch) {
   return make_float2(a, b);
 }
 
-__device__ __forceinline__ void write_stats(long long b, float norm, float2 s, int bs,
+__device__ __forceinline__ void write_stats(int64_t b, float norm, float2 s, int bs,
                                             float* norms, float* mu, float* var) {
   const float m = s.x / (float)bs;
   norms[b] = norm;
@@ -61,62 +61,57 @@ __device__ __forceinline__ void write_stats(long long b, float norm, float2 s, i
 template <typename TIn, int NORM, int THREADS, int EPT>
 __global__ void __launch_bounds__(THREADS)
     stats_regs(const TIn* __restrict__ v, float* __restrict__ norms, float* __restrict__ mu,
-               float* __restrict__ var, long long nb) {
+               float* __restrict__ var) {
   constexpr int VEC = vec_of<TIn>();
   constexpr int NV = EPT / VEC;
   static_assert(EPT % VEC == 0, "a thread holds whole vectors");
   __shared__ float scratch[64];
-  for (long long b = blockIdx.x; b < nb; b += gridDim.x) {
-    const int64_t base = b * (THREADS * EPT);
-    float x[EPT];
+  const int64_t b = blockIdx.x;
+  const int64_t base = b * (THREADS * EPT);
+  float x[EPT];
 #pragma unroll
-    for (int k = 0; k < NV; ++k) load16(v + base + (k * THREADS + threadIdx.x) * VEC, x + k * VEC);
-    float acc = 0.f;
+  for (int k = 0; k < NV; ++k) load16(v + base + (k * THREADS + threadIdx.x) * VEC, x + k * VEC);
+  float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) acc = norm_step<NORM>(acc, x[e]);
-    const float norm = norm_of<NORM>(acc, scratch);
-    const float safe = norm > 0.f ? norm : 1.f;
-    float s1 = 0.f, s2 = 0.f;
+  for (int e = 0; e < EPT; ++e) acc = norm_step<NORM>(acc, x[e]);
+  const float norm = norm_of<NORM>(acc, scratch);
+  const float safe = norm > 0.f ? norm : 1.f;
+  float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) {
-      const float r = fabsf(x[e]) / safe;
-      s1 += r;
-      s2 += r * r;
-    }
-    const float2 s = block_sum2(s1, s2, scratch);
-    if (threadIdx.x == 0) write_stats(b, norm, s, THREADS * EPT, norms, mu, var);
+  for (int e = 0; e < EPT; ++e) {
+    const float r = fabsf(x[e]) / safe;
+    s1 += r;
+    s2 += r * r;
   }
+  const float2 s = block_sum2(s1, s2, scratch);
+  if (threadIdx.x == 0) write_stats(b, norm, s, THREADS * EPT, norms, mu, var);
 }
 
 // Buckets of any size and alignment: staged in shared memory (STAGE), or
 // read twice from device memory when they do not fit.
 template <typename TIn, int NORM, bool STAGE>
 __global__ void stats_any(const TIn* __restrict__ v, float* __restrict__ norms,
-                          float* __restrict__ mu, float* __restrict__ var, long long nb, int bs) {
+                          float* __restrict__ mu, float* __restrict__ var, int bs) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float scratch[64];
   __shared__ uint64_t bar;
   if (STAGE && threadIdx.x == 0) mbar_init(&bar);
   __syncthreads();
-  uint32_t parity = 0;
-  for (long long b = blockIdx.x; b < nb; b += gridDim.x, parity ^= 1u) {
-    const TIn* src = v + b * bs;
-    if constexpr (STAGE) src = stage_bucket(src, bs, dyn, &bar, parity);
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) acc = norm_step<NORM>(acc, to_f32(src[i]));
-    const float norm = norm_of<NORM>(acc, scratch);
-    const float safe = norm > 0.f ? norm : 1.f;
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) {
-      const float r = fabsf(to_f32(src[i])) / safe;
-      s1 += r;
-      s2 += r * r;
-    }
-    // block_sum2's first barrier also orders every read of dyn before the
-    // next bucket lands in it
-    const float2 s = block_sum2(s1, s2, scratch);
-    if (threadIdx.x == 0) write_stats(b, norm, s, bs, norms, mu, var);
+  const int64_t b = blockIdx.x;
+  const TIn* src = v + b * bs;
+  if constexpr (STAGE) src = stage_bucket(src, bs, dyn, &bar);
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < bs; i += blockDim.x) acc = norm_step<NORM>(acc, to_f32(src[i]));
+  const float norm = norm_of<NORM>(acc, scratch);
+  const float safe = norm > 0.f ? norm : 1.f;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < bs; i += blockDim.x) {
+    const float r = fabsf(to_f32(src[i])) / safe;
+    s1 += r;
+    s2 += r * r;
   }
+  const float2 s = block_sum2(s1, s2, scratch);
+  if (threadIdx.x == 0) write_stats(b, norm, s, bs, norms, mu, var);
 }
 
 struct StatsArgs {
@@ -132,13 +127,13 @@ static int run(const StatsArgs& a) {
   if (a.layout == kRegs) {
     return with_reg_shape(a.threads, a.ept, [&](auto t, auto e) {
       return launch_buckets(stats_regs<TIn, NORM, decltype(t)::value, decltype(e)::value>, a.nb,
-                            a.threads, 0, a.s, (const TIn*)a.v, a.norms, a.mu, a.var, a.nb);
+                            a.threads, 0, a.s, (const TIn*)a.v, a.norms, a.mu, a.var);
     });
   }
   auto k = &stats_any<TIn, NORM, false>;
   if (a.layout == kSmem) k = &stats_any<TIn, NORM, true>;
   return launch_buckets(k, a.nb, a.threads, a.smem, a.s, (const TIn*)a.v, a.norms, a.mu, a.var,
-                        a.nb, a.bs);
+                        a.bs);
 }
 
 template <typename TIn>
@@ -159,7 +154,8 @@ extern "C" int repro_bucket_stats(const void* v, float* norms, float* mu, float*
                                   int ept, int smem, void* stream) {
   using namespace repro;
   if (nb <= 0) return 0;
-  if ((in_type != kF32 && in_type != kBF16) || (norm_type != kNormL2 && norm_type != kNormLinf) ||
+  if (nb > kMaxBuckets || (in_type != kF32 && in_type != kBF16) ||
+      (norm_type != kNormL2 && norm_type != kNormLinf) ||
       (layout != kRegs && layout != kSmem && layout != kStream))
     return (int)cudaErrorInvalidValue;
   const StatsArgs a{v, norms, mu, var, nb, bs, layout, threads, ept, smem, (cudaStream_t)stream};

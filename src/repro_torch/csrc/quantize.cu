@@ -27,16 +27,17 @@
 //  - Codes are packed into 4-, 8- or 16-byte stores with evict-first hints:
 //    decode does not read them soon.
 //  - The search table holds levels 0..L-2 and then +inf, padded to 2^LOGP
-//    entries (LOGP = 3 at 3 bits).  The search is LOGP unrolled
-//    compare-and-step stages, which the compiler interleaves across a
-//    thread's elements; (level, gap) pairs give a and max(c - a, 1e-30) in
+//    entries: LOGP = 3 up to 9 levels (3 bits), 4 up to 17, else 8 (the only
+//    table of the other layouts and of int16 codes).  The search is LOGP
+//    unrolled compare-and-step stages, which the compiler interleaves across
+//    a thread's elements; (level, gap) pairs give a and max(c - a, 1e-30) in
 //    one load.
 //  - The per-element arithmetic is the plain version's, in its order:
 //    r = clamp(|x| / safe, 0, 1), tau = #(levels <= r) - 1 clamped to
 //    [0, L-2], rho = (r - a) / max(c - a, 1e-30), code = (tau + (u < rho))
 //    * sign(x).  Only the norm's sum order differs.
-//  - One block a bucket; a block walks buckets blockIdx.x, + gridDim.x, ...
-//    with 64-bit offsets, so any bucket count is covered.
+//  - One block a bucket (block b on bucket b, up to 2^31 - 1 buckets), with
+//    64-bit offsets.
 #include "bucket.cuh"
 
 namespace repro {
@@ -104,36 +105,35 @@ template <typename TIn, typename TCode, int NORM, int LOGP, int THREADS, int EPT
 __global__ void __launch_bounds__(THREADS)
     quantize_regs(const TIn* __restrict__ v, const float* __restrict__ u,
                   const float* __restrict__ levels, TCode* __restrict__ codes,
-                  float* __restrict__ norms, long long nb, int L) {
+                  float* __restrict__ norms, int L) {
   constexpr int VEC = vec_of<TIn>();
   constexpr int NV = EPT / VEC;
   static_assert(EPT % VEC == 0, "a thread holds whole vectors");
   __shared__ LevelTables<LOGP> tab;
   __shared__ float scratch[32];
   load_tables(levels, L, tab);  // published by the norm's barriers
-  for (long long b = blockIdx.x; b < nb; b += gridDim.x) {
-    const int64_t base = b * (THREADS * EPT);
-    float x[EPT], ur[EPT];
+  const int64_t b = blockIdx.x;
+  const int64_t base = b * (THREADS * EPT);
+  float x[EPT], ur[EPT];
 #pragma unroll
-    for (int k = 0; k < NV; ++k) load16(v + base + (k * THREADS + threadIdx.x) * VEC, x + k * VEC);
+  for (int k = 0; k < NV; ++k) load16(v + base + (k * THREADS + threadIdx.x) * VEC, x + k * VEC);
 #pragma unroll
-    for (int k = 0; k < NV; ++k)
+  for (int k = 0; k < NV; ++k)
 #pragma unroll
-      for (int h = 0; h < VEC; h += 4)
-        load16_stream(u + base + (k * THREADS + threadIdx.x) * VEC + h, ur + k * VEC + h);
-    float acc = 0.f;
+    for (int h = 0; h < VEC; h += 4)
+      load16_stream(u + base + (k * THREADS + threadIdx.x) * VEC + h, ur + k * VEC + h);
+  float acc = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPT; ++e) acc = norm_step<NORM>(acc, x[e]);
-    const float norm = norm_of<NORM>(acc, scratch);
-    if (threadIdx.x == 0) norms[b] = norm;
-    const float safe = norm > 0.f ? norm : 1.f;
+  for (int e = 0; e < EPT; ++e) acc = norm_step<NORM>(acc, x[e]);
+  const float norm = norm_of<NORM>(acc, scratch);
+  if (threadIdx.x == 0) norms[b] = norm;
+  const float safe = norm > 0.f ? norm : 1.f;
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      int c[VEC];
+  for (int k = 0; k < NV; ++k) {
+    int c[VEC];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) c[j] = encode(x[k * VEC + j], ur[k * VEC + j], safe, tab);
-      store_codes<TCode, VEC>(codes + base + (k * THREADS + threadIdx.x) * VEC, c);
-    }
+    for (int j = 0; j < VEC; ++j) c[j] = encode(x[k * VEC + j], ur[k * VEC + j], safe, tab);
+    store_codes<TCode, VEC>(codes + base + (k * THREADS + threadIdx.x) * VEC, c);
   }
 }
 
@@ -142,7 +142,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename TIn, typename TCode, int NORM, bool STAGE>
 __global__ void quantize_any(const TIn* __restrict__ v, const float* __restrict__ u,
                              const float* __restrict__ levels, TCode* __restrict__ codes,
-                             float* __restrict__ norms, long long nb, int bs, int L) {
+                             float* __restrict__ norms, int bs, int L) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ LevelTables<8> tab;
   __shared__ float scratch[32];
@@ -150,35 +150,32 @@ __global__ void quantize_any(const TIn* __restrict__ v, const float* __restrict_
   if (STAGE && threadIdx.x == 0) mbar_init(&bar);
   load_tables(levels, L, tab);
   __syncthreads();
-  uint32_t parity = 0;
-  for (long long b = blockIdx.x; b < nb; b += gridDim.x, parity ^= 1u) {
-    const int64_t base = b * bs;
-    const TIn* src = v + base;
-    if constexpr (STAGE) src = stage_bucket(src, bs, dyn, &bar, parity);
-    float acc = 0.f;
-    for (int i = threadIdx.x; i < bs; i += blockDim.x) acc = norm_step<NORM>(acc, to_f32(src[i]));
-    const float norm = norm_of<NORM>(acc, scratch);
-    if (threadIdx.x == 0) norms[b] = norm;
-    const float safe = norm > 0.f ? norm : 1.f;
-    const float* ub = u + base;
-    TCode* cb = codes + base;
-    // codes go four to a store between the first and the last 4-code
-    // boundary of the bucket, one by one outside them
-    const int head = min(bs, (int)((4 - ((uintptr_t)cb / sizeof(TCode)) % 4) % 4));
-    const int groups = (bs - head) / 4;
-    for (int i = threadIdx.x; i < head; i += blockDim.x)
-      cb[i] = (TCode)encode(to_f32(src[i]), __ldcs(ub + i), safe, tab);
-    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-      const int i0 = head + 4 * g;
-      int c[4];
+  const int64_t b = blockIdx.x;
+  const int64_t base = b * bs;
+  const TIn* src = v + base;
+  if constexpr (STAGE) src = stage_bucket(src, bs, dyn, &bar);
+  float acc = 0.f;
+  for (int i = threadIdx.x; i < bs; i += blockDim.x) acc = norm_step<NORM>(acc, to_f32(src[i]));
+  const float norm = norm_of<NORM>(acc, scratch);
+  if (threadIdx.x == 0) norms[b] = norm;
+  const float safe = norm > 0.f ? norm : 1.f;
+  const float* ub = u + base;
+  TCode* cb = codes + base;
+  // codes go four to a store between the first and the last 4-code boundary
+  // of the bucket, one by one outside them
+  const int head = min(bs, (int)((4 - ((uintptr_t)cb / sizeof(TCode)) % 4) % 4));
+  const int groups = (bs - head) / 4;
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    cb[i] = (TCode)encode(to_f32(src[i]), __ldcs(ub + i), safe, tab);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    const int i0 = head + 4 * g;
+    int c[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = encode(to_f32(src[i0 + j]), __ldcs(ub + i0 + j), safe, tab);
-      store_codes<TCode, 4>(cb + i0, c);
-    }
-    for (int i = head + 4 * groups + threadIdx.x; i < bs; i += blockDim.x)
-      cb[i] = (TCode)encode(to_f32(src[i]), __ldcs(ub + i), safe, tab);
-    if constexpr (STAGE) __syncthreads();  // dyn is read before the next bucket lands in it
+    for (int j = 0; j < 4; ++j) c[j] = encode(to_f32(src[i0 + j]), __ldcs(ub + i0 + j), safe, tab);
+    store_codes<TCode, 4>(cb + i0, c);
   }
+  for (int i = head + 4 * groups + threadIdx.x; i < bs; i += blockDim.x)
+    cb[i] = (TCode)encode(to_f32(src[i]), __ldcs(ub + i), safe, tab);
 }
 
 struct QuantizeArgs {
@@ -188,7 +185,7 @@ struct QuantizeArgs {
   void* codes;
   float* norms;
   long long nb;
-  int bs, L, layout, threads, ept, logp, smem;
+  int bs, L, layout, threads, ept, smem;
   cudaStream_t s;
 };
 
@@ -197,7 +194,7 @@ static int run_regs(const QuantizeArgs& a) {
   return with_reg_shape(a.threads, a.ept, [&](auto t, auto e) {
     return launch_buckets(quantize_regs<TIn, TCode, NORM, LOGP, decltype(t)::value, decltype(e)::value>,
                           a.nb, a.threads, 0, a.s, (const TIn*)a.v, a.u, a.levels,
-                          (TCode*)a.codes, a.norms, a.nb, a.L);
+                          (TCode*)a.codes, a.norms, a.L);
   });
 }
 
@@ -206,24 +203,19 @@ static int run_any(const QuantizeArgs& a) {
   auto k = &quantize_any<TIn, TCode, NORM, false>;
   if (a.layout == kSmem) k = &quantize_any<TIn, TCode, NORM, true>;
   return launch_buckets(k, a.nb, a.threads, a.smem, a.s, (const TIn*)a.v, a.u,
-                        a.levels, (TCode*)a.codes, a.norms, a.nb, a.bs, a.L);
+                        a.levels, (TCode*)a.codes, a.norms, a.bs, a.L);
 }
 
+// Picks the code type and, for registers, the smallest search table that
+// holds levels 0..L-2.
 template <typename TIn, int NORM>
 static int run_codes(int code_type, const QuantizeArgs& a) {
-  if (a.layout != kRegs) {
-    if (a.logp != 8) return (int)cudaErrorInvalidValue;
+  if (a.layout != kRegs)
     return code_type == kI8 ? run_any<TIn, int8_t, NORM>(a) : run_any<TIn, int16_t, NORM>(a);
-  }
-  if (code_type == kI16) {
-    return a.logp == 8 ? run_regs<TIn, int16_t, NORM, 8>(a) : (int)cudaErrorInvalidValue;
-  }
-  switch (a.logp) {
-    case 3: return run_regs<TIn, int8_t, NORM, 3>(a);
-    case 4: return run_regs<TIn, int8_t, NORM, 4>(a);
-    case 8: return run_regs<TIn, int8_t, NORM, 8>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (code_type == kI16) return run_regs<TIn, int16_t, NORM, 8>(a);
+  if (a.L - 1 <= 8) return run_regs<TIn, int8_t, NORM, 3>(a);
+  if (a.L - 1 <= 16) return run_regs<TIn, int8_t, NORM, 4>(a);
+  return run_regs<TIn, int8_t, NORM, 8>(a);
 }
 
 template <typename TIn>
@@ -238,21 +230,21 @@ static int run_norm(int code_type, int norm_type, const QuantizeArgs& a) {
 }  // namespace repro
 
 // Returns the CUDA error of the launch (0 when it was accepted).  The launch
-// shape (search_bits, layout, threads, ept, smem) comes from
-// repro_torch/kernels/cuda.py::search_bits and bucket_launch.
+// shape (layout, threads, ept, smem) comes from
+// repro_torch/kernels/cuda.py::bucket_launch.
 extern "C" int repro_quantize(const void* v, const float* u, const float* levels, void* codes,
                               float* norms, long long nb, int bs, int L, int in_type,
-                              int code_type, int norm_type, int search_bits, int layout,
-                              int threads, int ept, int smem, void* stream) {
+                              int code_type, int norm_type, int layout, int threads, int ept,
+                              int smem, void* stream) {
   using namespace repro;
   if (nb <= 0) return 0;
-  if (L < 2 || L > kMaxLevels || search_bits < 1 || search_bits > 8 ||
-      L - 1 > (1 << search_bits) || (in_type != kF32 && in_type != kBF16) ||
-      (code_type != kI8 && code_type != kI16) || (norm_type != kNormL2 && norm_type != kNormLinf) ||
+  if (nb > kMaxBuckets || L < 2 || L > kMaxLevels || (in_type != kF32 && in_type != kBF16) ||
+      (code_type != kI8 && code_type != kI16) || (code_type == kI8 && L > 128) ||
+      (norm_type != kNormL2 && norm_type != kNormLinf) ||
       (layout != kRegs && layout != kSmem && layout != kStream))
     return (int)cudaErrorInvalidValue;
-  const QuantizeArgs a{v,       u,      levels,  codes, norms,       nb,  bs,
-                       L,       layout, threads, ept,   search_bits, smem, (cudaStream_t)stream};
+  const QuantizeArgs a{v,      u,       levels, codes, norms, nb,
+                       bs,     L,       layout, threads, ept, smem, (cudaStream_t)stream};
   return in_type == kF32 ? run_norm<float>(code_type, norm_type, a)
                          : run_norm<__nv_bfloat16>(code_type, norm_type, a);
 }

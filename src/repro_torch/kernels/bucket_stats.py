@@ -13,14 +13,9 @@ import torch
 from . import cuda
 
 
-def bucket_stats_cuda(vb: torch.Tensor, norm_type: str,
-                      launch: cuda.BucketLaunch | None = None
+def bucket_stats_cuda(vb: torch.Tensor, norm_type: str
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(nb, bs) f32/bf16 values -> per-bucket (norms, mean_r, var_r).
-
-    ``launch`` overrides ``cuda.bucket_launch``'s choice (chip_smoke.py
-    times the other layouts with it).
-    """
+    """(nb, bs) f32/bf16 values -> per-bucket (norms, mean_r, var_r)."""
     dev = vb.device
     cuda.check(vb.is_cuda, "bucket_stats: vb must lie on a CUDA device")
     cuda.check(vb.dim() == 2, f"bucket_stats: vb {tuple(vb.shape)} must be "
@@ -32,8 +27,7 @@ def bucket_stats_cuda(vb: torch.Tensor, norm_type: str,
     nb, bs = vb.shape
     norms, mu, var = (torch.empty((nb,), dtype=torch.float32, device=dev)
                       for _ in range(3))
-    launch = cuda.checked_launch(launch, bs, vb.element_size(),
-                                 (vb.data_ptr(),))
+    launch = cuda.bucket_launch(bs, vb.element_size(), (vb.data_ptr(),))
     cuda.launch("bucket_stats", dev, vb.data_ptr(), norms.data_ptr(),
                 mu.data_ptr(), var.data_ptr(), nb, bs,
                 cuda.IN_CODES[vb.dtype], cuda.NORM_CODES[norm_type],

@@ -48,12 +48,11 @@ MAX_LEVELS = 256
 # Layout codes shared with csrc/bucket.cuh.
 LAYOUT_CODES = {"regs": 0, "smem": 1, "stream": 2}
 # Register-resident shapes, bucket size -> (threads, elements a thread),
-# that bucket_launch picks; csrc/bucket.cuh::with_reg_shape compiles these
-# and OTHER_REG_SHAPES, which chip_smoke.py times beside them.  At 8192,
-# 512 x 16 beat 256 x 32 by 10% on an H100: both fit 2 blocks an SM, and
-# twice the warps hide more of quantize's division and search latency.
+# that bucket_launch picks; csrc/bucket.cuh::with_reg_shape compiles the
+# same shapes.  At 8192, 512 x 16 beat 256 x 32 by 10% on an H100: both fit
+# 2 blocks an SM, and twice the warps hide more of quantize's division and
+# search latency.
 REG_SHAPES = {1024: (128, 8), 8192: (512, 16)}
-OTHER_REG_SHAPES = {8192: (256, 32)}
 SMEM_LIMIT = 232_448   # shared memory a block may use on sm_90, bytes
 STATIC_SMEM = 4_096    # kept for the kernels' own tables and barrier
 
@@ -62,7 +61,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "quantize": ("repro_quantize",
                  (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                  _I, _I, _I, _I, _I, _P)),
+                  _I, _I, _I, _I, _P)),
     "dequantize": ("repro_dequantize",
                    (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P)),
     "bucket_stats": ("repro_bucket_stats",
@@ -195,40 +194,6 @@ def bucket_launch(bs: int, itemsize: int, ptrs: Sequence[int]
     if smem + STATIC_SMEM <= SMEM_LIMIT:
         return BucketLaunch("smem", block_threads(bs), smem=smem)
     return BucketLaunch("stream", block_threads(bs))
-
-
-def checked_launch(launch: BucketLaunch | None, bs: int, itemsize: int,
-                   ptrs: Sequence[int]) -> BucketLaunch:
-    """``bucket_launch``'s layout when ``launch`` is None; else ``launch``,
-    after checking that it fits these buckets and pointers."""
-    if launch is None:
-        return bucket_launch(bs, itemsize, ptrs)
-    vec = 16 // itemsize
-    if launch.layout == "regs":
-        shapes = {*REG_SHAPES.values(), *OTHER_REG_SHAPES.values()}
-        check((launch.threads, launch.ept) in shapes
-              and launch.threads * launch.ept == bs and launch.ept % vec == 0
-              and all(p % 16 == 0 for p in ptrs),
-              f"{launch} does not fit buckets of {bs} at {ptrs}")
-    else:
-        check(launch.layout in LAYOUT_CODES and launch.threads % 32 == 0
-              and 32 <= launch.threads <= 1024, f"bad launch {launch}")
-    if launch.layout == "smem":
-        check(bs * itemsize + 16 <= launch.smem
-              <= SMEM_LIMIT - STATIC_SMEM,
-              f"{launch} does not fit buckets of {bs} x {itemsize} B")
-    return launch
-
-
-def search_bits(num_levels: int, launch: BucketLaunch) -> int:
-    """log2 of the padded search table of quantize: the smallest of 3, 4
-    and 8 that holds levels 0..L-2 for a register-resident launch, 8
-    otherwise (the only table the other layouts are compiled with)."""
-    if launch.layout == "regs":
-        for bits in (3, 4):
-            if num_levels - 1 <= 1 << bits:
-                return bits
-    return 8
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")

@@ -14,14 +14,9 @@ from . import cuda
 
 
 def quantize_cuda(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor,
-                  norm_type: str, launch: cuda.BucketLaunch | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  norm_type: str) -> tuple[torch.Tensor, torch.Tensor]:
     """(nb, bs) f32/bf16 values + (nb, bs) f32 uniforms + (L,) f32 levels
-    -> (codes (nb, bs) int8, or int16 when L > 128; norms (nb,) f32).
-
-    ``launch`` overrides ``cuda.bucket_launch``'s choice (chip_smoke.py
-    times the other layouts with it).
-    """
+    -> (codes (nb, bs) int8, or int16 when L > 128; norms (nb,) f32)."""
     dev = vb.device
     cuda.check(vb.is_cuda and u.device == dev and levels.device == dev,
                "quantize: vb, u and levels must lie on one CUDA device")
@@ -41,10 +36,10 @@ def quantize_cuda(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor,
     codes = torch.empty((nb, bs), dtype=code_dtype(L), device=dev)
     norms = torch.empty((nb,), dtype=torch.float32, device=dev)
     ptrs = (vb.data_ptr(), u.data_ptr(), codes.data_ptr())
-    launch = cuda.checked_launch(launch, bs, vb.element_size(), ptrs)
+    launch = cuda.bucket_launch(bs, vb.element_size(), ptrs)
     cuda.launch("quantize", dev, vb.data_ptr(), u.data_ptr(),
                 levels.data_ptr(), codes.data_ptr(), norms.data_ptr(), nb,
                 bs, L, cuda.IN_CODES[vb.dtype], cuda.CODE_CODES[codes.dtype],
-                cuda.NORM_CODES[norm_type], cuda.search_bits(L, launch),
-                *launch.args(), layout=launch.layout)
+                cuda.NORM_CODES[norm_type], *launch.args(),
+                layout=launch.layout)
     return codes, norms

@@ -12,8 +12,7 @@ version's |u - rho| < 1e-5 (a last-ulp norm difference).
 
 quantize and bucket_stats lay a bucket out in registers, in shared
 memory or read twice (``kernels/cuda.py::bucket_launch``); the layout
-tests below reach each one, by bucket size and pointer alignment or by
-forcing it.
+tests below reach each one by bucket size and pointer alignment.
 """
 import pytest
 import torch
@@ -128,18 +127,18 @@ def _values(dev, nb, bs, dt, offset=0, seed=0):
     return vb, torch.rand(nb, bs, generator=g, device=dev)
 
 
-def _check_layout(vb, u, levels, norm, launch=None):
-    """quantize and bucket_stats, in ``launch``'s layout or the one the
-    wrappers pick, against the plain versions; returns the layout."""
-    want = launch or kcuda.bucket_launch(vb.shape[1], vb.element_size(),
-                                         (vb.data_ptr(), u.data_ptr(), 0))
+def _check_layout(vb, u, levels, norm):
+    """quantize and bucket_stats, in the layout the wrappers pick, against
+    the plain versions; returns the layout."""
+    want = kcuda.bucket_launch(vb.shape[1], vb.element_size(),
+                               (vb.data_ptr(), u.data_ptr(), 0))
     before = dict(kcuda.LAYOUTS)
-    c1, n1 = quantize_cuda(vb, u, levels, norm, launch)
+    c1, n1 = quantize_cuda(vb, u, levels, norm)
     c2, n2 = ref.quantize_ref(vb, u, levels, norm)
     assert c1.dtype == c2.dtype
     torch.testing.assert_close(n1, n2, rtol=1e-5, atol=0)
     ref.code_mismatches(c1, c2, vb, u, n2, levels)
-    for a, b in zip(bucket_stats_cuda(vb, norm, launch),
+    for a, b in zip(bucket_stats_cuda(vb, norm),
                     ref.bucket_stats_ref(vb, norm)):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
     torch.cuda.synchronize()
@@ -198,25 +197,14 @@ def test_all_zero_buckets_give_zero_codes_and_stats(dev, bs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("launch", [
-    kcuda.BucketLaunch("regs", 256, 32),
-    kcuda.BucketLaunch("regs", 512, 16),
-    kcuda.BucketLaunch("smem", 256, smem=8192 * 4 + 16),
-    kcuda.BucketLaunch("smem", 512, smem=8192 * 4 + 16),
-    kcuda.BucketLaunch("stream", 256),
-    kcuda.BucketLaunch("stream", 128),
-], ids=lambda x: f"{x.layout}-{x.threads}x{x.ept}")
-def test_every_layout_of_a_production_bucket(dev, launch):
-    """More buckets (3000) than the card holds resident blocks."""
-    vb, u = _values(dev, 3000, 8192, torch.float32)
-    _check_layout(vb, u, lv.exp_levels(3, device=dev), "l2", launch)
-    vb, u = _values(dev, 40, 8192, torch.bfloat16, seed=1)
-    _check_layout(vb, u, lv.uniform_levels(8, device=dev), "linf", launch)
-
-
-@pytest.mark.cuda
-def test_forced_launch_that_does_not_fit_is_refused(dev):
-    vb, u = _values(dev, 4, 8192, torch.float32, offset=1)
-    levels = lv.uniform_levels(3, device=dev)
-    with pytest.raises(ValueError, match="does not fit"):
-        quantize_cuda(vb, u, levels, "l2", kcuda.BucketLaunch("regs", 256, 32))
+@pytest.mark.parametrize("offset,layout", [(0, "regs"), (1, "smem")])
+def test_every_layout_of_a_production_bucket(dev, offset, layout):
+    """Both layouts a bucket of 8192 takes, registers when aligned and
+    shared memory when not, over 3000 buckets (a grid of several waves)
+    with 3-bit and 8-bit grids."""
+    vb, u = _values(dev, 3000, 8192, torch.float32, offset=offset)
+    levels = lv.exp_levels(3, device=dev)
+    assert _check_layout(vb, u, levels, "l2") == layout
+    vb, u = _values(dev, 40, 8192, torch.bfloat16, offset=offset, seed=1)
+    levels = lv.uniform_levels(8, device=dev)
+    assert _check_layout(vb, u, levels, "linf") == layout

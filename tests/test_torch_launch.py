@@ -1,10 +1,13 @@
-"""How the bucket kernels (quantize, bucket_stats) are launched, on the
-CPU: ``kernels/cuda.py`` decides in plain Python which layout, threads,
-elements a thread and shared memory a launch gets, and reads the
+"""How the port's kernels are built and launched, on the CPU:
+``kernels/cuda.py`` decides in plain Python which layout, threads,
+elements a thread and shared memory a bucket kernel (quantize,
+bucket_stats) gets, binds each C entry point through ``ctypes``, builds
+each library under a name that hashes its sources, and reads the
 compiler's ``-Xptxas -v`` report.  The kernels themselves run only on the
 card (``test_torch_cuda.py``).
 """
 import re
+import stat
 
 import pytest
 
@@ -36,10 +39,12 @@ def test_the_scheme_and_launcher_bucket_sizes_are_register_resident():
 @pytest.mark.parametrize("offset", [1, 2, 4, 8, 12])
 @pytest.mark.parametrize("which", [0, 1, 2])
 @pytest.mark.parametrize("bs", sorted(cuda.REG_SHAPES))
-def test_vector_loads_need_every_pointer_16_byte_aligned(offset, which, bs):
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_vector_loads_need_every_pointer_16_byte_aligned(offset, which, bs,
+                                                         itemsize):
     ptrs = list(ALIGNED)
     ptrs[which] += offset
-    launch = cuda.bucket_launch(bs, 4, ptrs)
+    launch = cuda.bucket_launch(bs, itemsize, ptrs)
     assert launch.layout == "smem"
     assert launch.ept == 0
 
@@ -58,21 +63,28 @@ def test_shared_memory_stays_within_a_block(bs, itemsize):
         assert bs * itemsize + 16 + cuda.STATIC_SMEM > cuda.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("L,bits", [(2, 3), (8, 3), (9, 3), (10, 4), (16, 4),
-                                    (17, 4), (18, 8), (128, 8), (256, 8)])
-def test_search_table_holds_levels_below_the_top(L, bits):
-    regs = cuda.bucket_launch(8192, 4, ALIGNED)
-    assert cuda.search_bits(L, regs) == bits
-    assert L - 1 <= 1 << bits
-    smem = cuda.bucket_launch(4097, 4, ALIGNED)
-    assert cuda.search_bits(L, smem) == 8
-
-
 def test_launch_args_follow_the_c_interface():
     launch = cuda.BucketLaunch("smem", 256, smem=4096)
     assert launch.args() == (1, 256, 0, 4096)
-    regs = cuda.BucketLaunch("regs", 256, 32)
-    assert regs.args() == (0, 256, 32, 0)
+    regs = cuda.BucketLaunch("regs", 512, 16)
+    assert regs.args() == (0, 512, 16, 0)
+
+
+C_TYPES = {"long long": cuda._LL, "int": cuda._I}
+
+
+@pytest.mark.parametrize("name", sorted(cuda.KERNELS))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    """Each C entry point's parameters, as declared in its source, are
+    the argument types ``kernel()`` binds: pointers, long long, int."""
+    symbol, argtypes = cuda.KERNELS[name]
+    src = (cuda.CSRC / f"{name}.cu").read_text()
+    decl = re.search(r'extern "C" int %s\(([^)]*)\)' % symbol, src)
+    assert decl is not None
+    params = [" ".join(p.split()[:-1]) for p in decl.group(1).split(",")]
+    want = [cuda._P if "*" in p else C_TYPES[p] for p in params]
+    assert list(argtypes) == want
+    assert params[-1] == "void*"  # the stream, which launch() appends
 
 
 def test_c_and_python_name_the_same_layouts_and_shapes():
@@ -85,51 +97,103 @@ def test_c_and_python_name_the_same_layouts_and_shapes():
     assert cuda.LAYOUT_CODES == {"regs": 0, "smem": 1, "stream": 2}
     compiled = {(int(t), int(e)) for t, e in
                 re.findall(r"threads == (\d+) && ept == (\d+)", BUCKET_CUH)}
-    wanted = {*cuda.REG_SHAPES.values(), *cuda.OTHER_REG_SHAPES.values()}
-    assert compiled == wanted
-    for bs, (t, e) in [*cuda.REG_SHAPES.items(),
-                       *cuda.OTHER_REG_SHAPES.items()]:
+    assert compiled == set(cuda.REG_SHAPES.values())
+    for bs, (t, e) in cuda.REG_SHAPES.items():
         assert t * e == bs and e % 8 == 0  # whole vectors of f32 and bf16
 
 
-@pytest.mark.parametrize("launch,ptrs,bs,itemsize,match", [
-    (cuda.BucketLaunch("regs", 256, 32), ALIGNED, 1024, 4, "does not fit"),
-    (cuda.BucketLaunch("regs", 64, 128), ALIGNED, 8192, 4, "does not fit"),
-    (cuda.BucketLaunch("regs", 256, 32), (1, 16), 8192, 4, "does not fit"),
-    (cuda.BucketLaunch("smem", 256, smem=1000), ALIGNED, 8192, 4,
-     "does not fit"),
-    (cuda.BucketLaunch("smem", 256, smem=240_000), ALIGNED, 8192, 4,
-     "does not fit"),
-    (cuda.BucketLaunch("smem", 100, smem=40_000), ALIGNED, 8192, 4,
-     "bad launch"),
-    (cuda.BucketLaunch("tiles", 256), ALIGNED, 8192, 4, "bad launch"),
-])
-def test_forced_launches_that_do_not_fit_are_refused(launch, ptrs, bs,
-                                                     itemsize, match):
-    with pytest.raises(ValueError, match=match):
-        cuda.checked_launch(launch, bs, itemsize, ptrs)
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    """A copy of csrc/ that cuda.py builds from, into a build directory
+    of its own."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in cuda.CSRC.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda, "CSRC", src)
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "build")
+    return src
 
 
-@pytest.mark.parametrize("launch,bs", [
-    (cuda.BucketLaunch("regs", 256, 32), 8192),
-    (cuda.BucketLaunch("regs", 128, 8), 1024),
-    (cuda.BucketLaunch("smem", 256, smem=32784), 8192),
-    (cuda.BucketLaunch("stream", 256), 8192),
-])
-def test_forced_launches_that_fit_are_kept(launch, bs):
-    assert cuda.checked_launch(launch, bs, 4, ALIGNED) is launch
-    picked = cuda.checked_launch(None, bs, 4, ALIGNED)
-    assert picked == cuda.bucket_launch(bs, 4, ALIGNED)
+@pytest.mark.parametrize("name", sorted(cuda.KERNELS))
+def test_an_edited_source_gets_a_new_library(csrc_copy, name):
+    before = {k: cuda.library_path(k) for k in cuda.KERNELS}
+    assert before == {k: cuda.library_path(k) for k in cuda.KERNELS}
+    assert len(set(before.values())) == len(cuda.KERNELS)
+    with open(csrc_copy / f"{name}.cu", "a") as f:
+        f.write("// edited\n")
+    after = {k: cuda.library_path(k) for k in cuda.KERNELS}
+    assert {k for k in cuda.KERNELS if after[k] != before[k]} == {name}
+    assert after[name].parent == cuda.BUILD_DIR
+    assert after[name].name.startswith(f"{name}-")
+
+
+def test_an_edited_header_rebuilds_every_kernel(csrc_copy):
+    before = {k: cuda.library_path(k) for k in cuda.KERNELS}
+    with open(csrc_copy / "common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {k: cuda.library_path(k) for k in cuda.KERNELS}
+    assert all(after[k] != before[k] for k in cuda.KERNELS)
+
+
+def _fake_nvcc(path, rc=0):
+    """A stand-in for nvcc that prints a ptxas report and writes the file
+    named after -o (or fails with ``rc``)."""
+    path.write_text(
+        "#!/bin/sh\n"
+        f"cat <<'EOF'\n{PTXAS}EOF\n"
+        f"[ {rc} -ne 0 ] && exit {rc}\n"
+        'while [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    path.chmod(path.stat().st_mode | stat.S_IEXEC)
+    return str(path)
+
+
+def test_build_compiles_only_what_is_missing_and_keeps_the_report(
+        csrc_copy, tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path / "nvcc")
+    monkeypatch.setattr(cuda, "nvcc_path", lambda: nvcc)
+    seconds = cuda.build()
+    assert set(seconds) == set(cuda.KERNELS)
+    for name in cuda.KERNELS:
+        assert cuda.library_path(name).exists()
+        assert cuda.ptxas_report(name) == cuda.parse_ptxas(PTXAS)
+    assert cuda.build() == {}
+    assert not list(cuda.BUILD_DIR.glob("*.tmp"))
+
+
+def test_a_failed_build_raises_with_the_compilers_output(
+        csrc_copy, tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path / "nvcc", rc=2)
+    monkeypatch.setattr(cuda, "nvcc_path", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed for quantize.cu"
+                       "(.|\n)*Used 96 registers"):
+        cuda.build(("quantize",))
+    assert not cuda.library_path("quantize").exists()
+
+
+def test_nvcc_is_looked_up_under_cuda_home_then_on_the_path(
+        tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda.nvcc_path()
+    on_path = _fake_nvcc(tmp_path / "nvcc")
+    assert cuda.nvcc_path() == on_path
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    in_home = _fake_nvcc(home / "bin" / "nvcc")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    assert cuda.nvcc_path() == in_home
 
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN5repro13quantize_regsIfaLi0ELi3ELi256ELi32EEEvPKT_PKfS5_PT0_Pfxi' for 'sm_90a'
-ptxas info    : Function properties for _ZN5repro13quantize_regsIfaLi0ELi3ELi256ELi32EEEvPKT_PKfS5_PT0_Pfxi
+ptxas info    : Compiling entry function '_ZN5repro13quantize_regsIfaLi0ELi3ELi512ELi16EEEvPKT_PKfS5_PT0_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN5repro13quantize_regsIfaLi0ELi3ELi512ELi16EEEvPKT_PKfS5_PT0_Pfi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 224 bytes smem, 404 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_xi' for 'sm_90a'
-ptxas info    : Function properties for _ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_xi
+ptxas info    : Compiling entry function '_ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_i' for 'sm_90a'
+ptxas info    : Function properties for _ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_i
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 40 registers, 392 cmem[0]
 """
@@ -137,10 +201,10 @@ ptxas info    : Used 40 registers, 392 cmem[0]
 
 def test_ptxas_report_is_read_per_entry_point():
     rep = cuda.parse_ptxas(PTXAS)
-    q = rep["_ZN5repro13quantize_regsIfaLi0ELi3ELi256ELi32EEEvPKT_PKfS5_PT0_"
-            "Pfxi"]
+    q = rep["_ZN5repro13quantize_regsIfaLi0ELi3ELi512ELi16EEEvPKT_PKfS5_PT0_"
+            "Pfi"]
     assert q == dict(registers=96, smem=224, stack=0, spill_stores=0,
                      spill_loads=0)
-    s = rep["_ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_xi"]
+    s = rep["_ZN5repro9stats_anyIfLi0ELb1EEEvPKT_PfS4_S4_i"]
     assert s == dict(registers=40, smem=0, stack=8, spill_stores=4,
                      spill_loads=4)
