@@ -13,18 +13,37 @@ Phases, each of which must pass:
      norms, 3-bit and 8-bit grids, and in every bucket layout (registers
      at 1024 and 8192, shared memory for odd sizes and unaligned
      pointers, read twice beyond shared memory); then at the shapes
-     phase B gives them, where each kernel is timed in 3 rounds (median
-     and spread) beside its plain version and its bound;
-  3. a 4-worker quantized all-reduce on the card against the same call on
-     the CPU (the plain versions), with the same uniforms;
-  4. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
+     phases B, C and D give them, where each kernel is timed in 3 rounds
+     (median and spread) beside its plain version and its bound, and the
+     top-k selection is timed at full width;
+  3. sync checks on the card against the same calls on the CPU (the
+     plain versions), with the same gradients and uniforms, 4 workers:
+     all_gather, two_phase without and with integrity words, and
+     compressed_allreduce with ef (two_phase) and topk (all_gather);
+  4. fault check: a FaultyTransport flipping a word in a thousand on the
+     card, all_gather and two_phase: with integrity words the aggregate
+     is finite and the corrupt share of buckets is printed beside the
+     share expected to hold a flipped word; without them, what the bare
+     wire gives;
+  5. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
      1024, level updates at steps 2 and 10, 16 steps through the
      training entry point: the loss falls, the levels move after step 2
      and the wire costs about 4.1 bits a coordinate;
-  5. phase B: llama3.2-1b at full width cut to 4 layers, 4 workers of 2
+  6. phase B: llama3.2-1b at full width cut to 4 layers, 4 workers of 2
      sequences of 1024 tokens, ALQ 3-bit, buckets of 8192, AdamW, a level
-     update at step 1, 5 steps: finite loss, time per step and per stage,
-     peak memory, and every kernel launched.
+     update at step 1, 5 steps, all_gather: finite loss, time per step and
+     per stage, peak memory, and every kernel launched;
+  7. phase C: the same model and batch, ``--sync two_phase --compress ef
+     --integrity``, 5 steps: finite loss, stage times, peak memory, the
+     plan's bits a coordinate (reduce + broadcast), no corrupt bucket on
+     the clean wire, and every kernel launched;
+  8. phase D: the same model, ``--sync all_gather --compress topk``, 3
+     steps: finite loss, kept fraction 1927/8192, stage times (the top-k
+     selection among them), peak memory, every kernel launched;
+  9. resume: paper-proxy, 4 workers, two_phase + ef through the launcher:
+     8 steps straight, then 4 steps with ``--ckpt-dir`` and a second
+     launch to 8 that resumes; the resumed losses and final parameters
+     equal the straight run's.
 
 Output: per-phase lines, then the kernels' JSON line, then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
@@ -45,7 +64,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
-BS_B, D_B, M_B = 8192, 768_624_640, 4   # phase B: bucket, d, workers
+BS_B, D_B, M_B = 8192, 768_624_640, 4   # phases B-D: bucket, d, workers
+K_D = 1927                    # phase D's top-k: the equal wire budget
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -317,34 +337,315 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     return out
 
 
-def sync_check(sync, QuantScheme, codec_for_scheme):
-    """A 4-worker all-reduce on the card (kernels) against the CPU (plain
-    versions) with the same gradients and uniforms."""
+def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec):
+    """Each kernel at the shapes phases C and D give it, against its plain
+    version, timed in 3 rounds beside the plain version and the bound;
+    and the top-k selection at full width.  Returns kernel name -> shape
+    records."""
+    import torch
+    dev = torch.device("cuda")
+    M = M_B
+    plan = codec_for_scheme(QuantScheme(bits=3, bucket_size=BS_B)).plan(
+        D_B, shards=M)
+    snb, nb_d = plan.shard_nb, codec_for_scheme(
+        QuantScheme(bits=3, bucket_size=BS_B)).plan(D_B).nb
+    g = torch.Generator(device=dev).manual_seed(5)
+    lv3 = lv.uniform_levels(3, device=dev)
+    lv8 = lv.uniform_levels(8, device=dev)
+    out: dict[str, list] = {"quantize": [], "dequantize": []}
+
+    def record(name, shape, fn, plain_fn, b_bytes, ops_n, worst, note):
+        t = timed_rounds({"k": fn}, 5)["k"]
+        plain = timed(plain_fn, 1)
+        b, by = bound_ms(b_bytes, ops_n)
+        rec = dict(shape=shape, ms=t[0], ms_spread=t[1], plain_ms=plain,
+                   bound_ms=b, bound_by=by, bound_share=b / t[0],
+                   max_abs_err=worst, note=note)
+        out[name].append(rec)
+        print(f"slice shape {name} {shape}: {note}: kernel {t[0]:.3f} ms "
+              f"(spread {t[1]:.3f}), plain {plain:.3f} ms, bound {b:.3f} ms "
+              f"({by}), {b / t[0]:.0%} of bound, max abs err {worst:.3g}",
+              flush=True)
+
+    def chunks(rows, parts=8):
+        step = -(-rows // parts)
+        return range(0, rows, step), step
+
+    # phase 2: each rank's shard mean on the 8-bit L-inf grid, int16 codes
+    vb = torch.randn(snb, BS_B, generator=g, device=dev) * 1e-3
+    u = torch.rand(snb, BS_B, generator=g, device=dev)
+    codes, norms = ops.quantize_op(vb, u, lv8, norm_type="linf")
+    check(codes.dtype == torch.int16, "phase-2 codes are not int16")
+    parts, rows = chunks(snb)
+    mism = 0
+    for i in parts:
+        c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], lv8, "linf")
+        check(torch.equal(norms[i:i + rows], n2), "phase-2 L-inf norms")
+        mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
+                                    u[i:i + rows], n2, lv8)
+    n = snb * BS_B
+    record("quantize", f"({snb}, {BS_B}) f32 linf 8-bit",
+           lambda: ops.quantize_op(vb, u, lv8, norm_type="linf"),
+           lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows], lv8,
+                                     "linf") for i in parts],
+           n * 10 + snb * 4, n * (20 + 8), 0.0,
+           f"phase 2, one rank, int16 codes, {mism} codes off by one at ties")
+    del vb, u, codes, norms
+
+    # the top-k selection at full width, then its kept rows of 1927 f32
+    vb = torch.randn(nb_d, BS_B, generator=g, device=dev) * 1e-3
+    sparse = SparseCodec(num_levels=8, bucket_size=BS_B, k=K_D)
+    sel, idx = sparse.select(vb)
+    want = torch.topk(vb[:64].abs(), K_D, dim=1).values.sort(dim=1).values
+    check(torch.equal(sel[:64].abs().sort(dim=1).values, want),
+          "top-k selection keeps other magnitudes than torch.topk")
+    t_sel = timed_rounds({"k": lambda: sparse.select(vb)}, 1)["k"]
+    t_lib = timed(lambda: torch.topk(vb.abs(), K_D, dim=1), 1)
+    print(f"top-k selection ({nb_d}, {BS_B}) f32 -> k={K_D}: "
+          f"{t_sel[0]:.3f} ms (spread {t_sel[1]:.3f}) a worker; one "
+          f"torch.topk call (no tie order) {t_lib:.3f} ms", flush=True)
+    del vb, idx
+    u = torch.rand(nb_d, K_D, generator=g, device=dev)
+    check(sel.stride(0) * 4 % 16 != 0, "top-k rows are 16-byte aligned")
+    codes, norms = ops.quantize_op(sel, u, lv3)
+    parts, rows = chunks(nb_d)
+    worst, mism = 0.0, 0
+    for i in parts:
+        c2, n2 = ref.quantize_ref(sel[i:i + rows], u[i:i + rows], lv3, "l2")
+        check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5, atol=0)),
+              "top-k quantize norms beyond rtol 1e-5")
+        worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
+        mism += ref.code_mismatches(codes[i:i + rows], c2, sel[i:i + rows],
+                                    u[i:i + rows], n2, lv3)
+    n = nb_d * K_D
+    record("quantize", f"({nb_d}, {K_D}) f32 l2 3-bit",
+           lambda: ops.quantize_op(sel, u, lv3),
+           lambda: [ref.quantize_ref(sel[i:i + rows], u[i:i + rows], lv3,
+                                     "l2") for i in parts],
+           n * 9 + nb_d * 4, n * 23, worst,
+           f"top-k kept values, unaligned rows, {mism} codes off by one at "
+           "ties")
+    del sel, u, codes, norms
+
+    g2 = torch.Generator(device=dev).manual_seed(6)
+    for shape, L, levels, note in (
+            ((M * snb, BS_B), 8, lv3, "phase-1 shard of one rank, int32"),
+            ((M * nb_d, K_D), 8, lv3, "top-k streams of 4 workers, int32")):
+        c32 = torch.randint(-(L - 1), L, shape, generator=g2, device=dev,
+                            dtype=torch.int32)
+        n4 = torch.rand(shape[0], generator=g2, device=dev) + 0.1
+        got = ops.dequantize_op(c32, n4, levels)
+        parts, rows = chunks(shape[0], 16)
+        for i in parts:
+            check(torch.equal(got[i:i + rows], ref.dequantize_ref(
+                c32[i:i + rows], n4[i:i + rows], levels)),
+                f"dequantize {shape} not exact")
+        del got
+        n = shape[0] * shape[1]
+        record("dequantize", f"({shape[0]}, {shape[1]}) int32",
+               lambda: ops.dequantize_op(c32, n4, levels),
+               lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
+                                           levels) for i in parts],
+               n * 8 + shape[0] * 4, n * 5, 0.0, note)
+        del c32, n4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, t_sel
+
+
+def _bucket_scale(x: "torch.Tensor", bs: int) -> "torch.Tensor":
+    """Per coordinate, the largest bucket L2 norm over the workers' rows
+    of ``x`` (M, d): a bound on every decoded term of that coordinate."""
+    import torch
+    M, d = x.shape
+    pad = -d % bs
+    xb = torch.nn.functional.pad(x, (0, pad)).view(M, -1, bs)
+    s = torch.linalg.vector_norm(xb, dim=2).amax(0)
+    return s.repeat_interleave(bs)[:d]
+
+
+def _agree(name, gpu, cpu, scale):
+    """Card against CPU: each coordinate within 1e-6 of its terms' scale
+    (norms summed in another order differ in the last ulp), except where
+    a rounding tie went the other way: at most 0.1% of them."""
+    import torch
+    gpu = gpu.cpu()
+    check(gpu.shape == cpu.shape and bool(torch.isfinite(gpu).all()),
+          f"{name}: output shape or finiteness")
+    err = (gpu - cpu).abs()
+    close = float((err <= 1e-6 * scale + 1e-12).float().mean())
+    check(close >= 0.999, f"{name}: card agrees with CPU at only {close:.5f}")
+    return close, float(err.max())
+
+
+def sync_check(sync, compress, QuantScheme, make_codec):
+    """4-worker all-reduces on the card (kernels) against the CPU (plain
+    versions), with the same gradients and uniforms, in every wire mode
+    and compression of this slice."""
     import torch
     M, d, bs = 4, 300_000, 1024
     scheme = QuantScheme(bits=3, bucket_size=bs)
-    plan = codec_for_scheme(scheme).plan(d)
     g = torch.Generator().manual_seed(3)
     grads = torch.randn(M, d, generator=g) * 1e-2
-    u = [torch.rand(plan.nb, bs, generator=g) for _ in range(M)]
-    cpu, own, _ = sync.quantized_allreduce(grads, scheme,
-                                           scheme.init_state("cpu"),
-                                           u=u, return_own=True)
-    gpu, m = sync.quantized_allreduce(
-        grads.cuda(), scheme, scheme.init_state("cuda"),
-        u=[x.cuda() for x in u])
-    gpu = gpu.cpu()
-    check(gpu.shape == (d,) and bool(torch.isfinite(gpu).all()),
-          "all-reduce output shape or finiteness")
-    # each decoded term may differ by its norm's last ulp (the norm sums
-    # run in another order); a rounding tie may then go the other way
-    err = (gpu - cpu).abs()
-    scale = own.abs().mean(0)
-    close = float((err <= 1e-6 * scale + 1e-12).float().mean())
-    check(close >= 0.999, f"all-reduce agrees at only {close:.5f}")
-    print(f"sync check: M={M} d={d} card vs CPU: {close:.6f} of coords "
-          f"within 1e-6 of their terms, max abs diff {float(err.max()):.3g}, "
-          f"{m.comm_bits_per_coord:.3f} bits/coord", flush=True)
+    residual = torch.randn(M, d, generator=g) * 3e-3
+
+    def uniforms(plan, k):
+        u = [torch.rand(plan.nb, k, generator=g) for _ in range(M)]
+        u2 = [torch.rand(plan.shard_nb, bs, generator=g) for _ in range(M)]
+        return u, u2
+
+    for mode, integrity in (("all_gather", False), ("two_phase", False),
+                            ("two_phase", True)):
+        codec = make_codec(scheme, integrity=integrity)
+        plan = codec.plan(d, shards=M if mode == "two_phase" else 1)
+        u, u2 = uniforms(plan, bs)
+        cpu, m0 = sync.quantized_allreduce(
+            grads.clone(), scheme, scheme.init_state("cpu"), mode=mode,
+            codec=codec, u=u, u2=u2)
+        gpu, m = sync.quantized_allreduce(
+            grads.cuda(), scheme, scheme.init_state("cuda"), mode=mode,
+            codec=codec, u=[x.cuda() for x in u], u2=[x.cuda() for x in u2])
+        name = f"{mode}{' + integrity' if integrity else ''}"
+        close, worst = _agree(name, gpu, cpu, _bucket_scale(grads, bs))
+        check(m.comm_bits_per_coord == m0.comm_bits_per_coord,
+              f"{name}: bits/coord")
+        check(not bool(m.corrupt_fraction.any()), f"{name}: corrupt buckets")
+        print(f"sync check {name}: M={M} d={d} card vs CPU: {close:.6f} of "
+              f"coords within 1e-6 of their terms, max abs diff {worst:.3g}, "
+              f"{m.comm_bits_per_coord:.4f} bits/coord", flush=True)
+
+    for spec, mode in (("ef", "two_phase"), ("topk", "all_gather")):
+        algo = compress.make_algorithm(spec, scheme)
+        plan = algo.codec.plan(d, shards=M if mode == "two_phase" else 1)
+        u, u2 = uniforms(plan, getattr(algo.codec, "k", bs))
+        states, outs = [], []
+        for dev in ("cpu", "cuda"):
+            st = algo.init_state(M, d, dev)
+            st.residual.copy_(residual)
+            to = (lambda xs: [x.to(dev) for x in xs])
+            # a copy: the residual is added to the gradient rows in place
+            out, st, m = sync.compressed_allreduce(
+                grads.to(dev, copy=True), scheme, scheme.init_state(dev),
+                algo, st,
+                mode=mode, u=to(u), u2=to(u2))
+            states.append(st)
+            outs.append(out)
+        scale = _bucket_scale(grads + residual, bs)
+        close, worst = _agree(f"{spec} ({mode})", outs[1], outs[0], scale)
+        rclose, rworst = _agree(f"{spec} residual",
+                                states[1].residual[0],
+                                states[0].residual[0], scale)
+        check(m.kept_fraction == algo.kept_fraction, f"{spec}: kept")
+        print(f"sync check {spec} ({mode}): card vs CPU: aggregate "
+              f"{close:.6f} within 1e-6 (max abs diff {worst:.3g}), "
+              f"worker 0's residual {rclose:.6f} (max {rworst:.3g}), "
+              f"kept {m.kept_fraction:.4f}, {m.comm_bits_per_coord:.4f} "
+              "bits/coord", flush=True)
+
+
+def fault_check(sync, faults, transport, QuantScheme, make_codec,
+                wire_bits_for):
+    """A word in a thousand flipped on the wire, on the card."""
+    import torch
+    M, d, bs, p = 4, 300_000, 1024, 1e-3
+    scheme = QuantScheme(bits=3, bucket_size=bs)
+    dev = torch.device("cuda")
+    grads = torch.randn(M, d, generator=torch.Generator().manual_seed(8),
+                        ).to(dev) * 1e-2
+    fm = faults.FaultModel(flip_prob=p, seed=1)
+    clean = make_codec(scheme)
+    # words a bucket rides on: its symbols, a checksum and a norm word
+    k1 = bs * wire_bits_for(scheme.num_levels) // 32 + 2
+    k2 = bs * wire_bits_for(256) // 32 + 2
+    share1, share2 = 1 - (1 - p) ** k1, 1 - (1 - p) ** k2
+    for mode, expect in (("all_gather", share1),
+                         ("two_phase", (share1 + share2) / 2)):
+        for integrity in (True, False):
+            out, m = sync.quantized_allreduce(
+                grads, scheme, scheme.init_state(dev), mode=mode,
+                transport=faults.faulty(transport.StackedTransport(M), fm, 0),
+                codec=make_codec(scheme, integrity=integrity),
+                generator=torch.Generator(device=dev).manual_seed(0))
+            ref, _ = sync.quantized_allreduce(
+                grads, scheme, scheme.init_state(dev), mode=mode,
+                codec=clean,
+                generator=torch.Generator(device=dev).manual_seed(0))
+            finite = bool(torch.isfinite(out).all())
+            ok = torch.isfinite(out)
+            err = float((out[ok] - ref[ok]).abs().max())
+            if integrity:
+                cf = float(m.corrupt_fraction.mean())
+                check(finite, f"fault check {mode}: aggregate not finite")
+                check(cf > 0, f"fault check {mode}: no corrupt bucket seen")
+                print(f"fault check {mode} + integrity, flip_prob {p}: "
+                      f"finite, corrupt share {cf:.4f} (expected "
+                      f"{expect:.4f}: buckets holding a flipped word), "
+                      f"{float(m.excluded_workers.max()):.0f} workers "
+                      f"excluded, max |out - clean| {err:.3g}", flush=True)
+            else:
+                print(f"fault check {mode}, bare wire, flip_prob {p}: "
+                      f"{int((~ok).sum())} non-finite coordinates of {d}, "
+                      f"max |out - clean| over the finite ones {err:.3g}",
+                      flush=True)
+
+
+def run_phase(train, name, argv, kernels_needed, cuda):
+    """One training run through the launcher with every launch count set
+    to 0 just before it; returns (result, launches, layouts, peak)."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    res = train.run(train.parse_args(argv))
+    counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+    peak = torch.cuda.max_memory_allocated()
+    del res["trainer"]  # free the phase's model and state for the next
+    check(res["d"] == D_B, f"phase {name} d = {res['d']}, expected {D_B}")
+    hist = res["history"]
+    check(all(math.isfinite(h["loss"]) for h in hist),
+          f"phase {name} loss not finite")
+    check(all(counts.get(k, 0) > 0 for k in kernels_needed),
+          f"phase {name} kernel launches {counts}")
+    for h in hist:
+        split = ", ".join(f"{k} {v:.1f}" for k, v in h["stage_ms"].items())
+        print(f"phase {name} step {h['step']}: {h['step_ms']:.1f} ms/step; "
+              f"stages ms: {split}; loss {h['loss']:.4f}", flush=True)
+    return res, counts, layouts, peak
+
+
+def resume_check(train):
+    """paper-proxy, two_phase + ef through the launcher: 8 steps straight
+    against 4 steps and a resumed launch to 8."""
+    import shutil
+    ck = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "paper-proxy", "--workers", "4", "--sync", "two_phase",
+            "--compress", "ef", "--bits", "3", "--bucket", "1024",
+            "--update-at", "2", "--lr", "2e-3"]
+    straight = train.run(train.parse_args(argv + ["--steps", "8"]))
+    first = train.run(train.parse_args(argv + ["--steps", "4", "--ckpt-dir",
+                                               ck]))
+    second = train.run(train.parse_args(argv + ["--steps", "8", "--ckpt-dir",
+                                                ck]))
+    shutil.rmtree(ck, ignore_errors=True)
+    want = [h["loss"] for h in straight["history"]]
+    got = [h["loss"] for h in first["history"] + second["history"]]
+    check([h["step"] for h in second["history"]] == [4, 5, 6, 7],
+          "resume did not start after the saved step")
+    a = straight["trainer"].model.flat
+    b = second["trainer"].model.flat
+    same = got == want and bool((a == b).all())
+    diff = float((a - b).abs().max())
+    loss_diff = max(abs(x - y) for x, y in zip(got, want))
+    if not same:
+        check(bool(((a - b).abs() <= 1e-6 * a.abs()).all())
+              and loss_diff <= 1e-6 * max(map(abs, want)),
+              f"resumed run beyond rtol 1e-6: params {diff}, loss "
+              f"{loss_diff}")
+    print(f"resume check: losses {'equal' if got == want else 'differ'} "
+          f"(max diff {loss_diff:.3g}), final parameters "
+          f"{'equal' if bool((a == b).all()) else 'differ'} (max diff "
+          f"{diff:.3g}) over 8 steps, resumed at step 4", flush=True)
 
 
 def main() -> None:
@@ -352,10 +653,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
+        from repro_torch import compress
+        from repro_torch.compress import SparseCodec
         from repro_torch.core import levels as lv
-        from repro_torch.core.codec import codec_for_scheme
+        from repro_torch.core.codec import (
+            codec_for_scheme, make_codec, requant_codec)
+        from repro_torch.core.packing import wire_bits_for
         from repro_torch.core.schemes import QuantScheme
-        from repro_torch.dist import sync
+        from repro_torch.dist import faults, sync, transport
         from repro_torch.kernels import cuda, ops, ref
         from repro_torch.kernels.bucket_stats import bucket_stats_cuda
         from repro_torch.kernels.quantize import quantize_cuda
@@ -371,6 +676,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     built = cuda.build()
@@ -384,7 +690,11 @@ def main() -> None:
     layout_grid(ref, lv, cuda, quantize_cuda, bucket_stats_cuda)
     kernels = main_path_kernels(ops, ref, lv, cuda, codec_for_scheme,
                                 QuantScheme)
-    sync_check(sync, QuantScheme, codec_for_scheme)
+    shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
+                                    QuantScheme, SparseCodec)
+    sync_check(sync, compress, QuantScheme, make_codec)
+    fault_check(sync, faults, transport, QuantScheme, make_codec,
+                wire_bits_for)
 
     # ---- phase A ----
     cuda.reset_launches()
@@ -410,46 +720,90 @@ def main() -> None:
           f"{bits:.3f} bits/coord, levels {hist[-1]['levels']}, "
           f"launches {counts_a}", flush=True)
 
-    # ---- phase B ----
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    cuda.reset_launches()
-    res = train.run(train.parse_args([
-        "--arch", "llama3.2-1b", "--layers", "4", "--workers", str(M_B),
-        "--batch", str(2 * M_B), "--seq", "1024", "--data", "uniform",
-        "--scheme", "alq", "--bits", "3", "--bucket", str(BS_B),
-        "--optim", "adamw", "--lr", "1e-4", "--update-at", "1",
-        "--steps", "5", "--time-stages"]))
-    counts_b = dict(cuda.LAUNCHES)
-    layouts_b = dict(cuda.LAYOUTS)
-    peak = torch.cuda.max_memory_allocated()
-    check(res["d"] == D_B, f"phase B d = {res['d']}, expected {D_B}")
-    hist = res["history"]
-    check(all(math.isfinite(h["loss"]) for h in hist),
-          "phase B loss not finite")
-    check(all(counts_b.get(k, 0) > 0 for k in cuda.KERNELS),
-          f"phase B kernel launches {counts_b}")
+    full = ["--arch", "llama3.2-1b", "--layers", "4", "--workers", str(M_B),
+            "--batch", str(2 * M_B), "--seq", "1024", "--data", "uniform",
+            "--scheme", "alq", "--bits", "3", "--bucket", str(BS_B),
+            "--optim", "adamw", "--lr", "1e-4", "--update-at", "1",
+            "--time-stages"]
+    phases = {}
+
+    # ---- phase B: all_gather, plain ----
+    res, counts_b, layouts_b, peak = run_phase(
+        train, "B", full + ["--steps", "5"], cuda.KERNELS, cuda)
     check(all(layouts_b.get(f"{k}/regs", 0) == counts_b[k]
               for k in ("quantize", "bucket_stats")),
           f"phase B bucket layouts {layouts_b}")
-    for t, h in enumerate(hist):
-        split = ", ".join(f"{k} {v:.1f}" for k, v in h["stage_ms"].items())
-        print(f"phase B step {t}: {h['step_ms']:.1f} ms/step; stages ms: "
-              f"{split}; loss {h['loss']:.4f}", flush=True)
     print(f"phase B: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
           f"launches {counts_b}, layouts {layouts_b}", flush=True)
-    print(json.dumps({"phase_b": {
-        "card": smi, "d": res["d"], "peak_bytes": peak,
-        "launches": counts_b, "layouts": layouts_b,
+    phases["B"] = (res, counts_b, layouts_b, peak)
+
+    # ---- phase C: two_phase + ef + integrity ----
+    res, counts_c, layouts_c, peak = run_phase(
+        train, "C", full + ["--steps", "5", "--sync", "two_phase",
+                            "--compress", "ef", "--integrity"],
+        cuda.KERNELS, cuda)
+    scheme = QuantScheme(bits=3, bucket_size=BS_B)
+    codec = make_codec(scheme, integrity=True)
+    plan = codec.plan(D_B, shards=M_B)
+    plan2 = requant_codec(codec, 8).plan_buckets(plan.shard_nb)
+    bcast = 32.0 * (plan2.code_words + plan2.norm_words) / D_B
+    hist = res["history"]
+    for h in hist:
+        check(h["reduce_bits_per_coord"] == plan.bits_per_coord
+              and h["broadcast_bits_per_coord"] == bcast
+              and h["comm_bits_per_coord"] == plan.bits_per_coord + bcast,
+              f"phase C bits/coord {h['comm_bits_per_coord']}")
+        check(h["corrupt_fraction"] == 0.0 and h["excluded_workers"] == 0.0,
+              f"phase C corrupt buckets on a clean wire: {h}")
+        check(math.isfinite(h["residual_norm"]) and h["residual_norm"] > 0,
+              "phase C residual norm")
+    check(all(layouts_c.get(f"{k}/regs", 0) == counts_c[k]
+              for k in ("quantize", "bucket_stats")),
+          f"phase C bucket layouts {layouts_c}")
+    print(f"phase C: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
+          f"{hist[-1]['comm_bits_per_coord']:.4f} bits/coord (reduce "
+          f"{plan.bits_per_coord:.4f} + broadcast {bcast:.4f}, as planned), "
+          f"corrupt share 0, |e| {hist[-1]['residual_norm']:.4g}, "
+          f"launches {counts_c}, layouts {layouts_c}", flush=True)
+    phases["C"] = (res, counts_c, layouts_c, peak)
+
+    # ---- phase D: all_gather + topk ----
+    res, counts_d, layouts_d, peak = run_phase(
+        train, "D", full + ["--steps", "3", "--compress", "topk"],
+        cuda.KERNELS, cuda)
+    hist = res["history"]
+    check(all(h["kept_fraction"] == K_D / BS_B for h in hist),
+          f"phase D kept fraction {hist[-1]['kept_fraction']}")
+    check(layouts_d.get("quantize/smem", 0) == M_B * len(hist),
+          f"phase D top-k rows not staged in shared memory: {layouts_d}")
+    check(all("select" in h["stage_ms"] for h in hist),
+          "phase D stage split lacks the selection")
+    print(f"phase D: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
+          f"kept {hist[-1]['kept_fraction']:.6f} = {K_D}/{BS_B}, "
+          f"{hist[-1]['comm_bits_per_coord']:.4f} bits/coord, "
+          f"launches {counts_d}, layouts {layouts_d}", flush=True)
+    phases["D"] = (res, counts_d, layouts_d, peak)
+
+    print(json.dumps({"phases": {k: {
+        "card": smi, "d": r["d"], "peak_bytes": pk, "launches": c,
+        "layouts": ly,
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
-                   "loss": h["loss"]} for h in hist]}}), flush=True)
+                   "loss": h["loss"]} for h in r["history"]]}
+        for k, (r, c, ly, pk) in phases.items()},
+        "select_ms": t_select}), flush=True)
+    del phases, res
+
+    resume_check(train)
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k in kernels:
-        k["launches"] = counts_b.get(k["name"], 0)
+        k["launches"] = sum(c.get(k["name"], 0)
+                            for c in (counts_b, counts_c, counts_d))
         k["route"] = "cuda"
+        k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_share", "ms_spread")
+            "bound_share", "ms_spread", "shapes")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
                                   for k in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

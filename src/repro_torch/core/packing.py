@@ -12,6 +12,10 @@ b bits fill exactly b words, so every chunk starts on a word boundary and
 the int64 temporaries stay a few hundred MB whatever the gradient size.
 Inside a chunk, each group of 32 symbols forms its b words by a dense
 sum of shifted fragments, with no scatter and no atomics.
+
+``bucket_checksums`` gives the per-bucket integrity words of the
+``integrity=`` wire: the reference's uint32 arithmetic, taken in int64
+and reduced mod 2**32, over row chunks of about ``CHUNK_SYMBOLS``.
 """
 from __future__ import annotations
 
@@ -167,6 +171,70 @@ def unpack_norms(words: torch.Tensor, nb: int,
         h = torch.where(h >= 1 << 15, h - (1 << 16), h).to(torch.int16)
         return h.view(torch.float16).to(torch.float32)
     raise ValueError(f"unknown norm_dtype {norm_dtype!r}; known: {NORM_DTYPES}")
+
+
+# Mixing constants of the per-bucket integrity word, as in the reference:
+# odd, so every per-position multiplier is invertible mod 2**32 and any
+# single-symbol change changes the weighted sum.
+_CSUM_SYM_MULT = 0x9E3779B1
+_CSUM_NORM_MULT = 0x85EBCA6B
+# Nonzero offset: an all-zero row (a dropped or zeroed payload) does not
+# checksum to 0, so it fails instead of decoding as a valid zero bucket.
+_CSUM_OFFSET = 0x6A09E667
+
+
+def norm_bit_patterns(norms: torch.Tensor,
+                      norm_dtype: str = "float32") -> torch.Tensor:
+    """Per-bucket wire bit pattern of each norm (int32 bit patterns).
+
+    The integrity word covers the bits that travel: an fp16 norm gives
+    its 16-bit pattern, so recomputing it from decoded norms matches iff
+    the norm words arrived intact (decoded fp16 norms are exact upcasts).
+    """
+    norms = norms.reshape(-1)
+    if norm_dtype == "float32":
+        return norms.to(torch.float32).view(torch.int32)
+    if norm_dtype == "float16":
+        return (norms.to(torch.float16).view(torch.int16).to(torch.int32)
+                & 0xFFFF)
+    raise ValueError(f"unknown norm_dtype {norm_dtype!r}; known: {NORM_DTYPES}")
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for int64 x in [0, 2**32): by 16-bit halves of x,
+    so no product leaves int64."""
+    lo = (x & 0xFFFF) * c
+    hi = ((x >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK32
+
+
+def bucket_checksums(symbols: torch.Tensor,
+                     norm_bits: torch.Tensor) -> torch.Tensor:
+    """(nb, bucket_size) unsigned symbols + (nb,) norm bit patterns ->
+    (nb,) integrity words (int32 bit patterns of the reference's uint32).
+
+    A position-weighted sum with distinct odd multipliers per coordinate,
+    mixed with an xorshift-multiply avalanche.  Products stay below 2**41
+    and a bucket's sum below 2**54 (symbols < 2**9, buckets < 2**13 at the
+    repo's sizes), so int64 holds them exactly; every later product is
+    taken by ``_mul32`` and each step reduced mod 2**32, as the
+    reference's uint32 wraps.
+    """
+    nb, bs = symbols.shape
+    dev = symbols.device
+    i = torch.arange(bs, dtype=torch.int64, device=dev)
+    mult = ((2 * i + 1) * _CSUM_SYM_MULT) & _MASK32
+    out = torch.empty(nb, dtype=torch.int64, device=dev)
+    rows = max(1, CHUNK_SYMBOLS // bs)
+    for r in range(0, nb, rows):
+        sym = symbols[r:r + rows].to(torch.int64)
+        out[r:r + rows] = (sym * mult).sum(dim=1)
+    h = (out + _mul32(from_int32_bits(norm_bits.reshape(-1)),
+                      _CSUM_NORM_MULT) + _CSUM_OFFSET) & _MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    return to_int32_bits(h)
 
 
 def pack_signed(signed_codes: torch.Tensor, num_levels: int) -> torch.Tensor:

@@ -11,7 +11,23 @@ Wire modes
     payloads are all-gathered.  One decode over the M gathered streams
     and one mean give the aggregate, identical for every worker (the
     paper's broadcast-all scheme, Sec. 5).
+``two_phase``   The reduce direction moves the codec's *sharded* payload
+    by an all-to-all (each worker ships each peer only that peer's
+    shard), each worker averages its shard and re-quantizes it on a
+    fixed 8-bit uniform/L-inf grid, and the packed shards are
+    all-gathered: ~(b + 8/M + 9) bits/coord instead of M*b.
 ``fp32``        Plain mean (SuperSGD / debugging baseline).
+
+With an integrity plan every decode is checked: corrupt buckets are
+excluded from the mean (``mean_workers_bucketed``) and corrupt phase-2
+buckets zero-fill.  ``compressed_allreduce`` wraps the wire modes in the
+``repro_torch.compress`` hook: residual injection before ENCODE, residual
+update from each worker's own decode after DECODE.
+
+On the stacked transport every worker holds the same aggregate, so the
+aggregate is decoded once; each worker's own round trip Q(g_w) is
+decoded worker by worker and handed to ``on_own(w, own)``, so that no
+(M, d) tensor of own round trips is needed beside the aggregate's.
 
 ``gather_stats`` is the sufficient-statistics path (Algorithm 1, line 4):
 one fused ``bucket_stats`` sweep per worker, strided subsampling to
@@ -25,19 +41,35 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.codec import WirePayload, codec_for_scheme
+from repro_torch.core.codec import (
+    GradientCodec, WirePayload, codec_for_scheme, requant_codec)
+from repro_torch.core.levels import uniform_levels
 from repro_torch.core.schemes import QuantScheme, SchemeState
 from repro_torch.core.stats import (
     TruncNormStats, merge_stats, stats_from_moments)
 from repro_torch.kernels import ops
-from repro_torch.timing import NO_CLOCK
-from .transport import StackedTransport
+from repro_torch.timing import NO_CLOCK, Renamed
+from .transport import StackedTransport, make_transport
+
+# Phase-2 grid of the two_phase mode: 8-bit uniform levels under L-inf
+# bucket normalization (QSGDinf at 8 bits), fine enough that the second
+# rounding does not forfeit the 1/M variance averaging.
+TWO_PHASE_BITS = 8
+
+Uniforms = Sequence[torch.Tensor] | None
 
 
 class SyncMetrics(NamedTuple):
     """Per-step wire accounting, split by direction as in the reference.
 
-    ``quant_error`` holds each worker's ||Q(g_w) - g_w||^2, shape (M,).
+    Per-worker fields are (M,) tensors, entry w being what the
+    reference's worker w reports: ``quant_error`` ||Q(g_w) - g_w||^2,
+    ``residual_norm`` the error-feedback residual's norm after this step
+    (0 for stateless algorithms), ``corrupt_fraction`` the share of the
+    (worker, bucket) wire slots worker w decoded that failed an integrity
+    check and ``excluded_workers`` how many workers' whole payloads did
+    (both 0 without an integrity plan).  ``kept_fraction`` is the share
+    of coordinates on the wire (< 1 only for the sparse codec).
     """
 
     comm_bits_per_coord: float
@@ -45,30 +77,178 @@ class SyncMetrics(NamedTuple):
     reduce_bits_per_coord: float
     broadcast_bits_per_coord: float
     entropy_bits_per_coord: torch.Tensor
+    residual_norm: torch.Tensor | None = None
+    kept_fraction: float = 1.0
+    corrupt_fraction: torch.Tensor | None = None
+    excluded_workers: torch.Tensor | None = None
 
 
-def _allreduce_all_gather(flats, codec, levels, transport, u, generator,
-                          clock):
-    M, d = flats.shape
-    plan = codec.plan(d)
+def _encode_all(flats, codec, levels, plan, u, generator, clock):
+    """Every worker's payload of its row of ``flats``."""
     payloads = []
-    for w in range(M):
+    for w in range(flats.shape[0]):
         vb = codec.bucketize(flats[w], plan)
         payloads.append(codec.encode(
-            vb, levels, u=None if u is None else u[w],
+            vb, levels, plan=plan, u=None if u is None else u[w],
             generator=generator, clock=clock))
         del vb
-    gathered = WirePayload(
-        words=transport.all_gather([p.words for p in payloads]),
-        norm_words=transport.all_gather([p.norm_words for p in payloads]))
-    per_worker = codec.decode(gathered, levels, plan, clock=clock)  # (M, n)
-    out = transport.mean_workers(per_worker)[:d]
-    qerr = torch.stack([torch.sum((per_worker[w, :d] - flats[w]) ** 2)
-                        for w in range(M)])
+    return payloads
+
+
+def _gather(transport, payloads, collective: str) -> WirePayload:
+    move = getattr(transport, collective)
+    return WirePayload(words=move([p.words for p in payloads]),
+                       norm_words=move([p.norm_words for p in payloads]))
+
+
+def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
+                          on_own, clock):
+    M, d = flats.shape
+    plan = codec.plan(d)
+    payloads = _encode_all(flats, codec, levels, plan, u, generator, clock)
+    gathered = _gather(transport, payloads, "all_gather")
+    qerr = torch.empty(M, device=flats.device)
+    corrupt = torch.zeros(M, device=flats.device)
+    excluded = torch.zeros(M, device=flats.device)
+    if plan.integrity:
+        # corrupt buckets leave the mean; each worker's own round trip
+        # comes from its local payload, not its gathered row, so that
+        # wire corruption cannot poison an error-feedback residual
+        per_worker, valid = codec.decode_checked(gathered, levels, plan,
+                                                 clock=clock)
+        del gathered
+        out = transport.mean_workers_bucketed(per_worker, valid,
+                                              plan.bucket_size)[:d]
+        del per_worker
+        clock.mark("decode")
+        corrupt[:] = 1.0 - valid.float().mean()
+        excluded[:] = (~valid).all(dim=1).float().sum()
+        for w in range(M):
+            own = codec.decode(payloads[w], levels, plan)[:d]
+            qerr[w] = torch.sum((own - flats[w]) ** 2)
+            on_own(w, own)
+            del own
+    else:
+        per_worker = codec.decode(gathered, levels, plan, clock=clock)
+        del gathered
+        out = transport.mean_workers(per_worker)[:d]
+        for w in range(M):
+            qerr[w] = torch.sum((per_worker[w, :d] - flats[w]) ** 2)
+            on_own(w, per_worker[w, :d])
     clock.mark("decode")
     bits = plan.bits_per_coord
     # the single gather is the broadcast-all hop (paper Sec. 5)
-    return out, per_worker[:, :d], (bits, qerr, 0.0, bits)
+    return out, SyncMetrics(bits, qerr, 0.0, bits, None,
+                            corrupt_fraction=corrupt,
+                            excluded_workers=excluded)
+
+
+def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
+                         on_own, clock):
+    M, d = flats.shape
+    dev = flats.device
+    plan = codec.plan(d, shards=M)
+    snb, bs = plan.shard_nb, plan.bucket_size
+
+    # ---- phase 1: quantized reduce-scatter (the scheme's grid) ----
+    payloads = _encode_all(flats, codec, levels, plan, u, generator, clock)
+    if M == 1:  # an unsharded payload is 1-D; the wire still sees a row
+        payloads = [WirePayload(p.words[None], p.norm_words[None])
+                    for p in payloads]
+    received = _gather(transport, payloads, "all_to_all")   # [rank, sender]
+    codec2 = requant_codec(codec, TWO_PHASE_BITS)
+    lv2 = uniform_levels(TWO_PHASE_BITS, device=dev)
+    plan2 = codec2.plan_buckets(snb)
+    bad1 = torch.zeros(M, device=dev)
+    excluded = torch.zeros(M, device=dev)
+    phase2 = []
+    for r in range(M):
+        mine = WirePayload(received.words[r], received.norm_words[r])
+        if plan.integrity:
+            vals, valid1 = codec.decode_checked(mine, levels, plan, shard=r,
+                                                clock=clock)
+            shard_mean = transport.mean_workers_bucketed(vals, valid1, bs)
+            bad1[r] = (~valid1).float().sum()
+            excluded[r] = (~valid1).all(dim=1).float().sum()
+        else:
+            vals = codec.decode(mine, levels, plan, shard=r, clock=clock)
+            shard_mean = transport.mean_workers(vals)
+        del vals
+        clock.mark("decode")
+
+        # ---- phase 2: re-quantize this rank's shard of the aggregate ----
+        phase2.append(codec2.encode(
+            shard_mean.view(snb, bs), lv2, plan=plan2,
+            u=None if u2 is None else u2[r], generator=generator,
+            clock=Renamed(clock, "requant")))
+        del shard_mean
+    del received
+    g2 = _gather(transport, phase2, "all_gather")
+    # every worker decodes the same gathered bytes: decode them once
+    if plan2.integrity:
+        out, valid2 = codec2.decode_checked(g2, lv2, plan2, clock=clock)
+        # phase 2 carries each shard once, with nothing to renormalize
+        # over: a corrupt bucket zero-fills (masked_fill, not a product,
+        # as it may decode to NaN)
+        out.view(M, snb, bs).masked_fill_(~valid2[:, :, None], 0.0)
+        bad2 = (~valid2).float().sum()
+        corrupt = (bad1 + bad2) / (2 * M * snb)
+    else:
+        out = codec2.decode(g2, lv2, plan2, clock=clock)
+        corrupt = torch.zeros(M, device=dev)
+    del g2
+    out = out.reshape(-1)[:d]
+
+    # each worker's own phase-1 payload, decoded shard by shard
+    qerr = torch.empty(M, device=dev)
+    for w in range(M):
+        own = codec.decode(payloads[w], levels, plan,
+                           clock=clock).reshape(-1)[:d]
+        qerr[w] = torch.sum((own - flats[w]) ** 2)
+        on_own(w, own)
+        del own
+    clock.mark("decode")
+    bits_reduce = plan.bits_per_coord
+    bits_bcast = 32.0 * (plan2.code_words + plan2.norm_words) / d
+    return out, SyncMetrics(bits_reduce + bits_bcast, qerr, bits_reduce,
+                            bits_bcast, None, corrupt_fraction=corrupt,
+                            excluded_workers=excluded)
+
+
+_MODES = {"all_gather": _allreduce_all_gather,
+          "two_phase": _allreduce_two_phase}
+
+
+def _allreduce(flats, scheme, state, mode, transport, codec, u, u2,
+               generator, on_own, clock):
+    """Every sync mode: (aggregate (d,), SyncMetrics)."""
+    M = flats.shape[0]
+    if transport is None:
+        transport = make_transport(M)
+    if transport.size() != M:
+        raise ValueError(f"transport of {transport.size()} workers for "
+                         f"{M} gradients")
+    if mode == "fp32" or not scheme.quantized:
+        for w in range(M):      # lossless: the own round trip is the input
+            on_own(w, flats[w])
+        return transport.mean_psum(flats), _fp32_metrics(flats)
+    if mode not in _MODES:
+        raise ValueError(f"unknown sync mode {mode!r}; known: "
+                         f"('fp32', {', '.join(map(repr, _MODES))})")
+    if codec is None:
+        codec = codec_for_scheme(scheme)
+    out, m = _MODES[mode](flats, codec, state.levels, transport, u, u2,
+                          generator, on_own, clock)
+    return out, m._replace(entropy_bits_per_coord=state.entropy_bits,
+                           residual_norm=torch.zeros(M, device=flats.device))
+
+
+def _fp32_metrics(flats) -> SyncMetrics:
+    M, dev = flats.shape[0], flats.device
+    zeros = torch.zeros(M, device=dev)
+    return SyncMetrics(32.0, zeros, 32.0, 0.0, torch.tensor(32.0, device=dev),
+                       residual_norm=zeros, corrupt_fraction=zeros,
+                       excluded_workers=zeros)
 
 
 def quantized_allreduce(
@@ -77,7 +257,10 @@ def quantized_allreduce(
     state: SchemeState,
     *,
     mode: str = "all_gather",
-    u: Sequence[torch.Tensor] | None = None,
+    transport: StackedTransport | None = None,
+    codec: GradientCodec | None = None,
+    u: Uniforms = None,
+    u2: Uniforms = None,
     generator: torch.Generator | None = None,
     return_own: bool = False,
     clock=NO_CLOCK,
@@ -87,11 +270,18 @@ def quantized_allreduce(
     Args:
       flats: (M, d) local gradients, worker w's at row w.
       scheme / state: quantization method and its adaptive state (levels).
-      mode: 'fp32' | 'all_gather'.  The wire is the scheme's uniform
-        codec, moved over a ``StackedTransport`` of the M workers.
-      u: per-worker (nb, bucket_size) float32 uniforms, u[w] for worker
-        w, as the tests feed the reference's draws; when None every
-        worker draws its own from ``generator``.
+      mode: 'fp32' | 'all_gather' | 'two_phase'.
+      transport: the collective transport (a ``StackedTransport`` of the
+        M workers by default; ``MaskedTransport`` to drop workers,
+        ``dist.faults.FaultyTransport`` to corrupt the wire).
+      codec: the wire codec (the scheme's uniform codec by default).
+      u: per-worker float32 uniforms of the phase-1 rounding, u[w] for
+        worker w, shaped like the codec's encode draws them (the tests
+        feed the reference's draws); when None every worker draws its own
+        from ``generator``.
+      u2: per-rank (shard_nb, bucket_size) uniforms of the two_phase
+        re-quantization, u2[r] for rank r; drawn from ``generator`` when
+        None.
       return_own: also return each worker's own lossy round trip
         Q(flats[w]) as an (M, d) tensor.
       clock: stage clock (``mark(stage)``) for per-stage timing.
@@ -99,20 +289,61 @@ def quantized_allreduce(
     Returns (aggregate mean (d,), SyncMetrics), or (aggregate, own,
     SyncMetrics) with ``return_own``.
     """
-    M = flats.shape[0]
-    transport = StackedTransport(M)
-    if mode == "fp32" or not scheme.quantized:
-        out = transport.mean_psum(flats)
-        m = SyncMetrics(32.0, torch.zeros(M, device=flats.device), 32.0,
-                        0.0, torch.tensor(32.0, device=flats.device))
-        return (out, flats, m) if return_own else (out, m)
-    if mode != "all_gather":
-        raise ValueError(f"unknown or unported sync mode {mode!r}")
-    out, own, (bits, qerr, red, bc) = _allreduce_all_gather(
-        flats, codec_for_scheme(scheme), state.levels, transport, u,
-        generator, clock)
-    m = SyncMetrics(bits, qerr, red, bc, state.entropy_bits)
+    own = torch.empty_like(flats) if return_own else None
+
+    def keep(w, row):
+        if own is not None:
+            own[w] = row
+
+    out, m = _allreduce(flats, scheme, state, mode, transport, codec, u, u2,
+                        generator, keep, clock)
     return (out, own, m) if return_own else (out, m)
+
+
+def compressed_allreduce(
+    flats: torch.Tensor,
+    scheme: QuantScheme,
+    state: SchemeState,
+    algorithm,
+    comp_state,
+    *,
+    mode: str = "all_gather",
+    transport: StackedTransport | None = None,
+    u: Uniforms = None,
+    u2: Uniforms = None,
+    generator: torch.Generator | None = None,
+    clock=NO_CLOCK,
+) -> tuple:
+    """The ``repro_torch.compress`` algorithm hook around ENCODE/DECODE.
+
+    ``algorithm.prepare`` injects the residual into ``flats`` IN PLACE
+    (so the (M, d) gradient rows hold what is encoded), the wire runs on
+    the algorithm's codec, and ``algorithm.feedback`` updates worker w's
+    residual row from its own decode as soon as that decode exists.  With
+    the stateless ``plain`` algorithm this is ``quantized_allreduce`` on
+    the same codec, bit for bit (``comp_state`` may then be None).
+
+    Returns (aggregate mean, new comp_state, SyncMetrics) with
+    ``residual_norm`` (per worker) and ``kept_fraction`` filled in.
+    """
+    # the stateless passthrough has no stage of its own
+    hook_clock = clock if algorithm.stateful else NO_CLOCK
+    inp = algorithm.prepare(flats, comp_state)
+    hook_clock.mark("compress")
+
+    def feedback(w, own):
+        hook_clock.mark("decode")
+        algorithm.feedback(comp_state, w, inp[w], own)
+        hook_clock.mark("compress")
+
+    out, m = _allreduce(inp, scheme, state, mode, transport, algorithm.codec,
+                        u, u2, generator, feedback, clock)
+    new_state = algorithm.advance(comp_state)
+    m = m._replace(kept_fraction=algorithm.kept_fraction)
+    if algorithm.stateful:
+        m = m._replace(residual_norm=new_state.residual_norm)
+        hook_clock.mark("compress")
+    return out, new_state, m
 
 
 def gather_stats(flats: torch.Tensor, scheme: QuantScheme) -> TruncNormStats:

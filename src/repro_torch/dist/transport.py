@@ -6,11 +6,26 @@ payloads.  ``StackedTransport`` holds M logical workers on one device:
 every per-worker tensor carries a leading worker axis M, a gather is a
 ``torch.stack`` and the cross-worker mean is ``mean(0)``.  It is the
 counterpart of the reference's vmap-axis transport, which its cluster
-simulator uses to run M workers on one host.
+simulator uses to run M logical workers on one host.
+
+A transport also owns the cross-worker averaging rule: the plain
+transport averages uniformly; ``MaskedTransport`` renormalizes over the
+workers whose payloads arrived (the simulator's dropout hook), so every
+wire mode gets dropout support without knowing about it.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _weighted_sum(weights: torch.Tensor, stacked: torch.Tensor
+                  ) -> torch.Tensor:
+    """sum_m weights[m] * stacked[m], in worker order: the one weighted
+    reduction both masked means use, so that they agree bit for bit."""
+    out = weights[0] * stacked[0]
+    for m in range(1, stacked.shape[0]):
+        out += weights[m] * stacked[m]
+    return out
 
 
 class StackedTransport:
@@ -31,11 +46,89 @@ class StackedTransport:
                              f"got {len(per_worker)}")
         return torch.stack(per_worker)
 
+    def all_to_all(self, per_worker: list[torch.Tensor]) -> torch.Tensor:
+        """M per-worker (M, ...) payloads, row j bound for worker j ->
+        (M, M, ...) whose [r, w] is what worker w sent to worker r."""
+        if len(per_worker) != self._size:
+            raise ValueError(f"expected {self._size} payloads, "
+                             f"got {len(per_worker)}")
+        return torch.stack(per_worker, dim=1)
+
+    # ---- aggregation rule ------------------------------------------------
+
+    def active_vector(self) -> torch.Tensor:
+        """(M,) raw per-worker delivery weights before renormalization
+        (all 1 here)."""
+        return torch.ones(self._size, dtype=torch.float32)
+
+    def weights(self) -> torch.Tensor:
+        """(M,) convex weights used to average per-worker payloads."""
+        return torch.full((self._size,), 1.0 / self._size,
+                          dtype=torch.float32)
+
     def mean_workers(self, stacked: torch.Tensor) -> torch.Tensor:
         """Mean over the leading (worker) axis: sum, then divide, the
         reduction order the reference's wire contract pins."""
         return stacked.mean(0)
 
+    def mean_workers_bucketed(self, stacked: torch.Tensor,
+                              valid: torch.Tensor,
+                              bucket_size: int) -> torch.Tensor:
+        """Per-bucket masked mean over workers of (M, n) values, with
+        ``valid`` an (M, nb) bool mask of the buckets that passed the
+        integrity checks.  Invalid buckets are excluded and the rest
+        renormalized per bucket by ``MaskedTransport.weights``'s formula
+        (``a / max(sum(a), 1)`` of the raw active vector), so a worker
+        whose every bucket is invalid aggregates exactly like one masked
+        out at the transport.  An all-invalid bucket gives 0.
+        """
+        M, nb = valid.shape
+        a = (self.active_vector().to(stacked.device)[:, None]
+             * valid.to(torch.float32))
+        w = a / torch.clamp(a.sum(0), min=1.0)                  # (M, nb)
+        # a corrupt bucket may decode to NaN or inf, and 0 * NaN = NaN:
+        # zero its values as well as its weight
+        vb = stacked.reshape(M, nb, bucket_size)
+        vb = torch.where(valid[:, :, None], vb, 0.0)
+        return _weighted_sum(w[:, :, None], vb).reshape(-1)
+
     def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
         """fp32 mean-allreduce of per-worker local values (M, ...)."""
         return stacked.mean(0)
+
+
+class MaskedTransport(StackedTransport):
+    """Stacked workers with an injected per-worker weight vector, the
+    simulator's dropout / heterogeneity hook.
+
+    ``active`` is an (M,) float vector (1 = payload arrives, 0 = worker
+    absent); weights renormalize over the survivors, so the aggregate is
+    the mean over the workers whose payloads were delivered.
+    """
+
+    def __init__(self, active: torch.Tensor):
+        active = torch.as_tensor(active, dtype=torch.float32)
+        super().__init__(active.shape[0])
+        self.active = active
+
+    def active_vector(self) -> torch.Tensor:
+        return self.active
+
+    def weights(self) -> torch.Tensor:
+        return self.active / torch.clamp(self.active.sum(), min=1.0)
+
+    def mean_workers(self, stacked: torch.Tensor) -> torch.Tensor:
+        w = self.weights().to(stacked.device)
+        return _weighted_sum(w.reshape((-1,) + (1,) * (stacked.dim() - 1)),
+                             stacked)
+
+    def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
+        return self.mean_workers(stacked)
+
+
+def make_transport(size: int, active: torch.Tensor | None = None
+                   ) -> StackedTransport:
+    """The transport ``quantized_allreduce`` uses by default."""
+    if active is not None:
+        return MaskedTransport(active)
+    return StackedTransport(size)

@@ -6,6 +6,11 @@
 Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
 milliseconds of each step) so that scripts can drive it too.
+
+``--ckpt-dir`` saves the trainer's whole state every ``--save-every``
+steps and at the last step, and a later launch with the same directory
+resumes after the newest checkpoint; ``--save`` writes the final flat
+parameters.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from repro_torch.core.schemes import QuantScheme
 from repro_torch.models.transformer import Model
 from repro_torch.timing import NO_CLOCK, StageClock
 from repro_torch.train.data import DataConfig, Pipeline
+from repro_torch.train import checkpoint
 from repro_torch.train.optim import OptimConfig
 from repro_torch.train.train_step import TrainConfig, Trainer
 
@@ -37,7 +43,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bits", type=int, default=3)
     ap.add_argument("--bucket", type=int, default=1024)
     ap.add_argument("--sync", default="all_gather",
-                    choices=["fp32", "all_gather"])
+                    choices=["fp32", "all_gather", "two_phase"])
     ap.add_argument("--workers", type=int, default=1,
                     help="M logical data-parallel workers on the device")
     ap.add_argument("--steps", type=int, default=50)
@@ -48,10 +54,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optim", default="adamw", choices=["sgdm", "adamw"])
     ap.add_argument("--update-at", default="2,10")
+    ap.add_argument("--compress", default="plain",
+                    help="compression algorithm around the codec: plain | "
+                         "ef[:warmup] | topk[:k]")
+    ap.add_argument("--integrity", action="store_true",
+                    help="lay per-bucket checksum words into the wire "
+                         "payload; corrupt buckets leave the aggregate")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint directory: periodic saves of the "
+                         "whole training state and auto-resume from the "
+                         "newest step_*.npz")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="save to --ckpt-dir every N steps (0 = only at "
+                         "the end)")
+    ap.add_argument("--save", default="",
+                    help="write the final flat parameters to this npz")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--time-stages", action="store_true",
                     help="time the stages of every step (CUDA events)")
     return ap.parse_args(argv)
+
+
+def resume_state(ckpt_dir: str, trainer: Trainer) -> int:
+    """Auto-resume: load the newest checkpoint in ``ckpt_dir`` into
+    ``trainer`` and return the step after it, or 0 for a fresh start."""
+    found = checkpoint.restore_latest(ckpt_dir, trainer.state_arrays())
+    if found is None:
+        return 0
+    step, arrays = found
+    trainer.load_state_arrays(arrays)
+    print(f"resumed step {step} from "
+          f"{checkpoint.step_path(ckpt_dir, step)}", flush=True)
+    return step + 1
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -68,14 +102,16 @@ def run(args: argparse.Namespace) -> dict:
         sync_mode=args.sync,
         update_milestones=tuple(int(x) for x in args.update_at.split(",")
                                 if x),
-        update_every=0, workers=args.workers)
+        update_every=0, workers=args.workers, compress=args.compress,
+        integrity=args.integrity)
     trainer = Trainer(model, tcfg, seed=SEED)
+    start = resume_state(args.ckpt_dir, trainer) if args.ckpt_dir else 0
     pipe = Pipeline(DataConfig(kind=args.data, vocab_size=cfg.vocab_size,
                                seq_len=args.seq, global_batch=args.batch,
                                seed=SEED))
     history = []
     t0 = time.perf_counter()
-    for t in range(args.steps):
+    for t in range(start, args.steps):
         batch = pipe.batch(t, device)
         clock = StageClock(device) if args.time_stages else NO_CLOCK
         t_step = time.perf_counter()
@@ -84,20 +120,33 @@ def run(args: argparse.Namespace) -> dict:
         metrics["levels"] = trainer.scheme_state.levels.tolist()
         if args.time_stages:
             metrics["stage_ms"] = clock.stage_ms()
+        metrics["step"] = t
         history.append(metrics)
+        if args.ckpt_dir and ((args.save_every > 0
+                               and (t + 1) % args.save_every == 0)
+                              or t == args.steps - 1):
+            checkpoint.save_step(args.ckpt_dir, t, trainer.state_arrays())
         if t % LOG_EVERY == 0 or t == args.steps - 1:
             lv = [round(x, 3) for x in metrics["levels"][:4]]
+            extra = ("" if args.compress == "plain" else
+                     f" |e|={metrics['residual_norm']:.3f}"
+                     f" kept={metrics['kept_fraction']:.2f}")
             stages = "".join(f" {k}={v:.1f}ms" for k, v in
                              metrics.get("stage_ms", {}).items())
             print(f"step {t:4d} loss={metrics['loss']:.4f} "
                   f"|g|={metrics['grad_norm']:.3f} "
-                  f"bits/coord={metrics['comm_bits_per_coord']:.1f} "
-                  f"levels={lv}{stages}", flush=True)
+                  f"bits/coord={metrics['comm_bits_per_coord']:.1f}"
+                  f"{extra} levels={lv}{stages}", flush=True)
     dt = time.perf_counter() - t0
-    print(f"done: {args.steps} steps in {dt:.1f}s "
-          f"({dt / max(args.steps, 1) * 1e3:.0f} ms/step)", flush=True)
+    ran = args.steps - start
+    print(f"done: {ran} steps in {dt:.1f}s "
+          f"({dt / max(ran, 1) * 1e3:.0f} ms/step)", flush=True)
+    if args.save:
+        checkpoint.save(args.save, {"params": model.flat})
+        print(f"saved params to {args.save}", flush=True)
     return {"config": cfg, "d": model.d, "history": history,
-            "num_updates": trainer.scheme_state.num_updates}
+            "num_updates": trainer.scheme_state.num_updates,
+            "trainer": trainer}
 
 
 def main(argv=None) -> None:

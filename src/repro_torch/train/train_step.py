@@ -8,9 +8,14 @@ Per step:
      reference's ravel order);
   2. on the update schedule: bucket statistics per worker, the merged
      mixture, and the ALQ/AMQ level update (lines 2-4);
-  3. ENCODE -> gather -> DECODE -> average (lines 6-9) through
-     ``dist.sync.quantized_allreduce``;
+  3. ENCODE -> collective -> DECODE -> average (lines 6-9) through
+     ``dist.sync.compressed_allreduce``, with the configured compression
+     algorithm around the wire (the error-feedback residual is formed in
+     place in the gradient rows and updated worker by worker);
   4. one SGD-momentum / AdamW update of the flat parameters.
+
+``Trainer.state_arrays`` / ``load_state_arrays`` give its whole state as
+named tensors for ``train.checkpoint``.
 """
 from __future__ import annotations
 
@@ -19,21 +24,40 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.schemes import QuantScheme
-from repro_torch.dist.sync import maybe_update_levels, quantized_allreduce
+from repro_torch.compress import make_algorithm
+from repro_torch.core.codec import make_codec
+from repro_torch.core.schemes import QuantScheme, SchemeState
+from repro_torch.dist.sync import (
+    compressed_allreduce, maybe_update_levels, quantized_allreduce)
 from repro_torch.models.transformer import Model
 from repro_torch.timing import NO_CLOCK
-from .optim import OptimConfig, apply_updates, init_opt_state
+from .optim import OptimConfig, OptState, apply_updates, init_opt_state
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     scheme: QuantScheme = QuantScheme()
     optim: OptimConfig = OptimConfig()
-    sync_mode: str = "all_gather"       # fp32 | all_gather
+    sync_mode: str = "all_gather"       # fp32 | all_gather | two_phase
     update_milestones: tuple = (100, 2000)
     update_every: int = 10_000          # additionally every k steps
     workers: int = 1                    # M logical data-parallel workers
+    # compression algorithm around the codec (repro_torch.compress):
+    # 'plain' | 'ef[:warmup_steps]' | 'topk[:k]'
+    compress: str = "plain"
+    # per-bucket checksum words on the wire; corrupt buckets are excluded
+    integrity: bool = False
+
+
+def _make_algo(tcfg: TrainConfig):
+    if not tcfg.scheme.quantized:
+        return None
+    # None = the scheme's uniform codec; only an integrity plan is passed
+    # explicitly (make_algorithm refuses a codec for 'topk', which owns
+    # its SparseCodec)
+    codec = make_codec(tcfg.scheme, integrity=True) if tcfg.integrity \
+        else None
+    return make_algorithm(tcfg.compress, tcfg.scheme, codec=codec)
 
 
 def is_update_step(tcfg: TrainConfig, step: int) -> bool:
@@ -44,7 +68,9 @@ def is_update_step(tcfg: TrainConfig, step: int) -> bool:
 
 class Trainer:
     """Owns the training state of one model: the (M, d) gradient rows,
-    the optimizer moments, the scheme state and the step counter.
+    the optimizer moments, the scheme state, the compression state (the
+    (M, d) error-feedback residual of a stateful algorithm) and the step
+    counter.
 
     ``seed`` seeds the generator of the stochastic rounding on the
     model's device.
@@ -57,16 +83,23 @@ class Trainer:
         self.grads = torch.zeros((tcfg.workers, model.d), device=dev)
         self.opt = init_opt_state(tcfg.optim, model.flat)
         self.scheme_state = tcfg.scheme.init_state(dev)
+        self.algo = _make_algo(tcfg)
+        self.compress_state = None
+        if self.algo is not None and self.algo.stateful:
+            self.compress_state = self.algo.init_state(tcfg.workers, model.d,
+                                                       dev)
         self.step = 0
         self.generator = torch.Generator(device=dev).manual_seed(seed)
 
     def train_step(self, batch: dict[str, torch.Tensor], *,
                    u: Sequence[torch.Tensor] | None = None,
+                   u2: Sequence[torch.Tensor] | None = None,
                    clock=NO_CLOCK) -> dict[str, float]:
         """One step on a global batch (ids, labels of shape (B, S)).
 
-        ``u`` optionally gives each worker's (nb, bucket_size) uniforms
-        (see ``quantized_allreduce``).  Returns the step's metrics.
+        ``u`` and ``u2`` optionally give each worker's uniforms (see
+        ``quantized_allreduce``).  Returns the step's metrics; per-worker
+        wire metrics are worker 0's, the residual norm the workers' mean.
         """
         tcfg, model = self.tcfg, self.model
         M = tcfg.workers
@@ -88,9 +121,15 @@ class Trainer:
         self.scheme_state = maybe_update_levels(
             self.grads, tcfg.scheme, self.scheme_state,
             is_update_step(tcfg, self.step), clock=clock)
-        synced, m = quantized_allreduce(
-            self.grads, tcfg.scheme, self.scheme_state, mode=tcfg.sync_mode,
-            u=u, generator=self.generator, clock=clock)
+        if self.algo is None:   # fp32 / super_sgd: the plain mean
+            synced, m = quantized_allreduce(
+                self.grads, tcfg.scheme, self.scheme_state,
+                mode=tcfg.sync_mode, clock=clock)
+        else:
+            synced, self.compress_state, m = compressed_allreduce(
+                self.grads, tcfg.scheme, self.scheme_state, self.algo,
+                self.compress_state, mode=tcfg.sync_mode, u=u, u2=u2,
+                generator=self.generator, clock=clock)
         grad_norm = torch.sqrt(torch.sum(synced * synced))
         self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
         del synced
@@ -104,4 +143,51 @@ class Trainer:
             "reduce_bits_per_coord": m.reduce_bits_per_coord,
             "broadcast_bits_per_coord": m.broadcast_bits_per_coord,
             "entropy_bits_per_coord": float(m.entropy_bits_per_coord),
+            "residual_norm": m.residual_norm.mean().item(),
+            "kept_fraction": m.kept_fraction,
+            "corrupt_fraction": m.corrupt_fraction[0].item(),
+            "excluded_workers": m.excluded_workers[0].item(),
         }
+
+    # ---- checkpointing ---------------------------------------------------
+
+    def state_arrays(self) -> dict[str, torch.Tensor]:
+        """The whole training state as named tensors: flat parameters,
+        optimizer moments and count, the scheme state, the step, the
+        rounding generator's state and the compression state."""
+        out = {"params": self.model.flat.detach(),
+               "opt.mu": self.opt.mu,
+               "opt.count": torch.tensor(self.opt.count),
+               "step": torch.tensor(self.step),
+               "rng": self.generator.get_state()}
+        if self.opt.nu is not None:
+            out["opt.nu"] = self.opt.nu
+        for f in SchemeState._fields:
+            out[f"scheme.{f}"] = torch.as_tensor(getattr(self.scheme_state,
+                                                         f))
+        if self.compress_state is not None:
+            out["compress.residual"] = self.compress_state.residual
+            out["compress.step"] = torch.tensor(self.compress_state.step)
+        return out
+
+    def load_state_arrays(self, arrays: dict[str, torch.Tensor]) -> None:
+        """Restore what ``state_arrays`` gave (shapes as this trainer's)."""
+        with torch.no_grad():
+            self.model.flat.copy_(arrays["params"])
+            self.opt.mu.copy_(arrays["opt.mu"])
+            if self.opt.nu is not None:
+                self.opt.nu.copy_(arrays["opt.nu"])
+        self.opt = OptState(self.opt.mu, self.opt.nu,
+                            int(arrays["opt.count"]))
+        dev = self.model.flat.device
+        self.scheme_state = SchemeState(
+            levels=arrays["scheme.levels"].to(dev),
+            multiplier=arrays["scheme.multiplier"].to(dev),
+            num_updates=int(arrays["scheme.num_updates"]),
+            entropy_bits=arrays["scheme.entropy_bits"].to(dev))
+        self.step = int(arrays["step"])
+        self.generator.set_state(arrays["rng"])
+        if self.compress_state is not None:
+            self.compress_state.residual.copy_(arrays["compress.residual"])
+            self.compress_state = self.compress_state._replace(
+                step=int(arrays["compress.step"]))

@@ -17,6 +17,7 @@ tests below reach each one by bucket size and pointer alignment.
 import pytest
 import torch
 
+from repro_torch.compress import SparseCodec
 from repro_torch.core import levels as lv
 from repro_torch.core.codec import codec_for_scheme
 from repro_torch.core.schemes import QuantScheme
@@ -208,3 +209,36 @@ def test_every_layout_of_a_production_bucket(dev, offset, layout):
     vb, u = _values(dev, 40, 8192, torch.bfloat16, offset=offset, seed=1)
     levels = lv.uniform_levels(8, device=dev)
     assert _check_layout(vb, u, levels, "linf") == layout
+
+
+def _slice_case(dev, case):
+    """The inputs the two_phase and topk paths give the kernels: a rank's
+    shard mean for the 8-bit L-inf phase 2, and the kept values of a
+    top-k selection, rows of 1927 f32 (7708 bytes, so every row but the
+    first starts off 16-byte alignment)."""
+    if case == "phase2":
+        vb, u = _values(dev, 40, 8192, torch.float32)
+        return vb, u, lv.uniform_levels(8, device=dev), "linf", "regs"
+    vb, _ = _values(dev, 48, 8192, torch.float32, seed=2)
+    vb[1, :100] = 0.25                    # ties among the kept magnitudes
+    sel, idx = SparseCodec(bucket_size=8192, k=1927).select(vb)
+    assert sel.shape == (48, 1927) and sel.is_contiguous()
+    assert bool((idx[0] == torch.arange(1927, device=dev)).all())
+    u = torch.rand(sel.shape, generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    return sel, u, lv.uniform_levels(3, device=dev), "l2", "smem"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phase2", "topk"])
+def test_slice_kernel_modes(dev, case):
+    """quantize, bucket_stats and dequantize at the modes the two_phase
+    and topk paths give them, against the plain versions."""
+    vb, u, levels, norm, layout = _slice_case(dev, case)
+    assert _check_layout(vb, u, levels, norm) == layout
+    codes, norms = ops.quantize_op(vb, u, levels, norm_type=norm)
+    assert codes.dtype == (torch.int16 if levels.numel() > 128
+                           else torch.int8)
+    for c in (codes, codes.to(torch.int32)):
+        assert torch.equal(ops.dequantize_op(c, norms, levels),
+                           ref.dequantize_ref(c, norms, levels))

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
+from test_torch_two_phase import assert_tie_rule
 
 from repro import configs as jconfigs
 from repro.core.schemes import QuantScheme as JScheme
@@ -38,7 +39,8 @@ from repro.train.data import Pipeline as JPipeline
 from repro.train.optim import OptimConfig as JOptimConfig
 from repro.train.train_step import TrainConfig as JTrainConfig
 from repro.train.train_step import (
-    TrainState, init_train_state, make_train_step, metric_specs)
+    TrainState, compress_state_specs, init_train_state, make_train_step,
+    metric_specs)
 from repro_torch import configs
 from repro_torch.core.codec import codec_for_scheme
 from repro_torch.core.schemes import QuantScheme
@@ -56,13 +58,13 @@ def _ravel(tree):
                            for x in jax.tree.leaves(tree)])
 
 
-def _reference_step(jcfg, scheme_kw, batch_np):
+def _reference_step(jcfg, scheme_kw, batch_np, **tcfg_kw):
     model = JModel(jcfg, tp=1, dp=1)
-    tcfg = JTrainConfig(
-        scheme=JScheme(**scheme_kw),
-        optim=JOptimConfig(name="sgdm", lr=LR, weight_decay=0.0),
-        sync_mode="all_gather", update_milestones=(0,), update_every=0,
-        use_pallas=False)
+    tcfg = JTrainConfig(**{
+        **dict(scheme=JScheme(**scheme_kw),
+               optim=JOptimConfig(name="sgdm", lr=LR, weight_decay=0.0),
+               sync_mode="all_gather", update_milestones=(0,),
+               update_every=0, use_pallas=False), **tcfg_kw})
     step_fn = make_train_step(model, tcfg, data_axes=("data",))
     pspecs = model.param_specs()
     with jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"))):
@@ -73,7 +75,8 @@ def _reference_step(jcfg, scheme_kw, batch_np):
             params=pspecs, opt=type(state.opt)(mu=pspecs, nu=None,
                                                count=P()),
             scheme_state=jax.tree.map(lambda _: P(), state.scheme_state),
-            step=P(), rng=P())
+            step=P(), rng=P(),
+            compress_state=compress_state_specs(state, ("data",)))
         train = jax.jit(jax.shard_map(
             step_fn,
             in_specs=(sspecs, {"ids": P("data"), "labels": P("data")}),
@@ -131,6 +134,63 @@ def test_one_step_matches_reference():
     assert close.mean() >= 0.995, close.mean()
     # a stochastic rounding that went the other way: one level step
     assert np.all(diff <= scale * (np.diff(jlv).max() + dlev + 1e-5))
+
+
+def test_one_step_two_phase_ef_integrity_matches_reference():
+    """The slice's path, one step: two_phase sync, ef compression and
+    integrity words, M=1, no level update (so both packages hold the same
+    levels and the only differences are last-ulp norms).  Each parameter
+    moves by lr times its aggregate coordinate, held by the two_phase tie
+    rule (``test_torch_two_phase.py``); the error-feedback residual
+    inp - Q(inp) within 1e-6 of the round trip's scale at 99.9% of the
+    coordinates."""
+    scheme_kw = dict(name="alq", bits=3, bucket_size=1024)
+    jcfg = jconfigs.get_config("paper-proxy")
+    cfg = configs.get_config("paper-proxy")
+    data = dict(kind="markov", vocab_size=256, seq_len=64, global_batch=8)
+    jbatch = JPipeline(JDataConfig(**data)).batch(0)
+    params0, new, jm = _reference_step(
+        jcfg, scheme_kw, {k: np.asarray(v) for k, v in jbatch.items()},
+        sync_mode="two_phase", compress="ef", integrity=True,
+        update_milestones=(1,))
+    model = Model(cfg, device="cpu")
+    model.load_flat(from_jax_params(params0, cfg))
+    scheme = QuantScheme(**scheme_kw)
+    trainer = Trainer(model, TrainConfig(
+        scheme=scheme, optim=OptimConfig(name="sgdm", lr=LR,
+                                         weight_decay=0.0),
+        sync_mode="two_phase", compress="ef", integrity=True,
+        update_milestones=(1,), update_every=0, workers=1))
+    plan = codec_for_scheme(scheme).plan(model.d, shards=1)
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
+        jax.random.PRNGKey(0), 0), 0), 0)
+    u = [torch.from_numpy(np.array(jax.random.uniform(
+        key, (plan.nb, plan.bucket_size), jax.numpy.float32)))]
+    u2 = [torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.fold_in(key, 0x2FA5E), (plan.shard_nb, plan.bucket_size),
+        jax.numpy.float32)))]
+    p0 = model.flat.clone()
+    m = trainer.train_step(Pipeline(DataConfig(**data)).batch(0, "cpu"),
+                           u=u, u2=u2)
+
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
+    for k in ("comm_bits_per_coord", "reduce_bits_per_coord",
+              "broadcast_bits_per_coord", "kept_fraction"):
+        assert m[k] == pytest.approx(float(jm[k]), rel=1e-7), k
+    assert m["corrupt_fraction"] == float(jm["corrupt_fraction"]) == 0.0
+    assert m["excluded_workers"] == float(jm["excluded_workers"]) == 0.0
+    np.testing.assert_allclose(m["residual_norm"], float(jm["residual_norm"]),
+                               rtol=1e-5)
+    # the aggregate each side applied, lr * g; p0 - lr*g rounds at p0's ulp
+    want = (p0.numpy() - _ravel(new.params)) / LR
+    got = ((p0 - model.flat) / LR).numpy()
+    ulp = 2.0 ** -23 * np.abs(p0.numpy()) / LR
+    assert_tie_rule(got, want, plan.bucket_size, slack=2 * ulp)
+    res = trainer.compress_state.residual[0].numpy()
+    jres = np.asarray(new.compress_state.residual[0])
+    g = trainer.grads[0].numpy()       # inp: the gradient plus a zero residual
+    close = np.abs(res - jres) <= 1e-6 * np.abs(g - jres).max()
+    assert close.mean() >= 0.999, close.mean()
 
 
 def test_ten_m4_steps_learn_and_adapt_on_schedule():
