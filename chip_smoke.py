@@ -13,13 +13,19 @@ Phases, each of which must pass:
      norms, 3-bit and 8-bit grids, and in every bucket layout (registers
      at 1024 and 8192, shared memory for odd sizes and unaligned
      pointers, read twice beyond shared memory); then at the shapes
-     phases B, C and D give them, where each kernel is timed in 3 rounds
+     phases B-F give them, where each kernel is timed in 3 rounds
      (median and spread) beside its plain version and its bound, and the
      top-k selection is timed at full width;
   3. sync checks on the card against the same calls on the CPU (the
      plain versions), with the same gradients and uniforms, 4 workers:
-     all_gather, two_phase without and with integrity words, and
-     compressed_allreduce with ef (two_phase) and topk (all_gather);
+     all_gather, two_phase without and with integrity words,
+     compressed_allreduce with ef (two_phase) and topk (all_gather), the
+     entropy-coded wire (all_gather; two_phase with integrity words; ef
+     over it) and the mixed-width wire (all_gather, two_phase); the
+     entropy words of the card equal the CPU's in every bucket whose codes
+     agree; a table check: the gaussian-prior table fed a gradient that
+     overflows every bucket's capacity flags every bucket that holds
+     data, and the decode still equals the uniform codec's;
   4. fault check: a FaultyTransport flipping a word in a thousand on the
      card, all_gather and two_phase: with integrity words the aggregate
      is finite and the corrupt share of buckets is printed beside the
@@ -40,12 +46,23 @@ Phases, each of which must pass:
   8. phase D: the same model, ``--sync all_gather --compress topk``, 3
      steps: finite loss, kept fraction 1927/8192, stage times (the top-k
      selection among them), peak memory, every kernel launched;
-  9. resume: paper-proxy, 4 workers, two_phase + ef through the launcher:
+  9. phase E: phase B with ``--codec entropy``, 3 steps: finite loss,
+     measured bits a coordinate above 0 and at most the plan's capacity,
+     stage times (the Huffman coding is booked to pack and unpack), peak
+     memory, quantize and dequantize launched;
+ 10. phase F: phase B with ``--codec mixed_width --sync two_phase`` (the
+     default widths (2, 4): 4- and 16-level grids), 3 steps: finite loss,
+     reduce and broadcast bits as planned, 8 group quantizes and 4
+     phase-2 quantizes a step, stage times, peak memory;
+ 11. resume: paper-proxy, 4 workers, two_phase + ef through the launcher:
      8 steps straight, then 4 steps with ``--ckpt-dir`` and a second
      launch to 8 that resumes; the resumed losses and final parameters
-     equal the straight run's.
+     equal the straight run's;
+ 12. micro-batches: paper-proxy, 4 workers, ``--micro 2`` against
+     ``--micro 1``, 4 steps: the losses agree at rtol 1e-4.
 
-Output: per-phase lines, then the kernels' JSON line, then as the last
+Output: per-phase lines, then the kernels' JSON line (launches summed
+over phases B-F), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -337,11 +354,12 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     return out
 
 
-def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec):
-    """Each kernel at the shapes phases C and D give it, against its plain
-    version, timed in 3 rounds beside the plain version and the bound;
-    and the top-k selection at full width.  Returns kernel name -> shape
-    records."""
+def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec,
+                 resample_levels):
+    """Each kernel at the shapes phases C, D and F give it, against its
+    plain version, timed in 3 rounds beside the plain version and the
+    bound; and the top-k selection at full width.  Returns kernel name ->
+    shape records."""
     import torch
     dev = torch.device("cuda")
     M = M_B
@@ -448,6 +466,54 @@ def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec):
                                            levels) for i in parts],
                n * 8 + shape[0] * 4, n * 5, 0.0, note)
         del c32, n4
+
+    # phase F's width groups: the default (2, 4) cycle splits each worker's
+    # buckets in halves, quantized over gathered rows on the 3-bit grid
+    # resampled to 4 and 16 levels; each rank decodes a group of its shard
+    # from 4 streams, the same count of rows
+    half = plan.nb // 2
+    for bits in (2, 4):
+        lvg = resample_levels(lv3, 2 ** bits)
+        L = lvg.numel()
+        vb = torch.randn(half, BS_B, generator=g, device=dev) * 1e-3
+        u = torch.rand(half, BS_B, generator=g, device=dev)
+        codes, norms = ops.quantize_op(vb, u, lvg)
+        parts, rows = chunks(half)
+        worst, mism = 0.0, 0
+        for i in parts:
+            c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], lvg, "l2")
+            check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5,
+                                      atol=0)),
+                  f"mixed-width quantize norms ({L} levels) beyond rtol 1e-5")
+            worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
+            mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
+                                        u[i:i + rows], n2, lvg)
+        n = half * BS_B
+        record("quantize", f"({half}, {BS_B}) f32 l2 {L} levels",
+               lambda: ops.quantize_op(vb, u, lvg),
+               lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows], lvg,
+                                         "l2") for i in parts],
+               n * 9 + half * 4, n * (20 + math.log2(L)), worst,
+               f"phase F width group of one worker, {mism} codes off by one "
+               "at ties")
+        del vb, u, codes, norms
+        c32 = torch.randint(-(L - 1), L, (half, BS_B), generator=g2,
+                            device=dev, dtype=torch.int32)
+        n4 = torch.rand(half, generator=g2, device=dev) + 0.1
+        got = ops.dequantize_op(c32, n4, lvg)
+        parts, rows = chunks(half, 16)
+        for i in parts:
+            check(torch.equal(got[i:i + rows], ref.dequantize_ref(
+                c32[i:i + rows], n4[i:i + rows], lvg)),
+                f"dequantize ({L} levels) not exact")
+        del got
+        record("dequantize", f"({half}, {BS_B}) int32 {L} levels",
+               lambda: ops.dequantize_op(c32, n4, lvg),
+               lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
+                                           lvg) for i in parts],
+               n * 8 + half * 4, n * 5, 0.0,
+               "phase F width group of one rank's shard, 4 streams")
+        del c32, n4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return out, t_sel
@@ -494,9 +560,13 @@ def sync_check(sync, compress, QuantScheme, make_codec):
         u2 = [torch.rand(plan.shard_nb, bs, generator=g) for _ in range(M)]
         return u, u2
 
-    for mode, integrity in (("all_gather", False), ("two_phase", False),
-                            ("two_phase", True)):
-        codec = make_codec(scheme, integrity=integrity)
+    for mode, kind, integrity in (
+            ("all_gather", "uniform", False), ("two_phase", "uniform", False),
+            ("two_phase", "uniform", True), ("all_gather", "entropy", False),
+            ("two_phase", "entropy", True),
+            ("all_gather", "mixed_width", False),
+            ("two_phase", "mixed_width", False)):
+        codec = make_codec(scheme, kind, integrity=integrity)
         plan = codec.plan(d, shards=M if mode == "two_phase" else 1)
         u, u2 = uniforms(plan, bs)
         cpu, m0 = sync.quantized_allreduce(
@@ -505,17 +575,24 @@ def sync_check(sync, compress, QuantScheme, make_codec):
         gpu, m = sync.quantized_allreduce(
             grads.cuda(), scheme, scheme.init_state("cuda"), mode=mode,
             codec=codec, u=[x.cuda() for x in u], u2=[x.cuda() for x in u2])
-        name = f"{mode}{' + integrity' if integrity else ''}"
+        name = (f"{mode}{'' if kind == 'uniform' else ' ' + kind}"
+                f"{' + integrity' if integrity else ''}")
         close, worst = _agree(name, gpu, cpu, _bucket_scale(grads, bs))
         check(m.comm_bits_per_coord == m0.comm_bits_per_coord,
-              f"{name}: bits/coord")
+              f"{name}: bits/coord {m.comm_bits_per_coord} on the card, "
+              f"{m0.comm_bits_per_coord} on the CPU")
         check(not bool(m.corrupt_fraction.any()), f"{name}: corrupt buckets")
         print(f"sync check {name}: M={M} d={d} card vs CPU: {close:.6f} of "
               f"coords within 1e-6 of their terms, max abs diff {worst:.3g}, "
-              f"{m.comm_bits_per_coord:.4f} bits/coord", flush=True)
+              f"{m.comm_bits_per_coord:.4f} bits/coord"
+              f"{' (measured)' if plan.variable else ''}", flush=True)
 
-    for spec, mode in (("ef", "two_phase"), ("topk", "all_gather")):
-        algo = compress.make_algorithm(spec, scheme)
+    for spec, mode, kind in (("ef", "two_phase", "uniform"),
+                             ("topk", "all_gather", "uniform"),
+                             ("ef", "all_gather", "entropy")):
+        algo = compress.make_algorithm(
+            spec, scheme,
+            codec=None if kind == "uniform" else make_codec(scheme, kind))
         plan = algo.codec.plan(d, shards=M if mode == "two_phase" else 1)
         u, u2 = uniforms(plan, getattr(algo.codec, "k", bs))
         states, outs = [], []
@@ -531,16 +608,87 @@ def sync_check(sync, compress, QuantScheme, make_codec):
             states.append(st)
             outs.append(out)
         scale = _bucket_scale(grads + residual, bs)
-        close, worst = _agree(f"{spec} ({mode})", outs[1], outs[0], scale)
-        rclose, rworst = _agree(f"{spec} residual",
+        name = f"{spec}{'' if kind == 'uniform' else ' over ' + kind}"
+        close, worst = _agree(f"{name} ({mode})", outs[1], outs[0], scale)
+        rclose, rworst = _agree(f"{name} residual",
                                 states[1].residual[0],
                                 states[0].residual[0], scale)
-        check(m.kept_fraction == algo.kept_fraction, f"{spec}: kept")
-        print(f"sync check {spec} ({mode}): card vs CPU: aggregate "
+        check(m.kept_fraction == algo.kept_fraction, f"{name}: kept")
+        print(f"sync check {name} ({mode}): card vs CPU: aggregate "
               f"{close:.6f} within 1e-6 (max abs diff {worst:.3g}), "
               f"worker 0's residual {rclose:.6f} (max {rworst:.3g}), "
               f"kept {m.kept_fraction:.4f}, {m.comm_bits_per_coord:.4f} "
               "bits/coord", flush=True)
+
+
+def entropy_words_check(ops, QuantScheme, make_codec):
+    """The entropy encoder's words on the card against the CPU's for the
+    same values and uniforms: a sharded integrity plan of 4 segments.  A
+    bucket's header and region words are equal wherever its codes agree on
+    both devices (a code moved at a rounding tie changes the run), and its
+    checksum word where its norm bits agree too."""
+    import torch
+    M, d, bs = 4, 300_000, 1024
+    scheme = QuantScheme(bits=3, bucket_size=bs)
+    codec = make_codec(scheme, "entropy", integrity=True)
+    plan = codec.plan(d, shards=M)
+    g = torch.Generator().manual_seed(9)
+    flat = torch.randn(d, generator=g) * 1e-2
+    u = torch.rand(plan.nb, bs, generator=g)
+    lv = scheme.init_levels("cpu")
+    out = []
+    for dev in ("cpu", "cuda"):
+        vb = codec.bucketize(flat.to(dev), plan)
+        pay = codec.encode(vb, lv.to(dev), plan=plan, u=u.to(dev))
+        codes, norms = ops.quantize_op(vb, u.to(dev), lv.to(dev))
+        out.append((pay.words.cpu(), codes.cpu(), norms.cpu()))
+    (w0, c0, n0), (w1, c1, n1) = out
+    snb, cap = plan.shard_nb, codec.cap_words
+    same = (c0 == c1).all(dim=1).view(M, snb)
+    nsame = same & (n0 == n1).view(M, snb)
+    head_ok = (w0[:, snb:2 * snb] == w1[:, snb:2 * snb])[same].all()
+    region_ok = (w0[:, 2 * snb:].view(M, snb, cap)
+                 == w1[:, 2 * snb:].view(M, snb, cap)).all(dim=2)[same].all()
+    csum_ok = (w0[:, :snb] == w1[:, :snb])[nsame].all()
+    check(bool(head_ok and region_ok and csum_ok),
+          "entropy words differ between card and CPU where codes agree")
+    check(int(same.sum()) >= 0.99 * M * snb,
+          f"entropy words: codes agree in only {int(same.sum())} buckets")
+    print(f"entropy words: card equals CPU in all {int(same.sum())} of "
+          f"{M * snb} buckets whose codes agree (checksums in the "
+          f"{int(nsame.sum())} whose norm bits agree too)", flush=True)
+
+
+def table_check(QuantScheme, make_codec, from_int32_bits):
+    """The gaussian-prior (cold-start) table of an L-inf scheme fed uniform
+    magnitudes, which its short codes do not expect: every bucket that
+    holds data overflows its capacity and falls back to fixed width, and
+    the decode still equals the uniform codec's."""
+    import torch
+    d, bs = 300_000, 1024
+    scheme = QuantScheme(name="qsgdinf", bits=3, bucket_size=bs)
+    ec, uc = make_codec(scheme, "entropy"), make_codec(scheme)
+    pe, pu = ec.plan(d), uc.plan(d)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    flat = torch.rand(d, generator=g, device="cuda") * 2 - 1
+    u = torch.rand(pe.nb, bs, generator=g, device="cuda")
+    lv = scheme.init_levels("cuda")
+    pay = ec.encode(ec.bucketize(flat, pe), lv, plan=pe, u=u)
+    flags = from_int32_bits(pay.words[:pe.shard_nb]) >> 31
+    held = -(-d // bs)
+    check(bool(flags[:held].all()),
+          f"table check: {int(flags[:held].sum())} of {held} buckets fell "
+          "back")
+    got = ec.decode(pay, lv, pe)
+    want = uc.decode(uc.encode(uc.bucketize(flat, pu), lv, plan=pu, u=u), lv,
+                     pu)
+    check(torch.equal(got, want), "table check: fallback decode differs "
+                                  "from the uniform codec's")
+    mb = ec.measured_bits_per_coord(pay, pe)
+    print(f"table check: all {held} buckets holding data fell back to fixed "
+          f"width; decode equals the uniform codec's; {mb:.4f} bits/coord "
+          f"measured (capacity {pe.bits_per_coord:.4f}, uniform plan "
+          f"{pu.bits_per_coord:.4f})", flush=True)
 
 
 def fault_check(sync, faults, transport, QuantScheme, make_codec,
@@ -648,6 +796,22 @@ def resume_check(train):
           f"{diff:.3g}) over 8 steps, resumed at step 4", flush=True)
 
 
+def micro_check(train):
+    """paper-proxy, 4 workers: two micro-batches a worker against one.
+    The gradient sums are taken in another order, and a moved tie can
+    change a code, so the losses are held at rtol 1e-4."""
+    argv = ["--arch", "paper-proxy", "--workers", "4", "--bits", "3",
+            "--bucket", "1024", "--update-at", "2", "--lr", "2e-3",
+            "--steps", "4"]
+    one = [h["loss"] for h in train.run(train.parse_args(argv))["history"]]
+    two = [h["loss"] for h in train.run(train.parse_args(
+        argv + ["--micro", "2"]))["history"]]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(one, two))
+    check(rel <= 1e-4, f"--micro 2 losses {two} against {one}")
+    print(f"micro check: --micro 2 against --micro 1 over 4 steps, losses "
+          f"within rtol {rel:.3g}: {two}", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -657,8 +821,8 @@ def main() -> None:
         from repro_torch.compress import SparseCodec
         from repro_torch.core import levels as lv
         from repro_torch.core.codec import (
-            codec_for_scheme, make_codec, requant_codec)
-        from repro_torch.core.packing import wire_bits_for
+            codec_for_scheme, make_codec, requant_codec, resample_levels)
+        from repro_torch.core.packing import from_int32_bits, wire_bits_for
         from repro_torch.core.schemes import QuantScheme
         from repro_torch.dist import faults, sync, transport
         from repro_torch.kernels import cuda, ops, ref
@@ -691,8 +855,10 @@ def main() -> None:
     kernels = main_path_kernels(ops, ref, lv, cuda, codec_for_scheme,
                                 QuantScheme)
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
-                                    QuantScheme, SparseCodec)
+                                    QuantScheme, SparseCodec, resample_levels)
     sync_check(sync, compress, QuantScheme, make_codec)
+    entropy_words_check(ops, QuantScheme, make_codec)
+    table_check(QuantScheme, make_codec, from_int32_bits)
     fault_check(sync, faults, transport, QuantScheme, make_codec,
                 wire_bits_for)
 
@@ -784,6 +950,54 @@ def main() -> None:
           f"launches {counts_d}, layouts {layouts_d}", flush=True)
     phases["D"] = (res, counts_d, layouts_d, peak)
 
+    # ---- phase E: all_gather over the entropy-coded wire ----
+    res, counts_e, layouts_e, peak = run_phase(
+        train, "E", full + ["--steps", "3", "--codec", "entropy"],
+        ("quantize", "dequantize"), cuda)
+    plan_e = make_codec(scheme, "entropy").plan(D_B)
+    hist = res["history"]
+    for h in hist:
+        check(0 < h["comm_bits_per_coord"] <= plan_e.bits_per_coord,
+              f"phase E bits/coord {h['comm_bits_per_coord']} against the "
+              f"capacity {plan_e.bits_per_coord}")
+    print(f"phase E: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
+          f"measured bits/coord "
+          f"{[round(h['comm_bits_per_coord'], 6) for h in hist]} (capacity "
+          f"{plan_e.bits_per_coord:.4f}, uniform plan "
+          f"{codec_for_scheme(scheme).plan(D_B).bits_per_coord:.4f}), "
+          f"Huffman encode (pack) "
+          f"{[round(h['stage_ms']['pack'], 1) for h in hist]} ms, decode "
+          f"(unpack) {[round(h['stage_ms']['unpack'], 1) for h in hist]} "
+          f"ms, launches {counts_e}, layouts {layouts_e}", flush=True)
+    phases["E"] = (res, counts_e, layouts_e, peak)
+
+    # ---- phase F: two_phase over the mixed-width wire ----
+    res, counts_f, layouts_f, peak = run_phase(
+        train, "F", full + ["--steps", "3", "--codec", "mixed_width",
+                            "--sync", "two_phase"], cuda.KERNELS, cuda)
+    mixed = make_codec(scheme, "mixed_width")
+    plan_f = mixed.plan(D_B, shards=M_B)
+    plan2 = requant_codec(mixed, 8).plan_buckets(plan_f.shard_nb)
+    bcast = 32.0 * (plan2.code_words + plan2.norm_words) / D_B
+    uniform_reduce = codec_for_scheme(scheme).plan(
+        D_B, shards=M_B).bits_per_coord
+    hist = res["history"]
+    for h in hist:
+        check(h["reduce_bits_per_coord"] == plan_f.bits_per_coord
+              and h["broadcast_bits_per_coord"] == bcast,
+              f"phase F bits/coord {h['reduce_bits_per_coord']} + "
+              f"{h['broadcast_bits_per_coord']}")
+    check(abs(plan_f.bits_per_coord - uniform_reduce) < 1e-3,
+          "phase F widths are not budget-neutral")
+    check(counts_f["quantize"] == (2 * M_B + M_B) * len(hist),
+          f"phase F quantize launches {counts_f['quantize']}")
+    print(f"phase F: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
+          f"widths {mixed.widths}, bits/coord reduce "
+          f"{plan_f.bits_per_coord:.4f} (uniform 3-bit "
+          f"{uniform_reduce:.4f}) + broadcast {bcast:.4f}, as planned, "
+          f"launches {counts_f}, layouts {layouts_f}", flush=True)
+    phases["F"] = (res, counts_f, layouts_f, peak)
+
     print(json.dumps({"phases": {k: {
         "card": smi, "d": r["d"], "peak_bytes": pk, "launches": c,
         "layouts": ly,
@@ -794,11 +1008,12 @@ def main() -> None:
     del phases, res
 
     resume_check(train)
+    micro_check(train)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k in kernels:
-        k["launches"] = sum(c.get(k["name"], 0)
-                            for c in (counts_b, counts_c, counts_d))
+        k["launches"] = sum(c.get(k["name"], 0) for c in (
+            counts_b, counts_c, counts_d, counts_e, counts_f))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -24,7 +24,7 @@ import math
 import torch
 
 CHUNK_SYMBOLS = 1 << 22
-_MASK32 = 0xFFFFFFFF
+MASK32 = 0xFFFFFFFF
 
 
 def wire_bits_for(num_levels: int) -> int:
@@ -47,7 +47,7 @@ def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 def from_int32_bits(w: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> int64 values in [0, 2**32)."""
-    return w.to(torch.int64) & _MASK32
+    return w.to(torch.int64) & MASK32
 
 
 def _group_layout(bits: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -67,7 +67,7 @@ def _pack_groups(sym: torch.Tensor, bits: int) -> torch.Tensor:
     lo = (shift >= 0) & (shift < 32)
     hi = (shift < 0) & (shift > -bits)
     s = sym[:, :, None]
-    frag = torch.where(lo, (s << shift.clamp(0, 31)) & _MASK32,
+    frag = torch.where(lo, (s << shift.clamp(0, 31)) & MASK32,
                        torch.where(hi, s >> (-shift).clamp(0, 31),
                                    torch.zeros((), dtype=torch.int64,
                                                device=sym.device)))
@@ -112,7 +112,7 @@ def unpack(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
         w = torch.cat([w, w.new_zeros(groups * bits - w.numel())])
         w = torch.cat([w.reshape(groups, bits), w.new_zeros(groups, 1)], 1)
         lo = w[:, widx] >> off
-        hi = torch.where(off > 0, (w[:, widx + 1] << spill) & _MASK32,
+        hi = torch.where(off > 0, (w[:, widx + 1] << spill) & MASK32,
                          torch.zeros_like(lo))
         sym = ((lo | hi) & mask).reshape(-1)[:cnt]
         out[start:start + cnt] = sym.to(torch.int32)
@@ -205,7 +205,7 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     so no product leaves int64."""
     lo = (x & 0xFFFF) * c
     hi = ((x >> 16) * c) & 0xFFFF
-    return (lo + (hi << 16)) & _MASK32
+    return (lo + (hi << 16)) & MASK32
 
 
 def bucket_checksums(symbols: torch.Tensor,
@@ -223,14 +223,14 @@ def bucket_checksums(symbols: torch.Tensor,
     nb, bs = symbols.shape
     dev = symbols.device
     i = torch.arange(bs, dtype=torch.int64, device=dev)
-    mult = ((2 * i + 1) * _CSUM_SYM_MULT) & _MASK32
+    mult = ((2 * i + 1) * _CSUM_SYM_MULT) & MASK32
     out = torch.empty(nb, dtype=torch.int64, device=dev)
     rows = max(1, CHUNK_SYMBOLS // bs)
     for r in range(0, nb, rows):
         sym = symbols[r:r + rows].to(torch.int64)
         out[r:r + rows] = (sym * mult).sum(dim=1)
     h = (out + _mul32(from_int32_bits(norm_bits.reshape(-1)),
-                      _CSUM_NORM_MULT) + _CSUM_OFFSET) & _MASK32
+                      _CSUM_NORM_MULT) + _CSUM_OFFSET) & MASK32
     h = h ^ (h >> 16)
     h = _mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)

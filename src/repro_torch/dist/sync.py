@@ -69,7 +69,10 @@ class SyncMetrics(NamedTuple):
     (worker, bucket) wire slots worker w decoded that failed an integrity
     check and ``excluded_workers`` how many workers' whole payloads did
     (both 0 without an integrity plan).  ``kept_fraction`` is the share
-    of coordinates on the wire (< 1 only for the sparse codec).
+    of coordinates on the wire (< 1 only for the sparse codec).  The
+    bits/coord fields are measured for a variable-volume codec (the
+    entropy-coded wire: what worker 0's length headers say it ships) and
+    the plan's otherwise.
     """
 
     comm_bits_per_coord: float
@@ -136,7 +139,8 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
             qerr[w] = torch.sum((per_worker[w, :d] - flats[w]) ** 2)
             on_own(w, per_worker[w, :d])
     clock.mark("decode")
-    bits = plan.bits_per_coord
+    # variable-volume codecs bill what worker 0's headers say it ships
+    bits = codec.measured_bits_per_coord(payloads[0], plan)
     # the single gather is the broadcast-all hop (paper Sec. 5)
     return out, SyncMetrics(bits, qerr, 0.0, bits, None,
                             corrupt_fraction=corrupt,
@@ -208,7 +212,7 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
         on_own(w, own)
         del own
     clock.mark("decode")
-    bits_reduce = plan.bits_per_coord
+    bits_reduce = codec.measured_bits_per_coord(payloads[0], plan)
     bits_bcast = 32.0 * (plan2.code_words + plan2.norm_words) / d
     return out, SyncMetrics(bits_reduce + bits_bcast, qerr, bits_reduce,
                             bits_bcast, None, corrupt_fraction=corrupt,

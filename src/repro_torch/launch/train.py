@@ -7,6 +7,9 @@ Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
 milliseconds of each step) so that scripts can drive it too.
 
+``--codec entropy|mixed_width`` (with ``--widths``) picks the wire codec
+and ``--micro k`` splits each worker's rows into k micro-batches.
+
 ``--ckpt-dir`` saves the trainer's whole state every ``--save-every``
 steps and at the last step, and a later launch with the same directory
 resumes after the newest checkpoint; ``--save`` writes the final flat
@@ -54,6 +57,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optim", default="adamw", choices=["sgdm", "adamw"])
     ap.add_argument("--update-at", default="2,10")
+    ap.add_argument("--micro", type=int, default=1,
+                    help="micro-batches a worker's rows are split into "
+                         "(gradient accumulation)")
+    ap.add_argument("--codec", default="uniform",
+                    choices=["uniform", "mixed_width", "entropy",
+                             "entropy:uniform"],
+                    help="wire codec: 'entropy' ships the entropy-coded "
+                         "payload (gaussian-prior canonical-Huffman table; "
+                         "bits/coord in the log is then the measured coded "
+                         "volume)")
+    ap.add_argument("--widths", default="",
+                    help="comma list of per-bucket scheme bits for --codec "
+                         "mixed_width (a cyclic pattern; empty = the "
+                         "budget-neutral bits-1,bits+1 cycle)")
     ap.add_argument("--compress", default="plain",
                     help="compression algorithm around the codec: plain | "
                          "ef[:warmup] | topk[:k]")
@@ -102,8 +119,11 @@ def run(args: argparse.Namespace) -> dict:
         sync_mode=args.sync,
         update_milestones=tuple(int(x) for x in args.update_at.split(",")
                                 if x),
-        update_every=0, workers=args.workers, compress=args.compress,
-        integrity=args.integrity)
+        update_every=0, workers=args.workers, microbatches=args.micro,
+        codec=args.codec,
+        mixed_width_pattern=tuple(int(x) for x in args.widths.split(",")
+                                  if x),
+        compress=args.compress, integrity=args.integrity)
     trainer = Trainer(model, tcfg, seed=SEED)
     start = resume_state(args.ckpt_dir, trainer) if args.ckpt_dir else 0
     pipe = Pipeline(DataConfig(kind=args.data, vocab_size=cfg.vocab_size,
@@ -133,9 +153,12 @@ def run(args: argparse.Namespace) -> dict:
                      f" kept={metrics['kept_fraction']:.2f}")
             stages = "".join(f" {k}={v:.1f}ms" for k, v in
                              metrics.get("stage_ms", {}).items())
+            # the entropy wire's bits are measured, not planned
+            bits = (f"{metrics['comm_bits_per_coord']:.4f} (measured)"
+                    if args.codec.startswith("entropy") else
+                    f"{metrics['comm_bits_per_coord']:.1f}")
             print(f"step {t:4d} loss={metrics['loss']:.4f} "
-                  f"|g|={metrics['grad_norm']:.3f} "
-                  f"bits/coord={metrics['comm_bits_per_coord']:.1f}"
+                  f"|g|={metrics['grad_norm']:.3f} bits/coord={bits}"
                   f"{extra} levels={lv}{stages}", flush=True)
     dt = time.perf_counter() - t0
     ran = args.steps - start

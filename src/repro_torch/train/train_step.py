@@ -5,7 +5,8 @@ Per step:
   1. each worker runs forward and backward on its contiguous rows of the
      global batch, and its gradient lands in its row of one (M, d)
      buffer (the model's parameters and gradients are flat views, in the
-     reference's ravel order);
+     reference's ravel order); with ``microbatches=k`` the rows run as k
+     consecutive micro-batches whose gradients accumulate in that row;
   2. on the update schedule: bucket statistics per worker, the merged
      mixture, and the ALQ/AMQ level update (lines 2-4);
   3. ENCODE -> collective -> DECODE -> average (lines 6-9) through
@@ -42,6 +43,14 @@ class TrainConfig:
     update_milestones: tuple = (100, 2000)
     update_every: int = 10_000          # additionally every k steps
     workers: int = 1                    # M logical data-parallel workers
+    microbatches: int = 1               # gradient accumulation per worker
+    # wire codec: 'uniform' | 'mixed_width' | 'entropy[:base]' (the
+    # entropy-coded wire with the gaussian-prior table; its bits/coord
+    # are then the measured coded volume)
+    codec: str = "uniform"
+    # per-bucket scheme-bits pattern of codec='mixed_width', tiled over
+    # the buckets; empty = the budget-neutral (bits-1, bits+1) cycle
+    mixed_width_pattern: tuple = ()
     # compression algorithm around the codec (repro_torch.compress):
     # 'plain' | 'ef[:warmup_steps]' | 'topk[:k]'
     compress: str = "plain"
@@ -52,11 +61,13 @@ class TrainConfig:
 def _make_algo(tcfg: TrainConfig):
     if not tcfg.scheme.quantized:
         return None
-    # None = the scheme's uniform codec; only an integrity plan is passed
-    # explicitly (make_algorithm refuses a codec for 'topk', which owns
-    # its SparseCodec)
-    codec = make_codec(tcfg.scheme, integrity=True) if tcfg.integrity \
-        else None
+    # None = the scheme's uniform codec; only another codec or an
+    # integrity plan is passed explicitly (make_algorithm refuses a codec
+    # for 'topk', which owns its SparseCodec)
+    codec = None
+    if tcfg.codec != "uniform" or tcfg.integrity:
+        codec = make_codec(tcfg.scheme, tcfg.codec, tcfg.mixed_width_pattern,
+                           integrity=tcfg.integrity)
     return make_algorithm(tcfg.compress, tcfg.scheme, codec=codec)
 
 
@@ -108,15 +119,26 @@ class Trainer:
             raise ValueError(f"global batch {B} does not split over {M} "
                              "workers")
         rows = B // M
+        k = tcfg.microbatches
+        if rows % k:
+            raise ValueError(f"{rows} rows a worker do not split into {k} "
+                             "micro-batches")
+        mb = rows // k
         losses = []
         for w in range(M):
             g = self.grads[w]
             g.zero_()
             model.attach_grads(g)
-            sl = slice(w * rows, (w + 1) * rows)
-            loss = model.loss(batch["ids"][sl], batch["labels"][sl])
-            loss.backward()
-            losses.append(loss.detach())
+            loss = 0.0
+            for i in range(w * rows, (w + 1) * rows, mb):
+                part = model.loss(batch["ids"][i:i + mb],
+                                  batch["labels"][i:i + mb])
+                part.backward()     # accumulates into the worker's row
+                loss = loss + part.detach()
+            if k > 1:
+                g.div_(k)
+                loss = loss / k
+            losses.append(loss)
         clock.mark("grad")
         self.scheme_state = maybe_update_levels(
             self.grads, tcfg.scheme, self.scheme_state,

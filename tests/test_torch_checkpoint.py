@@ -162,6 +162,29 @@ def test_launcher_saves_and_resumes(tmp_path, capsys):
                h["corrupt_fraction"] == 0.0 for h in res["history"])
 
 
+@pytest.mark.parametrize("extra", [
+    ["--codec", "entropy"], ["--codec", "mixed_width", "--widths", "2,4,3"],
+    ["--micro", "2"]])
+def test_launcher_resumes_with_each_codec(tmp_path, extra):
+    """The codecs are stateless (the entropy table is a function of the
+    scheme), so a resumed launch takes the straight run's steps."""
+    def launch(steps, *more):
+        return train.run(train.parse_args([
+            "--device", "cpu", "--workers", "2", "--batch", "4", "--seq",
+            "16", "--steps", str(steps), "--update-at", "1", *extra, *more]))
+
+    ck = str(tmp_path / "ck")
+    straight = launch(4)
+    launch(2, "--ckpt-dir", ck)
+    res = launch(4, "--ckpt-dir", ck)
+    assert [h["step"] for h in res["history"]] == [2, 3]
+    for a, b in zip(res["history"], straight["history"][2:]):
+        assert (a["loss"], a["comm_bits_per_coord"]) == \
+            (b["loss"], b["comm_bits_per_coord"])
+    assert torch.equal(res["trainer"].model.flat,
+                       straight["trainer"].model.flat)
+
+
 def test_launcher_refuses_topk_with_integrity():
     from repro import compress as jcompress
     from repro.core.codec import make_codec as jmake_codec

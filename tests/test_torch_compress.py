@@ -235,8 +235,11 @@ def test_make_algorithm_specs_and_errors():
                                integrity=True))
     with pytest.raises(ValueError, match=r"k=0 must be in \[1"):
         compress.SparseCodec(bucket_size=64, k=0)
-    with pytest.raises(ValueError, match="not ported"):
-        codec.make_codec(scheme, "entropy")
+    # every codec kind of the reference is ported; others are refused
+    assert isinstance(codec.make_codec(scheme, "entropy"),
+                      codec.EntropyCodec)
+    with pytest.raises(ValueError, match="unknown codec kind"):
+        codec.make_codec(scheme, "huffman")
 
 
 @pytest.mark.parametrize("bits,bs", [(1, 256), (2, 1024), (3, 8192),

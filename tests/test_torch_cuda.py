@@ -13,13 +13,18 @@ version's |u - rho| < 1e-5 (a last-ulp norm difference).
 quantize and bucket_stats lay a bucket out in registers, in shared
 memory or read twice (``kernels/cuda.py::bucket_launch``); the layout
 tests below reach each one by bucket size and pointer alignment.
+
+The entropy-coded and mixed-width codecs run the same kernels at every
+width 1..8 (the mixed width's groups on resampled grids of 2..256
+levels): their words on the card equal the CPU's wherever the codes
+agree, and the card decodes the CPU's words exactly.
 """
 import pytest
 import torch
 
 from repro_torch.compress import SparseCodec
 from repro_torch.core import levels as lv
-from repro_torch.core.codec import codec_for_scheme
+from repro_torch.core.codec import codec_for_scheme, make_codec
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 from repro_torch.kernels import cuda as kcuda
@@ -242,3 +247,76 @@ def test_slice_kernel_modes(dev, case):
     for c in (codes, codes.to(torch.int32)):
         assert torch.equal(ops.dequantize_op(c, norms, levels),
                            ref.dequantize_ref(c, norms, levels))
+
+
+def _codec_on_both(codec, scheme, dev, d, shards, seed):
+    """One gradient encoded by ``codec`` on the CPU and on the card with
+    the same uniforms: (cpu payload, card payload, per-bucket mask of the
+    codes that agree, the plan, the levels on each device)."""
+    plan = codec.plan(d, shards=shards)
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(d, generator=g) * 1e-2
+    u = torch.rand(plan.nb, plan.bucket_size, generator=g)
+    pays, codes = [], []
+    for where in ("cpu", dev):
+        lvs = scheme.init_levels(where)
+        vb = codec.bucketize(flat.to(where), plan)
+        pays.append(codec.encode(vb, lvs, plan=plan, u=u.to(where)))
+        codes.append(ops.quantize_op(vb, u.to(where), lvs,
+                                     norm_type=codec.norm_type)[0].cpu())
+    same = (codes[0] == codes[1]).all(dim=1)
+    return pays[0], pays[1], same, plan
+
+
+def _on(payload, dev):
+    return type(payload)(*(x.to(dev) for x in payload))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_entropy_codec_on_card_matches_cpu(dev, bits):
+    """Header, region and checksum words equal wherever a bucket's codes
+    agree (a last-ulp norm can move a code at a rounding tie); the card
+    decodes the CPU's words to the CPU's values exactly, and its own words
+    to its uniform decode."""
+    scheme = QuantScheme(name="alq", bits=bits, bucket_size=1024)
+    codec = make_codec(scheme, "entropy", integrity=True)
+    cpu, card, same, plan = _codec_on_both(codec, scheme, dev, 40_000, 4,
+                                           bits)
+    assert float(same.float().mean()) >= 0.99
+    snb, cap = plan.shard_nb, codec.cap_words
+    same = same.view(4, snb)
+    w0, w1 = cpu.words, card.words.cpu()
+    assert bool((w0[:, snb:2 * snb] == w1[:, snb:2 * snb])[same].all())
+    assert bool((w0[:, 2 * snb:].view(4, snb, cap)
+                 == w1[:, 2 * snb:].view(4, snb, cap)).all(2)[same].all())
+    nsame = same & (cpu.norm_words == card.norm_words.cpu())
+    assert bool((w0[:, :snb] == w1[:, :snb])[nsame].all())
+    lv_cpu, lv_dev = scheme.init_levels("cpu"), scheme.init_levels(dev)
+    vals, valid = codec.decode_checked(_on(cpu, dev), lv_dev, plan)
+    assert bool(valid.all())
+    assert torch.equal(vals.cpu(), codec.decode(cpu, lv_cpu, plan))
+    assert codec.measured_bits_per_coord(card, plan) == \
+        codec.measured_bits_per_coord(_on(card, "cpu"), plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", range(1, 9))
+def test_mixed_width_codec_on_card_matches_cpu(dev, bits):
+    """Groups of width ``bits`` beside 3-bit ones: words equal wherever
+    codes agree, and the card decodes the CPU's words to the CPU's values
+    exactly, diagonally and per segment."""
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=1024)
+    codec = make_codec(scheme, "mixed_width", (bits, 3, bits))
+    cpu, card, same, plan = _codec_on_both(codec, scheme, dev, 40_000, 4,
+                                           10 + bits)
+    assert float(same.float().mean()) >= 0.99
+    if bool(same.all()):
+        assert torch.equal(cpu.words, card.words.cpu())
+    lv_cpu, lv_dev = scheme.init_levels("cpu"), scheme.init_levels(dev)
+    want = codec.decode(cpu, lv_cpu, plan)
+    assert torch.equal(codec.decode(_on(cpu, dev), lv_dev, plan).cpu(), want)
+    for s in range(4):
+        one = type(cpu)(cpu.words[s][None], cpu.norm_words[s][None])
+        got = codec.decode(_on(one, dev), lv_dev, plan, shard=s)
+        assert torch.equal(got[0].cpu(), want[s])

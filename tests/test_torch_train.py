@@ -21,9 +21,15 @@ Tolerances, each with its reason:
     other way, moving the coordinate by one level step instead.  At
     most 0.5% of the coordinates may do so.
 
+The same step over the entropy-coded and mixed-width wires and with two
+micro-batches (without a level update), and the launcher's ``--codec``,
+``--widths`` and ``--micro`` on the CPU.
+
 Then ten M=4 steps of the port alone: the loss falls and the levels move
 exactly at the milestones.
 """
+from unittest import mock
+
 import jax
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ from repro.core.schemes import QuantScheme as JScheme
 from repro.models import Model as JModel
 from repro.train.data import DataConfig as JDataConfig
 from repro.train.data import Pipeline as JPipeline
+from repro.train import train_step as jtrain_step
 from repro.train.optim import OptimConfig as JOptimConfig
 from repro.train.train_step import TrainConfig as JTrainConfig
 from repro.train.train_step import (
@@ -67,7 +74,11 @@ def _reference_step(jcfg, scheme_kw, batch_np, **tcfg_kw):
                update_every=0, use_pallas=False), **tcfg_kw})
     step_fn = make_train_step(model, tcfg, data_axes=("data",))
     pspecs = model.param_specs()
-    with jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"))):
+    # the entropy codec's table is host code: build the algorithm eagerly,
+    # not inside the jitted initialisation below
+    algo = jtrain_step._make_algo(tcfg)
+    with jax.set_mesh(jax.make_mesh((1, 1), ("data", "model"))), \
+            mock.patch.object(jtrain_step, "_make_algo", lambda _: algo):
         # one compiled program instead of one per operation
         state = jax.jit(lambda k: init_train_state(model, tcfg, k))(
             jax.random.PRNGKey(0))
@@ -193,6 +204,66 @@ def test_one_step_two_phase_ef_integrity_matches_reference():
     assert close.mean() >= 0.999, close.mean()
 
 
+@pytest.mark.parametrize("codec_kw", [
+    dict(codec="entropy"), dict(codec="mixed_width",
+                                mixed_width_pattern=(2, 4, 3)),
+    dict(microbatches=2)])
+def test_one_step_of_each_codec_and_micro_matches_reference(codec_kw):
+    """One M=1 step without a level update (both packages hold the same
+    levels), over the entropy-coded wire, the mixed-width wire, or two
+    micro-batches: loss rtol 1e-5; bits/coord (the measured volume, for
+    the entropy wire) rtol 1e-6; each parameter moves by lr * Q(g), and a
+    coordinate of Q(g) is a level times its bucket's norm, so it is held
+    within lr * norm * 1e-5, or one level step off where a rounding tie
+    moved (at most 0.5% of the coordinates)."""
+    scheme_kw = dict(name="alq", bits=3, bucket_size=1024)
+    jcfg = jconfigs.get_config("paper-proxy")
+    cfg = configs.get_config("paper-proxy")
+    data = dict(kind="markov", vocab_size=256, seq_len=64, global_batch=8)
+    jbatch = JPipeline(JDataConfig(**data)).batch(0)
+    params0, new, jm = _reference_step(
+        jcfg, scheme_kw, {k: np.asarray(v) for k, v in jbatch.items()},
+        update_milestones=(1,), **codec_kw)
+    model = Model(cfg, device="cpu")
+    model.load_flat(from_jax_params(params0, cfg))
+    scheme = QuantScheme(**scheme_kw)
+    tcfg = TrainConfig(
+        scheme=scheme, optim=OptimConfig(name="sgdm", lr=LR,
+                                         weight_decay=0.0),
+        update_milestones=(1,), update_every=0, workers=1, **codec_kw)
+    trainer = Trainer(model, tcfg)
+    plan = trainer.algo.codec.plan(model.d)
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(
+        jax.random.PRNGKey(0), 0), 0), 0)
+    u = [torch.from_numpy(np.array(jax.random.uniform(
+        key, (plan.nb, plan.bucket_size), jax.numpy.float32)))]
+    p0 = model.flat.clone()
+    m = trainer.train_step(Pipeline(DataConfig(**data)).batch(0, "cpu"), u=u)
+
+    np.testing.assert_allclose(m["loss"], float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(m["comm_bits_per_coord"],
+                               float(jm["comm_bits_per_coord"]), rtol=1e-6)
+    g = torch.nn.functional.pad(trainer.grads[0], (0, plan.n - model.d))
+    scale = (LR * torch.linalg.vector_norm(g.reshape(plan.nb, -1), dim=1)
+             ).repeat_interleave(plan.bucket_size)[:model.d].numpy()
+    want = _ravel(new.params) - p0.numpy()
+    diff = np.abs((model.flat - p0).numpy() - want)
+    close = diff <= scale * 1e-5
+    assert close.mean() >= 0.995, close.mean()
+    lv = trainer.scheme_state.levels.numpy()
+    assert np.all(diff <= scale * (np.diff(lv).max() + 1e-5))
+
+
+def test_micro_refuses_rows_that_do_not_split():
+    cfg = configs.get_config("paper-proxy")
+    trainer = Trainer(Model(cfg, device="cpu"), TrainConfig(
+        scheme=QuantScheme(bucket_size=1024), workers=2, microbatches=3))
+    batch = Pipeline(DataConfig(vocab_size=256, seq_len=16,
+                                global_batch=8)).batch(0, "cpu")
+    with pytest.raises(ValueError, match="micro-batches"):
+        trainer.train_step(batch)
+
+
 def test_ten_m4_steps_learn_and_adapt_on_schedule():
     cfg = configs.get_config("paper-proxy")
     model = Model(cfg, device="cpu", seed=0)
@@ -229,6 +300,35 @@ def test_launcher_trains_on_the_cpu_when_asked(capsys):
     logged = [ln for ln in capsys.readouterr().out.splitlines()
               if ln.startswith("step")]
     assert len(logged) == 2  # step 0 and the last step
+
+
+@pytest.mark.parametrize("argv", [
+    ["--codec", "entropy"], ["--codec", "entropy:uniform"],
+    ["--codec", "mixed_width"],
+    ["--codec", "mixed_width", "--widths", "2,4,3"],
+    ["--micro", "2"]])
+def test_launcher_runs_each_codec_and_micro_on_the_cpu(argv, capsys):
+    from repro_torch.core.codec import make_codec
+    from repro_torch.launch import train
+    res = train.run(train.parse_args([
+        "--device", "cpu", "--workers", "2", "--steps", "3", "--batch", "4",
+        "--seq", "16", "--update-at", "1", *argv]))
+    hist = res["history"]
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    logged = [ln for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("step")]
+    assert len(logged) == 2
+    args = train.parse_args(argv)
+    widths = tuple(int(x) for x in args.widths.split(",") if x)
+    codec = make_codec(QuantScheme(bucket_size=1024), args.codec, widths)
+    plan = codec.plan(res["d"])
+    if plan.variable:   # the entropy wire logs its measured volume
+        assert all(" (measured)" in ln for ln in logged)
+        assert all(0 < h["comm_bits_per_coord"] <= plan.bits_per_coord
+                   for h in hist)
+    else:
+        assert all(h["comm_bits_per_coord"] == plan.bits_per_coord
+                   for h in hist)
 
 
 @pytest.mark.parametrize("name,nesterov", [("sgdm", False), ("sgdm", True),
