@@ -13,8 +13,10 @@ Phases, each of which must pass:
      norms, 3-bit and 8-bit grids, and in every bucket layout (registers
      at 1024 and 8192, shared memory for odd sizes and unaligned
      pointers, read twice beyond shared memory); then at the shapes
-     phases B-F give them, where each kernel is timed in 3 rounds
-     (median and spread) beside its plain version and its bound, and the
+     phases B-G give them, where each kernel is timed in 3 rounds
+     (median and spread) beside its plain version and its bound (the
+     simulator's: the param server's 8-bit L-inf downlink, a ring hop
+     over 4 workers' chunks, buckets of 512 in shared memory), and the
      top-k selection is timed at full width;
   3. sync checks on the card against the same calls on the CPU (the
      plain versions), with the same gradients and uniforms, 4 workers:
@@ -31,38 +33,62 @@ Phases, each of which must pass:
      is finite and the corrupt share of buckets is printed beside the
      share expected to hold a flipped word; without them, what the bare
      wire gives;
-  5. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
+  5. sim check: each topology of ``repro_torch.sim`` on the card against
+     the CPU with the same uniforms (d = 300,000, buckets of 1024, 4
+     workers, 8 on the ring): allreduce, param_server with an 8-bit and
+     without a downlink grid (equal to the allreduce bit for bit on the
+     card), the ring, an active mask and crash weights on each, the
+     mixed-width and entropy wires through allreduce and param_server,
+     and ``run_compressed`` with ef on each; byte counts and hops equal;
+  6. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
      1024, level updates at steps 2 and 10, 16 steps through the
      training entry point: the loss falls, the levels move after step 2
      and the wire costs about 4.1 bits a coordinate;
-  6. phase B: llama3.2-1b at full width cut to 4 layers, 4 workers of 2
+  7. phase B: llama3.2-1b at full width cut to 4 layers, 4 workers of 2
      sequences of 1024 tokens, ALQ 3-bit, buckets of 8192, AdamW, a level
      update at step 1, 5 steps, all_gather: finite loss, time per step and
      per stage, peak memory, and every kernel launched;
-  7. phase C: the same model and batch, ``--sync two_phase --compress ef
+  8. phase C: the same model and batch, ``--sync two_phase --compress ef
      --integrity``, 5 steps: finite loss, stage times, peak memory, the
      plan's bits a coordinate (reduce + broadcast), no corrupt bucket on
      the clean wire, and every kernel launched;
-  8. phase D: the same model, ``--sync all_gather --compress topk``, 3
+  9. phase D: the same model, ``--sync all_gather --compress topk``, 3
      steps: finite loss, kept fraction 1927/8192, stage times (the top-k
      selection among them), peak memory, every kernel launched;
-  9. phase E: phase B with ``--codec entropy``, 3 steps: finite loss,
+ 10. phase E: phase B with ``--codec entropy``, 3 steps: finite loss,
      measured bits a coordinate above 0 and at most the plan's capacity,
      stage times (the Huffman coding is booked to pack and unpack), peak
      memory, quantize and dequantize launched;
- 10. phase F: phase B with ``--codec mixed_width --sync two_phase`` (the
+ 11. phase F: phase B with ``--codec mixed_width --sync two_phase`` (the
      default widths (2, 4): 4- and 16-level grids), 3 steps: finite loss,
      reduce and broadcast bits as planned, 8 group quantizes and 4
      phase-2 quantizes a step, stage times, peak memory;
- 11. resume: paper-proxy, 4 workers, two_phase + ef through the launcher:
+ 12. phase G: the cluster simulator at phase B's width (llama3.2-1b, 4
+     layers, uniform data, 4 workers x 2 sequences of 1024, ALQ 3-bit,
+     buckets of 8192, a level update at step 1, plain, attention on the
+     math backend for bit-identical gradients in the three runs), 3 steps
+     each of allreduce, param_server (8-bit downlink) and the ring through
+     ``run_scenario``: per step the host-clock time, the stage split
+     (grad, stats, drift, topology, optimizer), the bytes, the simulated
+     time, agg_err and quant_error; per cell the peak memory and the
+     launches; finite losses, and at step 0 the param server's uplinks
+     equal to the allreduce's encodes and its and the ring's agg_err
+     above the allreduce's;
+ 13. scenario check: ``python -m repro_torch.sim`` (its ``main``) runs
+     paper_mlp for 4 steps twice on the card (identical JSON, buckets of
+     512 in shared memory) and once with ``--device cpu`` (equal bytes,
+     hops, simulated times and fixed bits/coord), and fault_tolerance for
+     4 steps on both (equal crash/rejoin events; corrupt buckets and a
+     finite loss in the faulty cell);
+ 14. resume: paper-proxy, 4 workers, two_phase + ef through the launcher:
      8 steps straight, then 4 steps with ``--ckpt-dir`` and a second
      launch to 8 that resumes; the resumed losses and final parameters
      equal the straight run's;
- 12. micro-batches: paper-proxy, 4 workers, ``--micro 2`` against
+ 15. micro-batches: paper-proxy, 4 workers, ``--micro 2`` against
      ``--micro 1``, 4 steps: the losses agree at rtol 1e-4.
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
-over phases B-F), then as the last
+over phases B-G), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -81,7 +107,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
-BS_B, D_B, M_B = 8192, 768_624_640, 4   # phases B-D: bucket, d, workers
+BS_B, D_B, M_B = 8192, 768_624_640, 4   # phases B-G: bucket, d, workers
+NB_B, NB_RING = 93_832, 93_856  # buckets of d: one stream; the ring's plan
 K_D = 1927                    # phase D's top-k: the equal wire budget
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
@@ -354,6 +381,28 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     return out
 
 
+def record_shape(out, label, name, shape, fn, plain_fn, b_bytes, ops_n,
+                 worst, note):
+    """Time kernel ``name`` at ``shape`` in 3 rounds beside its plain
+    version and its bound; append the record to ``out[name]``."""
+    t = timed_rounds({"k": fn}, 5)["k"]
+    plain = timed(plain_fn, 1)
+    b, by = bound_ms(b_bytes, ops_n)
+    out.setdefault(name, []).append(dict(
+        shape=shape, ms=t[0], ms_spread=t[1], plain_ms=plain, bound_ms=b,
+        bound_by=by, bound_share=b / t[0], max_abs_err=worst, note=note))
+    print(f"{label} {name} {shape}: {note}: kernel {t[0]:.3f} ms "
+          f"(spread {t[1]:.3f}), plain {plain:.3f} ms, bound {b:.3f} ms "
+          f"({by}), {b / t[0]:.0%} of bound, max abs err {worst:.3g}",
+          flush=True)
+
+
+def chunks(rows, parts=8):
+    """Row ranges for the plain versions, to bound their temporaries."""
+    step = -(-rows // parts)
+    return range(0, rows, step), step
+
+
 def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec,
                  resample_levels):
     """Each kernel at the shapes phases C, D and F give it, against its
@@ -372,22 +421,8 @@ def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec,
     lv8 = lv.uniform_levels(8, device=dev)
     out: dict[str, list] = {"quantize": [], "dequantize": []}
 
-    def record(name, shape, fn, plain_fn, b_bytes, ops_n, worst, note):
-        t = timed_rounds({"k": fn}, 5)["k"]
-        plain = timed(plain_fn, 1)
-        b, by = bound_ms(b_bytes, ops_n)
-        rec = dict(shape=shape, ms=t[0], ms_spread=t[1], plain_ms=plain,
-                   bound_ms=b, bound_by=by, bound_share=b / t[0],
-                   max_abs_err=worst, note=note)
-        out[name].append(rec)
-        print(f"slice shape {name} {shape}: {note}: kernel {t[0]:.3f} ms "
-              f"(spread {t[1]:.3f}), plain {plain:.3f} ms, bound {b:.3f} ms "
-              f"({by}), {b / t[0]:.0%} of bound, max abs err {worst:.3g}",
-              flush=True)
-
-    def chunks(rows, parts=8):
-        step = -(-rows // parts)
-        return range(0, rows, step), step
+    def record(*args):
+        record_shape(out, "slice shape", *args)
 
     # phase 2: each rank's shard mean on the 8-bit L-inf grid, int16 codes
     vb = torch.randn(snb, BS_B, generator=g, device=dev) * 1e-3
@@ -737,6 +772,351 @@ def fault_check(sync, faults, transport, QuantScheme, make_codec,
                       flush=True)
 
 
+def sim_shapes(ops, ref, lv, cuda, out):
+    """Each kernel at the shapes the simulator's topologies give it at
+    phase G's width, against its plain version, timed in 3 rounds beside
+    the plain version and the bound (records appended to ``out``): the
+    param server's downlink on the 8-bit L-inf grid (int16 codes), a ring
+    hop over all 4 workers' chunks, and the scenarios' buckets of 512,
+    which take the shared-memory layout."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    cases = (  # buckets, bucket size, bits, norm, what
+        (NB_B, BS_B, 8, "linf", "param-server downlink"),
+        (NB_RING, BS_B, 3, "l2", "ring hop, 4 workers' chunks"),
+        (D_B // 512 + 1, 512, 3, "l2", "buckets of 512 at phase G's d"))
+    for nb, bs, bits, norm, what in cases:
+        levels = lv.uniform_levels(bits, device=dev)
+        L = levels.numel()
+        vb = torch.randn(nb, bs, generator=g, device=dev) * 1e-3
+        u = torch.rand(nb, bs, generator=g, device=dev)
+        layout = label(cuda.bucket_launch(bs, 4, (vb.data_ptr(),
+                                                  u.data_ptr(), 0)))
+        check(layout == ("smem" if bs == 512 else
+                         label(cuda.bucket_launch(BS_B, 4, (0,)))),
+              f"{what}: layout {layout}")
+        codes, norms = ops.quantize_op(vb, u, levels, norm_type=norm)
+        parts, rows = chunks(nb)
+        worst, mism = 0.0, 0
+        for i in parts:
+            c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], levels,
+                                      norm)
+            check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5,
+                                      atol=0)),
+                  f"{what}: quantize norms beyond rtol 1e-5")
+            worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
+            mism += ref.code_mismatches(codes[i:i + rows], c2,
+                                        vb[i:i + rows], u[i:i + rows], n2,
+                                        levels)
+            del c2, n2
+        n, cb = nb * bs, codes.element_size()
+        record_shape(out, "sim shape", "quantize",
+                     f"({nb}, {bs}) f32 {norm} {bits}-bit",
+                     lambda: ops.quantize_op(vb, u, levels, norm_type=norm),
+                     lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows],
+                                               levels, norm) for i in parts],
+                     n * (8 + cb) + nb * 4, n * (20 + math.log2(L)), worst,
+                     f"{what}, {codes.dtype} codes, {layout}, {mism} codes "
+                     "off by one at ties")
+        got = ops.dequantize_op(codes, norms, levels)
+        for i in parts:
+            check(torch.equal(got[i:i + rows], ref.dequantize_ref(
+                codes[i:i + rows], norms[i:i + rows], levels)),
+                f"{what}: dequantize not exact")
+        del got
+        record_shape(out, "sim shape", "dequantize",
+                     f"({nb}, {bs}) {codes.dtype}",
+                     lambda: ops.dequantize_op(codes, norms, levels),
+                     lambda: [ref.dequantize_ref(codes[i:i + rows],
+                                                 norms[i:i + rows], levels)
+                              for i in parts],
+                     n * (cb + 4) + nb * 4, n * 5, 0.0, what)
+        del codes, norms
+        if bs == 512:
+            vals = ops.bucket_stats_op(vb)
+            worst = 0.0
+            for i in parts:
+                for a, r in zip(vals, ref.bucket_stats_ref(vb[i:i + rows],
+                                                           "l2")):
+                    check(torch.allclose(a[i:i + rows], r, rtol=1e-5,
+                                         atol=1e-7),
+                          f"{what}: bucket_stats beyond rtol 1e-5")
+                    worst = max(worst, float((a[i:i + rows] - r).abs().max()))
+            del vals
+            record_shape(out, "sim shape", "bucket_stats",
+                         f"({nb}, {bs}) f32 l2",
+                         lambda: ops.bucket_stats_op(vb),
+                         lambda: [ref.bucket_stats_ref(vb[i:i + rows], "l2")
+                                  for i in parts],
+                         n * 4 + nb * 12, n * 8, worst, f"{what}, {layout}")
+        del vb, u
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _sim_agree(name, gpu, cpu, scale, gap, bs, ring=False):
+    """Card against CPU over (M, d) views: each coordinate within 1e-6 of
+    its terms' scale (norms summed in another order differ in the last
+    ulp) at >= 0.99999 of them; each other one within one level step of
+    its scale, where a rounding tie went the other way.  On the ring a
+    tie at one hop changes its chunk's bucket norm at every later hop:
+    there whole buckets may differ, at most 1% of the (view, bucket)
+    pairs, each within 2(M-1) level steps.  Returns (share of close
+    coordinates, disagreeing coordinates or tie buckets, max abs diff)."""
+    import torch
+    gpu = gpu.cpu()
+    check(gpu.shape == cpu.shape and bool(torch.isfinite(gpu).all()),
+          f"{name}: output shape or finiteness")
+    M, d = cpu.shape
+    scale = scale.expand(M, d)
+    err = (gpu - cpu).abs()
+    close = err <= 1e-6 * scale + 1e-12
+    frac = float(close.float().mean())
+    far = ~close
+    if ring:
+        pad = -d % bs
+        buckets = torch.nn.functional.pad(far, (0, pad)).view(M, -1, bs)
+        ties = int(buckets.any(dim=2).sum())
+        check(ties <= 0.01 * buckets.shape[0] * buckets.shape[1],
+              f"{name}: {ties} (view, bucket) pairs differ")
+        steps = 2 * (M - 1)
+    else:
+        ties = int(far.sum())
+        check(frac >= 0.99999, f"{name}: card agrees with CPU at only "
+                               f"{frac:.6f} of the coordinates")
+        steps = 1
+    check(bool((err[far] <= steps * gap * scale[far] + 1e-12).all()),
+          f"{name}: a coordinate differs by more than {steps} level steps")
+    return frac, ties, float(err.max())
+
+
+def sim_check(topology, compress, QuantScheme, make_codec):
+    """Each topology on the card against the CPU with the same gradients
+    and uniforms (drawn on the CPU): aggregates by ``_sim_agree``, byte
+    counts, hops and bits/coord equal, and the param server without a
+    downlink grid equal to the allreduce bit for bit on the card."""
+    import torch
+    d, bs = 300_000, 1024
+    scheme = QuantScheme(bits=3, bucket_size=bs)
+    gap = float(torch.diff(scheme.init_levels("cpu")).max())
+    g = torch.Generator().manual_seed(12)
+    base = torch.randn(8, d, generator=g) * 1e-2
+    residual = torch.randn(8, d, generator=g) * 3e-3
+    mask, crash = (1.0, 0.0, 1.0, 1.0), (1.0, 0.5, 1.0, 0.0)
+    cases = [  # name, workers, codec kind, active, server_bits, compress
+        ("allreduce", 4, "uniform", None, 8, "plain"),
+        ("param_server", 4, "uniform", None, 8, "plain"),
+        ("param_server", 4, "uniform", None, None, "plain"),
+        ("ring", 8, "uniform", None, 8, "plain"),
+        *[(t, 4, "uniform", a, 8, "plain") for a in (mask, crash)
+          for t in ("allreduce", "param_server", "ring")],
+        *[(t, 4, k, None, 8, "plain") for k in ("mixed_width", "entropy")
+          for t in ("allreduce", "param_server")],
+        *[(t, 4, "uniform", None, 8, "ef")
+          for t in ("allreduce", "param_server", "ring")],
+    ]
+    card_of, u_of = {}, {}
+    for name, M, kind, active, sbits, spec in cases:
+        algo = compress.make_algorithm(
+            spec, scheme,
+            codec=None if kind == "uniform" else make_codec(scheme, kind))
+        c = algo.codec
+        if name == "ring":
+            plan = c.plan(d, shards=M)
+            u = {"u_hops": [torch.rand((M,) + c.rounding_shape(
+                plan.shard_nb), generator=g) for _ in range(2 * (M - 1))]}
+        else:
+            plan = c.plan(d)
+            u = {"u": [torch.rand(c.rounding_shape(plan.nb), generator=g)
+                       for _ in range(M)]}
+            if name == "param_server" and sbits is not None:
+                u["u_server"] = torch.rand(plan.nb, bs, generator=g)
+        if name == "param_server" and sbits is None:
+            u = u_of["allreduce"]       # the allreduce's encodes
+        u_of.setdefault(name, u)
+        grads = base[:M]
+        out = {}
+        for dev in ("cpu", "cuda"):
+            st = algo.init_state(M, d, dev)
+            if algo.stateful:
+                st.residual.copy_(residual[:M])
+            du = {k: ([[x.to(dev) for x in h] for h in v] if k == "u_hops"
+                      else [x.to(dev) for x in v] if isinstance(v, list)
+                      else v.to(dev)) for k, v in u.items()}
+            # a copy: error feedback forms its input in the rows in place
+            res, st = topology.run_compressed(
+                name, grads.to(dev, copy=True), scheme,
+                scheme.init_state(dev), algo, st, active=active,
+                server_bits=sbits, **du)
+            out[dev] = (res, st)
+        (cpu, cst), (card, kst) = out["cpu"], out["cuda"]
+        tag = (f"{name} M={M}{'' if kind == 'uniform' else ' ' + kind}"
+               f"{'' if active is None else ' active ' + str(active)}"
+               f"{'' if name != 'param_server' else f' server_bits {sbits}'}"
+               f"{'' if spec == 'plain' else ' + ' + spec}")
+        inp = grads + residual[:M] if algo.stateful else grads
+        scale = _bucket_scale(inp, bs)
+        frac, ties, worst = _sim_agree(tag, card.aggregate, cpu.aggregate,
+                                       scale, gap, bs, ring=name == "ring")
+        for f in ("sent_bytes", "recv_bytes", "wire_bits_per_coord"):
+            check(bool((getattr(card, f) == getattr(cpu, f)).all()),
+                  f"{tag}: {f} differ between card and CPU")
+        check(card.server_bytes == cpu.server_bytes
+              and card.hops == cpu.hops, f"{tag}: server bytes or hops")
+        rtxt = ""
+        if algo.stateful:
+            rfrac, rties, _ = _sim_agree(f"{tag} residual", kst.residual,
+                                         cst.residual, scale, gap, bs)
+            rtxt = f", residuals {rfrac:.6f} within 1e-6"
+        if active is None and kind == "uniform" and spec == "plain":
+            card_of[name, sbits] = card.aggregate
+        print(f"sim check {tag}: card vs CPU {frac:.6f} of coordinates "
+              f"within 1e-6 of their scale, {ties} "
+              f"{'tie buckets' if name == 'ring' else 'off at ties'}, max "
+              f"abs diff {worst:.3g}{rtxt}; sent {card.sent_bytes[0]:.0f} "
+              f"recv {card.recv_bytes[0]:.0f} server "
+              f"{card.server_bytes:.0f} bytes, {card.hops} hops, equal",
+              flush=True)
+    check(torch.equal(card_of["param_server", None],
+                      card_of["allreduce", 8]),
+          "param_server without a downlink grid differs from the allreduce "
+          "on the card")
+    print("sim check: param_server (server_bits None) equals the allreduce "
+          "bit for bit on the card", flush=True)
+
+
+def scenario_check(sim_main, cuda):
+    """``python -m repro_torch.sim`` through its ``main``: paper_mlp for 4
+    steps twice on the card (identical JSON) and once on the CPU (the
+    same bytes, hops, simulated times and fixed bits/coord); then
+    fault_tolerance for 4 steps on both: the same crash/rejoin events,
+    and corrupt buckets in the faulty cell with a finite loss."""
+    outdir = os.path.join(ROOT, "build", "chip_smoke_sim")
+    os.makedirs(outdir, exist_ok=True)
+
+    def run(name, tag, device):
+        path = os.path.join(outdir, f"{name}_{tag}.json")
+        check(sim_main.main(["--scenario", name, "--steps", "4", "--out",
+                             path, "--device", device]) == 0,
+              f"python -m repro_torch.sim --scenario {name} failed")
+        with open(path) as f:
+            r = json.load(f)
+        r.pop("wallclock_s")
+        return r
+
+    cuda.reset_launches()
+    first = run("paper_mlp", "card1", "cuda")
+    counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+    check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS),
+          f"scenario paper_mlp launches {counts}")
+    check(all(layouts.get(f"{k}/smem", 0) == counts[k]
+              for k in ("quantize", "bucket_stats")),
+          f"scenario buckets of 512 not in shared memory: {layouts}")
+    second = run("paper_mlp", "card2", "cuda")
+    check(json.dumps(first, sort_keys=True)
+          == json.dumps(second, sort_keys=True),
+          "paper_mlp: two runs on the card differ")
+    cpu = run("paper_mlp", "cpu", "cpu")
+    for a, c in zip(first["cells"], cpu["cells"]):
+        check(a["fixed_bits_per_coord"] == c["fixed_bits_per_coord"],
+              "paper_mlp fixed bits/coord")
+        for sa, sc in zip(a["steps"], c["steps"]):
+            for k in ("wire_sent_bytes", "wire_recv_bytes", "server_bytes",
+                      "hops", "sim_time_ms"):
+                check(sa[k] == sc[k], f"paper_mlp {a['scheme']} "
+                      f"{a['topology']} step {sa['step']}: {k} card "
+                      f"{sa[k]} CPU {sc[k]}")
+            check(math.isfinite(sa["loss"]), "paper_mlp loss not finite")
+    def finals(r):
+        return [round(c["totals"]["final_loss"], 4) for c in r["cells"]]
+
+    print(f"scenario check paper_mlp: 6 cells x 4 steps, two card runs "
+          f"identical, bytes, hops, simulated times and fixed bits/coord "
+          f"equal to the CPU's; launches {counts}, layouts {layouts}; final "
+          f"losses card {finals(first)} CPU {finals(cpu)}", flush=True)
+    card, cpu = run("fault_tolerance", "card", "cuda"), run(
+        "fault_tolerance", "cpu", "cpu")
+    for a, c in zip(card["cells"], cpu["cells"]):
+        check(a["fault_events"] == c["fault_events"],
+              "fault_tolerance: crash/rejoin events differ from the CPU's")
+        check(all(math.isfinite(s["loss"]) for s in a["steps"]),
+              "fault_tolerance loss not finite")
+    faulty = [c for c in card["cells"] if c["fault"] is not None][0]
+    cf = faulty["totals"]["mean_corrupt_fraction"]
+    check(cf > 0, "fault_tolerance: no corrupt bucket in the faulty cell")
+    print(f"scenario check fault_tolerance: events equal to the CPU's "
+          f"({len(faulty['fault_events'])} in 4 steps), faulty cell corrupt "
+          f"share {cf:.4f}, final loss {faulty['totals']['final_loss']:.4f} "
+          f"(fault-free {card['cells'][0]['totals']['final_loss']:.4f})",
+          flush=True)
+
+
+def phase_g(sim, cuda):
+    """Phase G: the simulator at phase B's width, one topology a run, the
+    launch counts set to 0 just before each; returns topology -> (cell,
+    launches, layouts, peak bytes).
+
+    Attention runs on PyTorch's math backend here: the memory-efficient
+    backend's backward at 1024 tokens is not bit-deterministic on the
+    card, and gradients that differ at 1e-5 between the cells would hide
+    the little error the param server's 8-bit downlink adds at step 0.
+    With the same gradients and uniforms, the allreduce and the param
+    server encode the same uplinks (equal quant_error)."""
+    import gc
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for topo in ("allreduce", "param_server", "ring"):
+        scn = sim.Scenario(
+            name=f"phase_g_{topo}", arch="llama3.2-1b", layers=4,
+            data="uniform", schemes=("alq",), topologies=(topo,), bits=3,
+            bucket_size=BS_B, steps=3, batch_per_worker=2, seq_len=1024,
+            lr=1e-4, update_milestones=(1,), server_bits=8,
+            cluster=sim.ClusterConfig(num_workers=M_B))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        with sdpa_kernel(SDPBackend.MATH):
+            res = sim.run_scenario(scn, device="cuda", time_stages=True)
+        counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+        peak = torch.cuda.max_memory_allocated()
+        cell = res["cells"][0]
+        check(all(math.isfinite(s["loss"]) for s in cell["steps"]),
+              f"phase G {topo}: loss not finite")
+        check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS),
+              f"phase G {topo}: launches {counts}")
+        for s in cell["steps"]:
+            split = ", ".join(f"{k} {v:.1f}" for k, v in s["stage_ms"].items())
+            print(f"phase G {topo} step {s['step']}: {s['step_ms']:.1f} "
+                  f"ms/step; stages ms: {split}; loss {s['loss']:.4f}; "
+                  f"sent {s['wire_sent_bytes'][0]:.0f} recv "
+                  f"{s['wire_recv_bytes'][0]:.0f} server "
+                  f"{s['server_bytes']:.0f} bytes a worker; sim_time "
+                  f"{s['sim_time_ms']:.3f} ms; agg_err {s['agg_err']:.6g}; "
+                  f"quant_error {s['quant_error']:.6g}", flush=True)
+        print(f"phase G {topo}: peak memory {peak / 2**30:.2f} GiB, "
+              f"launches {counts}, layouts {layouts}", flush=True)
+        out[topo] = (cell, counts, layouts, peak)
+    err = {t: c["steps"][0]["agg_err"] for t, (c, *_) in out.items()}
+    qerr = {t: c["steps"][0]["quant_error"] for t, (c, *_) in out.items()}
+    check(qerr["param_server"] == qerr["allreduce"],
+          f"phase G: the param server's uplinks differ from the allreduce's "
+          f"encodes at step 0 (quant_error {qerr})")
+    check(err["ring"] > err["allreduce"],
+          f"phase G: ring agg_err {err['ring']} not above the allreduce's "
+          f"{err['allreduce']} at step 0")
+    check(err["param_server"] > err["allreduce"],
+          f"phase G: param_server agg_err {err['param_server']} not above "
+          f"the allreduce's {err['allreduce']} at step 0")
+    print(f"phase G: step-0 agg_err allreduce {err['allreduce']:.9g} < "
+          f"param_server {err['param_server']:.9g}, ring {err['ring']:.9g} "
+          f"(the same uplink encodes: quant_error {qerr['allreduce']:.9g})",
+          flush=True)
+    return out
+
+
 def run_phase(train, name, argv, kernels_needed, cuda):
     """One training run through the launcher with every launch count set
     to 0 just before it; returns (result, launches, layouts, peak)."""
@@ -829,6 +1209,9 @@ def main() -> None:
         from repro_torch.kernels.bucket_stats import bucket_stats_cuda
         from repro_torch.kernels.quantize import quantize_cuda
         from repro_torch.launch import train
+        from repro_torch import sim
+        from repro_torch.sim import __main__ as sim_main
+        from repro_torch.sim import topology
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
 
@@ -856,11 +1239,13 @@ def main() -> None:
                                 QuantScheme)
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
                                     QuantScheme, SparseCodec, resample_levels)
+    sim_shapes(ops, ref, lv, cuda, shapes)
     sync_check(sync, compress, QuantScheme, make_codec)
     entropy_words_check(ops, QuantScheme, make_codec)
     table_check(QuantScheme, make_codec, from_int32_bits)
     fault_check(sync, faults, transport, QuantScheme, make_codec,
                 wire_bits_for)
+    sim_check(topology, compress, QuantScheme, make_codec)
 
     # ---- phase A ----
     cuda.reset_launches()
@@ -1007,13 +1392,26 @@ def main() -> None:
         "select_ms": t_select}), flush=True)
     del phases, res
 
+    # ---- phase G: the cluster simulator at full width ----
+    sim_g = phase_g(sim, cuda)
+    print(json.dumps({"phase_g": {t: {
+        "card": smi, "peak_bytes": pk, "launches": c, "layouts": ly,
+        "steps": [{k: s[k] for k in (
+            "step_ms", "stage_ms", "loss", "wire_sent_bytes",
+            "wire_recv_bytes", "server_bytes", "hops", "sim_time_ms",
+            "agg_err", "quant_error")} for s in cell["steps"]]}
+        for t, (cell, c, ly, pk) in sim_g.items()}}), flush=True)
+    counts_g = [c for _, c, _, _ in sim_g.values()]
+    del sim_g
+
+    scenario_check(sim_main, cuda)
     resume_check(train)
     micro_check(train)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
-            counts_b, counts_c, counts_d, counts_e, counts_f))
+            counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

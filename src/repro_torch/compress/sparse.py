@@ -66,6 +66,10 @@ class SparseCodec(GradientCodec):
     def _wire_bits(self) -> int:
         return packing.wire_bits_for(self.num_levels)
 
+    def rounding_shape(self, nb: int) -> tuple[int, int]:
+        """One uniform a kept value."""
+        return (nb, self.k)
+
     def _value_words(self, snb: int) -> int:
         return packing.packed_words(snb * self.k, self._wire_bits)
 
@@ -162,10 +166,14 @@ class SparseCodec(GradientCodec):
         return dense[0] if single else dense
 
     def requantize(self, vb: torch.Tensor, levels: torch.Tensor, *,
+                   plan: WirePlan | None = None, chunk: int = 0,
                    u: torch.Tensor | None = None,
                    generator: torch.Generator | None = None) -> torch.Tensor:
         """Value-space round trip: the kept values' wire round trip,
-        scattered back; every other coordinate is 0."""
+        scattered back; every other coordinate is 0.  ``u`` are (nb, k)
+        uniforms; every segment has one layout (``plan`` and ``chunk``
+        change nothing)."""
+        del plan, chunk
         sel, idx = self.select(vb)
         u = rounding_uniforms(sel.shape, sel.device, u, generator)
         codes, norms = ops.quantize_op(sel, u, levels,

@@ -95,6 +95,11 @@ class WirePlan(NamedTuple):
     def shard_n(self) -> int:
         return self.shard_nb * self.bucket_size
 
+    @property
+    def payload_bytes(self) -> float:
+        """Bytes of one (padded) segment payload."""
+        return 4.0 * (self.code_words + self.norm_words)
+
 
 def _align_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -182,6 +187,11 @@ class GradientCodec:
             vb = torch.cat([vb, vb.new_zeros(plan.nb - vb.shape[0],
                                              self.bucket_size)])
         return vb
+
+    def rounding_shape(self, nb: int) -> tuple[int, int]:
+        """Shape of the uniforms that ``encode`` and ``requantize`` take
+        for ``nb`` buckets: one a coordinate."""
+        return (nb, self.bucket_size)
 
     def decode(self, payload: WirePayload, levels: torch.Tensor,
                plan: WirePlan, *, shard=None, clock=NO_CLOCK
@@ -365,11 +375,15 @@ class UniformCodec(GradientCodec):
         return self._decode_uniform(payload, levels, plan, True, clock)
 
     def requantize(self, vb: torch.Tensor, levels: torch.Tensor, *,
+                   plan: WirePlan | None = None, chunk: int = 0,
                    u: torch.Tensor | None = None,
                    generator: torch.Generator | None = None) -> torch.Tensor:
         """Value-space wire round trip Q(vb) of (nb, bucket_size) values:
         norms take the packed wire round trip, so values match the wire's
-        bytes."""
+        bytes.  Every segment has one layout, so ``plan`` and ``chunk``
+        (which segment ``vb`` holds) change nothing, and ``vb`` may hold
+        the rows of several segments at once."""
+        del plan, chunk
         u = rounding_uniforms(vb.shape, vb.device, u, generator)
         codes, norms = ops.quantize_op(vb, u, levels,
                                        norm_type=self.norm_type)

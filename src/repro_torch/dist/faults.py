@@ -1,9 +1,10 @@
 """Fault injection for the quantized collective wire.
 
-``FaultModel`` is the declarative fault configuration of the wire:
-word-level bit corruption, whole-payload drop and delivery delay.  (The
-reference's model also carries a cluster simulator's crash/rejoin chain
-and delay cost; they come with a port of that simulator.)
+``FaultModel`` is the declarative fault configuration shared by the
+transport wrapper here and the cluster simulator (``sim.cluster``):
+word-level bit corruption, whole-payload drop and delivery delay on the
+wire, the delay's cost in the simulator's clock, and the per-worker
+crash/rejoin Markov chain the simulator steps between rounds.
 
 ``FaultyTransport`` wraps a transport and injects faults into the
 GATHERED int32 wire words, after the collective, so the real ENCODE ->
@@ -23,7 +24,9 @@ What a fault does to the step:
   every bucket checksum, so integrity-on sync excludes the worker exactly
   as a ``MaskedTransport`` mask does.
 * a *delay* makes the payload miss the step's aggregation window: on the
-  wire it acts as a drop for this step.
+  wire it acts as a drop for this step, and the simulator's cost model
+  bills ``delay_ms`` to the round (``delayed_workers`` gives the same
+  draw).
 """
 from __future__ import annotations
 
@@ -54,17 +57,27 @@ class FaultModel:
     words: a float, or a per-worker tuple to target specific workers
     (``(0.0, 0.0, 1.0, 0.0)`` corrupts only worker 2's payload).
     ``drop_prob`` / ``delay_prob`` drop or delay whole per-worker
-    payloads; a delayed payload misses the step.
+    payloads; a delayed payload misses the step and bills ``delay_ms``
+    in the simulator's cost model.  ``crash_prob`` / ``rejoin_prob``
+    parameterize the per-worker up/down Markov chain that
+    ``sim.cluster.step_faults`` steps: a crashed worker is absent for
+    whole steps and rejoins with a stale payload.
     """
 
     flip_prob: float | tuple = 0.0
     drop_prob: float = 0.0
     delay_prob: float = 0.0
+    delay_ms: float = 5.0
+    crash_prob: float = 0.0
+    rejoin_prob: float = 0.5
     seed: int = 0
 
     def __post_init__(self):
-        for f in ("flip_prob", "drop_prob", "delay_prob"):
+        for f in ("flip_prob", "drop_prob", "delay_prob", "crash_prob",
+                  "rejoin_prob"):
             _check_prob(f, getattr(self, f))
+        if self.delay_ms < 0:
+            raise ValueError(f"delay_ms must be >= 0, got {self.delay_ms}")
 
     @property
     def any_wire_faults(self) -> bool:
@@ -87,6 +100,23 @@ class FaultModel:
         """The seed of one step's draws: (seed, step) -> a 63-bit int."""
         ss = np.random.SeedSequence([self.seed, _FOLD_STEP, int(step)])
         return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+    def lost_payloads(self, gen: torch.Generator, M: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step's first draw from its generator: (M,) bool masks of
+        the dropped and the delayed payloads."""
+        u = torch.rand(2, M, generator=gen, device=gen.device)
+        return u[0] < self.drop_prob, u[1] < self.delay_prob
+
+    def delayed_workers(self, step: int, M: int,
+                        device="cuda") -> torch.Tensor:
+        """(M,) bool: the step's delay draws, from the same generator
+        state and draw as ``FaultyTransport.drop_mask``'s delay half on
+        ``device``, so the simulator's cost model bills ``delay_ms`` for
+        exactly the payloads the wire treated as late."""
+        gen = torch.Generator(device=device).manual_seed(
+            self.seed_for_step(step))
+        return self.lost_payloads(gen, M)[1]
 
 
 # the 32 one-bit masks as int32 bit patterns (bit 31 is negative)
@@ -141,10 +171,8 @@ class FaultyTransport(StackedTransport):
     def _generator(self, device: torch.device) -> torch.Generator:
         if self._gen is None:
             self._gen = torch.Generator(device=device).manual_seed(self.seed)
-            u = torch.rand(2, self.size(), generator=self._gen,
-                           device=device)
-            self._drop = ((u[0] < self.model.drop_prob)
-                          | (u[1] < self.model.delay_prob))
+            drop, delay = self.model.lost_payloads(self._gen, self.size())
+            self._drop = drop | delay
         elif self._gen.device != device:
             raise ValueError(f"fault draws live on {self._gen.device}, "
                              f"payload on {device}")

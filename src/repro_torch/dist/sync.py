@@ -72,7 +72,9 @@ class SyncMetrics(NamedTuple):
     of coordinates on the wire (< 1 only for the sparse codec).  The
     bits/coord fields are measured for a variable-volume codec (the
     entropy-coded wire: what worker 0's length headers say it ships) and
-    the plan's otherwise.
+    the plan's otherwise; ``worker_bits_per_coord`` holds that number for
+    every worker's own payload (the gather of all_gather, the reduce
+    direction of two_phase), as the simulator's cost model bills it.
     """
 
     comm_bits_per_coord: float
@@ -84,10 +86,13 @@ class SyncMetrics(NamedTuple):
     kept_fraction: float = 1.0
     corrupt_fraction: torch.Tensor | None = None
     excluded_workers: torch.Tensor | None = None
+    worker_bits_per_coord: tuple = ()
 
 
-def _encode_all(flats, codec, levels, plan, u, generator, clock):
-    """Every worker's payload of its row of ``flats``."""
+def encode_workers(flats, codec, levels, plan, u=None, generator=None,
+                   clock=NO_CLOCK) -> list[WirePayload]:
+    """Every worker's payload of its row of ``flats``, worker w rounding
+    with ``u[w]`` (or draws from ``generator``, in worker order)."""
     payloads = []
     for w in range(flats.shape[0]):
         vb = codec.bucketize(flats[w], plan)
@@ -96,6 +101,14 @@ def _encode_all(flats, codec, levels, plan, u, generator, clock):
             generator=generator, clock=clock))
         del vb
     return payloads
+
+
+def payload_bits_per_coord(codec, payloads, plan) -> tuple:
+    """Each worker's own payload's bits/coord (read from its length
+    headers for a variable-volume codec)."""
+    if not plan.variable:
+        return (plan.bits_per_coord,) * len(payloads)
+    return tuple(codec.measured_bits_per_coord(p, plan) for p in payloads)
 
 
 def _gather(transport, payloads, collective: str) -> WirePayload:
@@ -108,7 +121,7 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
                           on_own, clock):
     M, d = flats.shape
     plan = codec.plan(d)
-    payloads = _encode_all(flats, codec, levels, plan, u, generator, clock)
+    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock)
     gathered = _gather(transport, payloads, "all_gather")
     qerr = torch.empty(M, device=flats.device)
     corrupt = torch.zeros(M, device=flats.device)
@@ -139,12 +152,13 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
             qerr[w] = torch.sum((per_worker[w, :d] - flats[w]) ** 2)
             on_own(w, per_worker[w, :d])
     clock.mark("decode")
-    # variable-volume codecs bill what worker 0's headers say it ships
-    bits = codec.measured_bits_per_coord(payloads[0], plan)
+    # variable-volume codecs bill what each worker's headers say it ships
+    bits = payload_bits_per_coord(codec, payloads, plan)
     # the single gather is the broadcast-all hop (paper Sec. 5)
-    return out, SyncMetrics(bits, qerr, 0.0, bits, None,
+    return out, SyncMetrics(bits[0], qerr, 0.0, bits[0], None,
                             corrupt_fraction=corrupt,
-                            excluded_workers=excluded)
+                            excluded_workers=excluded,
+                            worker_bits_per_coord=bits)
 
 
 def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
@@ -155,7 +169,7 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     snb, bs = plan.shard_nb, plan.bucket_size
 
     # ---- phase 1: quantized reduce-scatter (the scheme's grid) ----
-    payloads = _encode_all(flats, codec, levels, plan, u, generator, clock)
+    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock)
     if M == 1:  # an unsharded payload is 1-D; the wire still sees a row
         payloads = [WirePayload(p.words[None], p.norm_words[None])
                     for p in payloads]
@@ -212,11 +226,13 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
         on_own(w, own)
         del own
     clock.mark("decode")
-    bits_reduce = codec.measured_bits_per_coord(payloads[0], plan)
+    bits_reduce = payload_bits_per_coord(codec, payloads, plan)
     bits_bcast = 32.0 * (plan2.code_words + plan2.norm_words) / d
-    return out, SyncMetrics(bits_reduce + bits_bcast, qerr, bits_reduce,
-                            bits_bcast, None, corrupt_fraction=corrupt,
-                            excluded_workers=excluded)
+    return out, SyncMetrics(bits_reduce[0] + bits_bcast, qerr,
+                            bits_reduce[0], bits_bcast, None,
+                            corrupt_fraction=corrupt,
+                            excluded_workers=excluded,
+                            worker_bits_per_coord=bits_reduce)
 
 
 _MODES = {"all_gather": _allreduce_all_gather,

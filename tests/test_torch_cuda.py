@@ -320,3 +320,53 @@ def test_mixed_width_codec_on_card_matches_cpu(dev, bits):
         one = type(cpu)(cpu.words[s][None], cpu.norm_words[s][None])
         got = codec.decode(_on(one, dev), lv_dev, plan, shard=s)
         assert torch.equal(got[0].cpu(), want[s])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_scenario_buckets_of_512_in_shared_memory(dev, dt):
+    """The simulator's scenarios quantize buckets of 512, a size without a
+    register shape: quantize and bucket_stats stage them in shared memory,
+    and dequantize decodes them exactly."""
+    vb, u = _values(dev, 900, 512, dt, seed=5)
+    for levels, norm in ((lv.uniform_levels(3, device=dev), "l2"),
+                         (lv.uniform_levels(8, device=dev), "linf")):
+        assert _check_layout(vb, u, levels, norm) == "smem"
+        codes, norms = ops.quantize_op(vb, u, levels, norm_type=norm)
+        assert torch.equal(ops.dequantize_op(codes, norms, levels),
+                           ref.dequantize_ref(codes, norms, levels))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 8])
+def test_ring_on_card_matches_cpu(dev, M):
+    """The ring topology's per-hop re-quantization on the card against the
+    CPU with the same uniforms: each (view, bucket) within 1e-6 of its
+    largest value, except buckets where a rounding tie at one hop carried
+    into the later hops (at most 1%), and the same bytes."""
+    from repro_torch.sim import topology
+    d, bs = 60_000, 512
+    scheme = QuantScheme(bits=3, bucket_size=bs)
+    plan = codec_for_scheme(scheme).plan(d, shards=M)
+    g = torch.Generator().manual_seed(M)
+    grads = torch.randn(M, d, generator=g) * 1e-2
+    u_hops = [torch.rand(M, plan.shard_nb, bs, generator=g)
+              for _ in range(2 * (M - 1))]
+    cpu = topology.run_topology("ring", grads, scheme,
+                                scheme.init_state("cpu"), u_hops=u_hops)
+    before = kcuda.LAUNCHES["quantize"]
+    card = topology.run_topology("ring", grads.to(dev), scheme,
+                                 scheme.init_state(dev),
+                                 u_hops=[x.to(dev) for x in u_hops])
+    assert kcuda.LAUNCHES["quantize"] == before + 2 * (M - 1)  # one a hop
+    n = plan.n
+    pad = (0, n - d)
+    a = torch.nn.functional.pad(card.aggregate.cpu(), pad).view(M, -1, bs)
+    b = torch.nn.functional.pad(cpu.aggregate, pad).view(M, -1, bs)
+    scale = b.abs().amax(dim=2, keepdim=True)
+    ok = ((a - b).abs() <= 1e-6 * scale + 1e-30).all(dim=2)
+    assert float(ok.float().mean()) >= 0.99
+    assert (card.sent_bytes == cpu.sent_bytes).all()
+    assert card.hops == cpu.hops == 2 * (M - 1)
+    torch.testing.assert_close(card.quant_error.cpu(), cpu.quant_error,
+                               rtol=1e-5, atol=0)
