@@ -16,8 +16,9 @@ Phases, each of which must pass:
      phases B-G give them, where each kernel is timed in 3 rounds
      (median and spread) beside its plain version and its bound (the
      simulator's: the param server's 8-bit L-inf downlink, a ring hop
-     over 4 workers' chunks, buckets of 512 in shared memory), and the
-     top-k selection is timed at full width;
+     over 4 workers' chunks, buckets of 512 in shared memory; phase H's
+     91,752 buckets of 8192), and the top-k selection is timed at full
+     width;
   3. sync checks on the card against the same calls on the CPU (the
      plain versions), with the same gradients and uniforms, 4 workers:
      all_gather, two_phase without and with integrity words,
@@ -40,6 +41,16 @@ Phases, each of which must pass:
      card), the ring, an active mask and crash weights on each, the
      mixed-width and entropy wires through allreduce and param_server,
      and ``run_compressed`` with ef on each; byte counts and hops equal;
+  5b. API check: ``repro_torch.core``'s encode, decode and quantize on
+     the card launch the kernels and match the plain versions;
+     dense-config check: each new SMOKE config (granite-3-2b, qwen3-0.6b,
+     qwen1.5-32b, musicgen-large) and llama3.2's with a sliding window
+     and with chunks, one forward and backward pass of 2 x 1024 tokens
+     on the card against the CPU with the same weights, then 4 quantized
+     steps of each new SMOKE config through ``--smoke``; determinism
+     check: llama3.2-1b at full width, one layer, 2 x 1024 tokens, two
+     backward passes give bit-equal gradients, as the entry points run
+     them and in a subprocess under deterministic algorithms;
   6. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
      1024, level updates at steps 2 and 10, 16 steps through the
      training entry point: the loss falls, the levels move after step 2
@@ -65,8 +76,8 @@ Phases, each of which must pass:
      phase-2 quantizes a step, stage times, peak memory;
  12. phase G: the cluster simulator at phase B's width (llama3.2-1b, 4
      layers, uniform data, 4 workers x 2 sequences of 1024, ALQ 3-bit,
-     buckets of 8192, a level update at step 1, plain, attention on the
-     math backend for bit-identical gradients in the three runs), 3 steps
+     buckets of 8192, a level update at step 1, plain; the attention is
+     deterministic, so the three runs compute the same gradients), 3 steps
      each of allreduce, param_server (8-bit downlink) and the ring through
      ``run_scenario``: per step the host-clock time, the stage split
      (grad, stats, drift, topology, optimizer), the bytes, the simulated
@@ -74,6 +85,12 @@ Phases, each of which must pass:
      launches; finite losses, and at step 0 the param server's uplinks
      equal to the allreduce's encodes and its and the ring's agg_err
      above the allreduce's;
+ 12b. phase H: qwen3-0.6b at full width and full depth (28 layers, d =
+     751,632,384; qk-norm, head_dim 128), 4 workers x 2 sequences of 1024
+     uniform tokens, ALQ 3-bit, buckets of 8192, AdamW, a level update at
+     step 1, 3 steps, all_gather: finite losses, the stage split, peak
+     memory, every kernel launched, quantize and bucket_stats in the
+     register layout;
  13. scenario check: ``python -m repro_torch.sim`` (its ``main``) runs
      paper_mlp for 4 steps twice on the card (identical JSON, buckets of
      512 in shared memory) and once with ``--device cpu`` (equal bytes,
@@ -85,10 +102,16 @@ Phases, each of which must pass:
      launch to 8 that resumes; the resumed losses and final parameters
      equal the straight run's;
  15. micro-batches: paper-proxy, 4 workers, ``--micro 2`` against
-     ``--micro 1``, 4 steps: the losses agree at rtol 1e-4.
+     ``--micro 1``, 4 steps: the losses agree at rtol 1e-4;
+ 16. last, measurements only: the blockwise attention's forward and
+     backward against one ``scaled_dot_product_attention`` call at
+     phase B's and phase H's layer shapes (ms, added memory), and a
+     ``torch.profiler`` trace of one worker's forward and backward in
+     phase H's model (device busy time and idle share, launches, the ops
+     with the most device time).
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
-over phases B-G), then as the last
+over phases B-H), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -110,6 +133,8 @@ F32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 BS_B, D_B, M_B = 8192, 768_624_640, 4   # phases B-G: bucket, d, workers
 NB_B, NB_RING = 93_832, 93_856  # buckets of d: one stream; the ring's plan
 K_D = 1927                    # phase D's top-k: the equal wire budget
+D_H, NB_H = 751_632_384, 91_752  # phase H: qwen3-0.6b whole, buckets of d
+NEW_ARCHS = ("granite-3-2b", "qwen3-0.6b", "qwen1.5-32b", "musicgen-large")
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -1057,15 +1082,13 @@ def phase_g(sim, cuda):
     launch counts set to 0 just before each; returns topology -> (cell,
     launches, layouts, peak bytes).
 
-    Attention runs on PyTorch's math backend here: the memory-efficient
-    backend's backward at 1024 tokens is not bit-deterministic on the
-    card, and gradients that differ at 1e-5 between the cells would hide
-    the little error the param server's 8-bit downlink adds at step 0.
-    With the same gradients and uniforms, the allreduce and the param
-    server encode the same uplinks (equal quant_error)."""
+    The port's attention is deterministic, so the three cells compute
+    the same gradients at step 0: with the same uniforms, the allreduce
+    and the param server encode the same uplinks (equal quant_error),
+    and the little error the param server's 8-bit downlink adds shows in
+    its agg_err."""
     import gc
     import torch
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     out = {}
     for topo in ("allreduce", "param_server", "ring"):
         scn = sim.Scenario(
@@ -1078,8 +1101,7 @@ def phase_g(sim, cuda):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         cuda.reset_launches()
-        with sdpa_kernel(SDPBackend.MATH):
-            res = sim.run_scenario(scn, device="cuda", time_stages=True)
+        res = sim.run_scenario(scn, device="cuda", time_stages=True)
         counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
         peak = torch.cuda.max_memory_allocated()
         cell = res["cells"][0]
@@ -1117,7 +1139,7 @@ def phase_g(sim, cuda):
     return out
 
 
-def run_phase(train, name, argv, kernels_needed, cuda):
+def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
     """One training run through the launcher with every launch count set
     to 0 just before it; returns (result, launches, layouts, peak)."""
     import torch
@@ -1128,7 +1150,7 @@ def run_phase(train, name, argv, kernels_needed, cuda):
     counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
     peak = torch.cuda.max_memory_allocated()
     del res["trainer"]  # free the phase's model and state for the next
-    check(res["d"] == D_B, f"phase {name} d = {res['d']}, expected {D_B}")
+    check(res["d"] == d, f"phase {name} d = {res['d']}, expected {d}")
     hist = res["history"]
     check(all(math.isfinite(h["loss"]) for h in hist),
           f"phase {name} loss not finite")
@@ -1139,6 +1161,315 @@ def run_phase(train, name, argv, kernels_needed, cuda):
         print(f"phase {name} step {h['step']}: {h['step_ms']:.1f} ms/step; "
               f"stages ms: {split}; loss {h['loss']:.4f}", flush=True)
     return res, counts, layouts, peak
+
+
+def phase_h_shapes(ops, ref, lv, out):
+    """Each kernel at the shapes phase H gives it (qwen3-0.6b, d =
+    751,632,384 in 91,752 buckets of 8192, 4 workers), against its plain
+    version, timed in 3 rounds beside the plain version and the bound
+    (records appended to ``out``)."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    levels = lv.uniform_levels(3, device=dev)
+    L = levels.numel()
+    vb = torch.randn(NB_H, BS_B, generator=g, device=dev) * 1e-3
+    u = torch.rand(NB_H, BS_B, generator=g, device=dev)
+    codes, norms = ops.quantize_op(vb, u, levels)
+    parts, rows = chunks(NB_H)
+    worst, mism = 0.0, 0
+    for i in parts:
+        c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], levels, "l2")
+        check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5, atol=0)),
+              "quantize norms at phase H's shape beyond rtol 1e-5")
+        worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
+        mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
+                                    u[i:i + rows], n2, levels)
+        del c2, n2
+    del codes, norms
+    n = NB_H * BS_B
+    record_shape(out, "phase H shape", "quantize", f"({NB_H}, {BS_B}) f32 l2 "
+                 "3-bit", lambda: ops.quantize_op(vb, u, levels),
+                 lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows],
+                                           levels, "l2") for i in parts],
+                 n * 9 + NB_H * 4, n * (20 + math.log2(L)), worst,
+                 f"encode of one worker, int8 codes, {mism} codes off by "
+                 "one at ties")
+    vals = ops.bucket_stats_op(vb)
+    worst = 0.0
+    for i in parts:
+        for a, r in zip(vals, ref.bucket_stats_ref(vb[i:i + rows], "l2")):
+            check(torch.allclose(a[i:i + rows], r, rtol=1e-5, atol=1e-7),
+                  "bucket_stats at phase H's shape beyond rtol 1e-5")
+            worst = max(worst, float((a[i:i + rows] - r).abs().max()))
+    del vals
+    record_shape(out, "phase H shape", "bucket_stats",
+                 f"({NB_H}, {BS_B}) f32 l2", lambda: ops.bucket_stats_op(vb),
+                 lambda: [ref.bucket_stats_ref(vb[i:i + rows], "l2")
+                          for i in parts],
+                 n * 4 + NB_H * 12, n * 8, worst, "stats of one worker")
+    del vb, u
+    c32 = torch.randint(-(L - 1), L, (M_B * NB_H, BS_B), generator=g,
+                        device=dev, dtype=torch.int32)
+    n4 = torch.rand(M_B * NB_H, generator=g, device=dev) + 0.1
+    got = ops.dequantize_op(c32, n4, levels)
+    parts, rows = chunks(M_B * NB_H, 32)
+    for i in parts:
+        check(torch.equal(got[i:i + rows], ref.dequantize_ref(
+            c32[i:i + rows], n4[i:i + rows], levels)),
+            "dequantize at phase H's shape not exact")
+    del got
+    record_shape(out, "phase H shape", "dequantize",
+                 f"({M_B * NB_H}, {BS_B}) int32",
+                 lambda: ops.dequantize_op(c32, n4, levels),
+                 lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
+                                             levels) for i in parts],
+                 M_B * n * 8 + M_B * NB_H * 4, M_B * n * 5, 0.0,
+                 "decode of the 4 gathered streams")
+    del c32, n4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def api_check(core, ref, lv, cuda):
+    """``repro_torch.core``'s encode, decode and quantize on the card go
+    through the kernels (the launch counts move) and match the plain
+    versions on the same tensors; norms rtol 1e-5, codes equal except
+    off by one at rounding ties, decode exact."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    d, bs = 300_001, 1024
+    nb = -(-d // bs)
+    v = torch.randn(d, generator=g, device=dev) * 1e-2
+    u = torch.rand(nb, bs, generator=g, device=dev)
+    vb = core.pad_to_buckets(v, bs)
+    mism = 0
+    for bits, norm in ((3, "l2"), (8, "linf")):
+        levels = lv.uniform_levels(bits, device=dev)
+        cuda.reset_launches()
+        qt = core.encode(v, levels, u, bucket_size=bs, norm_type=norm)
+        out = core.decode(qt, levels)
+        q = core.quantize(v, levels, u, bucket_size=bs, norm_type=norm)
+        counts = dict(cuda.LAUNCHES)
+        check(counts.get("quantize") == 2 and counts.get("dequantize") == 2,
+              f"core API on the card: launches {counts}")
+        c2, n2 = ref.quantize_ref(vb, u, levels, norm)
+        check(qt.dim == d and qt.codes.dtype == c2.dtype,
+              "core.encode on the card: dim or code dtype")
+        check(bool(torch.allclose(qt.norms, n2, rtol=1e-5, atol=0)),
+              f"core.encode on the card: norms beyond rtol 1e-5 ({norm})")
+        mism += ref.code_mismatches(qt.codes, c2, vb, u, n2, levels)
+        check(torch.equal(out, ref.dequantize_ref(
+            qt.codes, qt.norms, levels).reshape(-1)[:d]),
+            "core.decode on the card not exact")
+        check(torch.equal(q, out), "core.quantize differs from decode(encode)")
+    print(f"API check: core.encode/decode/quantize on the card (d = {d}, "
+          f"buckets of {bs}, 3-bit l2 and 8-bit linf) match the plain "
+          f"versions, {mism} codes off by one at ties, launches {counts}",
+          flush=True)
+
+
+def dense_config_check(train, configs, Model, cuda):
+    """Each new SMOKE config, and llama3.2's with a sliding window and
+    with chunks (a partial trailing chunk): one forward and backward pass
+    of 2 x 1024 tokens on the card and on the CPU with the same weights
+    (losses at rtol 1e-5, flat gradients within 1e-4 of their largest
+    entry); then 4 quantized steps of each new SMOKE config through the
+    launcher's ``--smoke`` on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    cases = [(a, configs.get_smoke_config(a)) for a in NEW_ARCHS]
+    llama = configs.get_smoke_config("llama3.2-1b")
+    cases += [("llama3.2 sliding 256", dataclasses.replace(
+                  llama, attn_kind="sliding", window=256)),
+              ("llama3.2 chunked 384", dataclasses.replace(
+                  llama, attn_kind="chunked", chunk=384))]
+    toks = np.random.default_rng(14).integers(0, 509, (2, 1025))
+    for name, cfg in cases:
+        ids = torch.from_numpy(toks % cfg.vocab_size)
+        on_cpu = Model(cfg, device="cpu", seed=0)
+        on_card = Model(cfg, device="cuda", seed=0)
+        on_card.load_flat(on_cpu.flat.cuda())
+        res = []
+        for model in (on_cpu, on_card):
+            grad = torch.zeros_like(model.flat)
+            model.attach_grads(grad)
+            x = ids.to(model.flat.device)
+            loss = model.loss(x[:, :-1], x[:, 1:])
+            loss.backward()
+            res.append((loss.item(), grad.cpu()))
+        (lc, gc), (lg, gg) = res
+        rel = abs(lg - lc) / abs(lc)
+        gerr = float((gg - gc).abs().max() / gc.abs().max())
+        check(rel <= 1e-5, f"dense check {name}: loss card {lg} CPU {lc}")
+        check(gerr <= 1e-4, f"dense check {name}: gradient off by {gerr} of "
+              "its largest entry")
+        print(f"dense check {name}: loss card {lg:.6f} CPU {lc:.6f} (rel "
+              f"{rel:.2g}), gradient within {gerr:.2g} of its largest entry",
+              flush=True)
+    for arch in NEW_ARCHS:
+        cuda.reset_launches()
+        res = train.run(train.parse_args([
+            "--arch", arch, "--smoke", "--workers", str(M_B), "--batch", "8",
+            "--seq", "128", "--steps", "4", "--update-at", "1", "--bucket",
+            "1024"]))
+        counts = dict(cuda.LAUNCHES)
+        losses = [h["loss"] for h in res["history"]]
+        check(all(math.isfinite(x) for x in losses),
+              f"--smoke {arch}: losses {losses}")
+        check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS),
+              f"--smoke {arch}: launches {counts}")
+        print(f"--smoke {arch}: {res['config'].name}, d={res['d']}, 4 steps, "
+              f"losses {[round(x, 4) for x in losses]}, launches {counts}",
+              flush=True)
+
+
+def grad_twice(configs, Model):
+    """Two forward and backward passes of llama3.2-1b at full width, one
+    layer, 2 x 1024 tokens, on the same weights and tokens; returns
+    (bit-equal, max abs difference, grad ms of the second)."""
+    import dataclasses
+    import torch
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b"), num_layers=1)
+    model = Model(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
+                        device="cuda")
+    grads = []
+    for _ in range(2):
+        grad = torch.zeros(model.d, device="cuda")
+        model.attach_grads(grad)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(ids[:, :-1], ids[:, 1:]).backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        grads.append(grad)
+    return (torch.equal(*grads), float((grads[0] - grads[1]).abs().max()),
+            ms)
+
+
+def determinism_check(configs, Model):
+    """Bit-equal gradients of two backward passes (``grad_twice``) as the
+    entry points run them, and again in a subprocess under
+    ``torch.use_deterministic_algorithms(True)``, which refuses any op on
+    the path that has no deterministic implementation."""
+    same, diff, ms = grad_twice(configs, Model)
+    check(same, f"determinism check: two backward passes differ by {diff}")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    sub = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--grad-twice"], env=env, capture_output=True,
+                         text=True)
+    check(sub.returncode == 0, "determinism check under deterministic "
+          f"algorithms failed: {sub.stderr[-2000:]}")
+    print(f"determinism check: llama3.2-1b width, 1 layer, 2 x 1024 tokens: "
+          f"two backward passes bit-equal (second {ms:.1f} ms); under "
+          f"deterministic algorithms: {sub.stdout.strip()}", flush=True)
+
+
+def attention_timing(attention):
+    """The port's blockwise attention (``_flash``, as a layer calls it:
+    bf16 q, k, v of (2, 1024, heads, head_dim), kv heads expanded)
+    against one ``F.scaled_dot_product_attention`` call on the same
+    inputs in float32 (PyTorch's choice of backend, which the port used
+    before; not deterministic in backward), forward and backward, at
+    phase B's and phase H's layer shapes: ms (median of 3 rounds of 10)
+    and the peak memory each adds."""
+    import torch
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for name, H, hd in (("B", 32, 64), ("H", 16, 128)):
+        q, k, v, dy = (torch.randn(2, 1024, H, hd, generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        for t in (q, k, v):
+            t.requires_grad_()
+
+        def flash():
+            y = attention._flash(q, k, v, causal=True, window=0)
+            y.backward(dy)
+
+        def sdpa():
+            y = F.scaled_dot_product_attention(
+                *(t.transpose(1, 2).float() for t in (q, k, v)),
+                is_causal=True).transpose(1, 2).to(torch.bfloat16)
+            y.backward(dy)
+
+        ts = timed_rounds({"blockwise": flash, "sdpa": sdpa}, 10)
+        mem = {}
+        for key, fn in (("blockwise", flash), ("sdpa", sdpa)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            mem[key] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[name] = {k: {"ms": ts[k][0], "spread": ts[k][1],
+                         "peak_mib": mem[k]} for k in ts}
+        print(f"attention phase {name} layer (2, 1024, {H} heads, head_dim "
+              f"{hd}), forward + backward: blockwise {ts['blockwise'][0]:.3f}"
+              f" ms (spread {ts['blockwise'][1]:.3f}, +{mem['blockwise']:.0f}"
+              f" MiB), one sdpa call in float32 {ts['sdpa'][0]:.3f} ms "
+              f"(spread {ts['sdpa'][1]:.3f}, +{mem['sdpa']:.0f} MiB)",
+              flush=True)
+        del q, k, v, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def grad_profile(configs, Model):
+    """One worker's forward and backward in phase H's model (qwen3-0.6b
+    whole, 2 x 1024 tokens): host-clock ms, and under ``torch.profiler``
+    the device's busy time (kernel time summed), its idle share of the
+    host-clock time, the launches, and the ops that take the most device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = configs.get_config("qwen3-0.6b")
+    model = Model(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
+                        device="cuda")
+    grad = torch.zeros(model.d, device="cuda")
+    model.attach_grads(grad)
+
+    def step():
+        model.loss(ids[:, :-1], ids[:, 1:]).backward()
+        torch.cuda.synchronize()
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: -e.self_device_time_total)
+    top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in top[:8]]
+    if not kernels:   # the profiler saw no device activity
+        print(f"grad profile (phase H's model, one worker, 2 x 1024): "
+              f"{host_ms:.1f} ms host clock; device time not measured "
+              "(the profiler recorded no kernel)", flush=True)
+        return {"host_ms": host_ms}
+    res = {"host_ms": host_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / host_ms, "launches": len(kernels),
+           "top": top}
+    print(f"grad profile (phase H's model, one worker, 2 x 1024): "
+          f"{host_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms "
+          f"(idle {res['idle_share']:.0%}), {len(kernels)} kernels; most "
+          "device time: " + "; ".join(f"{k} {t:.1f} ms x{c}"
+                                      for k, t, c in top), flush=True)
+    del model, grad
+    torch.cuda.empty_cache()
+    return res
 
 
 def resume_check(train):
@@ -1197,7 +1528,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     try:
-        from repro_torch import compress
+        from repro_torch import compress, configs
+        from repro_torch import core
         from repro_torch.compress import SparseCodec
         from repro_torch.core import levels as lv
         from repro_torch.core.codec import (
@@ -1209,11 +1541,20 @@ def main() -> None:
         from repro_torch.kernels.bucket_stats import bucket_stats_cuda
         from repro_torch.kernels.quantize import quantize_cuda
         from repro_torch.launch import train
+        from repro_torch.models import attention
+        from repro_torch.models.transformer import Model
         from repro_torch import sim
         from repro_torch.sim import __main__ as sim_main
         from repro_torch.sim import topology
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
+    if sys.argv[1:] == ["--grad-twice"]:
+        # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
+        torch.use_deterministic_algorithms(True)
+        same, diff, ms = grad_twice(configs, Model)
+        check(same, f"two backward passes differ by {diff}")
+        print(f"bit-equal, no op refused (second pass {ms:.1f} ms)")
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1240,12 +1581,16 @@ def main() -> None:
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
                                     QuantScheme, SparseCodec, resample_levels)
     sim_shapes(ops, ref, lv, cuda, shapes)
+    phase_h_shapes(ops, ref, lv, shapes)
     sync_check(sync, compress, QuantScheme, make_codec)
     entropy_words_check(ops, QuantScheme, make_codec)
     table_check(QuantScheme, make_codec, from_int32_bits)
     fault_check(sync, faults, transport, QuantScheme, make_codec,
                 wire_bits_for)
     sim_check(topology, compress, QuantScheme, make_codec)
+    api_check(core, ref, lv, cuda)
+    dense_config_check(train, configs, Model, cuda)
+    determinism_check(configs, Model)
 
     # ---- phase A ----
     cuda.reset_launches()
@@ -1404,14 +1749,42 @@ def main() -> None:
     counts_g = [c for _, c, _, _ in sim_g.values()]
     del sim_g
 
+    # ---- phase H: qwen3-0.6b at full width and full depth ----
+    res, counts_h, layouts_h, peak = run_phase(
+        train, "H", ["--arch", "qwen3-0.6b", "--workers", str(M_B),
+                     "--batch", str(2 * M_B), "--seq", "1024", "--data",
+                     "uniform", "--scheme", "alq", "--bits", "3", "--bucket",
+                     str(BS_B), "--optim", "adamw", "--lr", "1e-4",
+                     "--update-at", "1", "--time-stages", "--steps", "3"],
+        cuda.KERNELS, cuda, d=D_H)
+    check(res["config"].num_layers == 28, "phase H is not at full depth")
+    check(all(layouts_h.get(f"{k}/regs", 0) == counts_h[k]
+              for k in ("quantize", "bucket_stats")),
+          f"phase H bucket layouts {layouts_h}")
+    print(f"phase H: d={res['d']}, 28 layers, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts_h}, layouts "
+          f"{layouts_h}", flush=True)
+    print(json.dumps({"phase_h": {
+        "card": smi, "d": res["d"], "peak_bytes": peak, "launches": counts_h,
+        "layouts": layouts_h,
+        "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
+                   "loss": h["loss"]} for h in res["history"]]}}),
+        flush=True)
+    del res
+
     scenario_check(sim_main, cuda)
     resume_check(train)
     micro_check(train)
+    # last: the profiler runs after every timed phase
+    print(json.dumps({"attention": attention_timing(attention),
+                      "grad_profile": grad_profile(configs, Model),
+                      "card": smi}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
-            counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g))
+            counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
+            counts_h))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,10 +1,24 @@
 """Architecture registry of the port: the configurations it can run."""
-from . import llama3_2_1b, paper_mlp
+from . import (
+    granite_3_2b,
+    llama3_2_1b,
+    musicgen_large,
+    paper_mlp,
+    qwen1_5_32b,
+    qwen3_0_6b,
+)
 
 _MODULES = {
+    "qwen1.5-32b": qwen1_5_32b,
+    "qwen3-0.6b": qwen3_0_6b,
+    "musicgen-large": musicgen_large,
+    "granite-3-2b": granite_3_2b,
     "llama3.2-1b": llama3_2_1b,
     "paper-proxy": paper_mlp,
 }
+
+# the reference's architectures that the port builds
+ARCH_NAMES = [n for n in _MODULES if n != "paper-proxy"]
 
 
 def get_config(name: str):

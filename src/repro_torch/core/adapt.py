@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from .levels import level_gaps
+from .levels import level_gaps, multiplier_to_levels
 from .stats import (
     TruncNormStats,
+    expected_variance,
     mixture_cdf,
     partial_moment0,
     partial_moment1,
@@ -92,6 +93,13 @@ def alq_gd_update(levels: torch.Tensor, stats: TruncNormStats, *,
 # ---------------------------------------------------------------------------
 # AMQ: exponential levels, single multiplier p (Sec. 3.3 / App. C.3)
 # ---------------------------------------------------------------------------
+
+def amq_objective(p: torch.Tensor, stats: TruncNormStats, bits: int
+                  ) -> torch.Tensor:
+    """Psi(p) for levels [0, p^s, ..., p, 1] (Eq. 32 restricted to
+    [0, 1])."""
+    return expected_variance(stats, multiplier_to_levels(p, bits))
+
 
 def amq_gradient(p: torch.Tensor, stats: TruncNormStats, bits: int
                  ) -> torch.Tensor:

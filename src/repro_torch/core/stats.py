@@ -107,6 +107,30 @@ def partial_moment2(stats: TruncNormStats, a, c) -> torch.Tensor:
     return torch.sum(stats.gamma * m2, dim=-1)
 
 
+def mixture_inverse_cdf(stats: TruncNormStats, y, iters: int = 50
+                        ) -> torch.Tensor:
+    """F^{-1}(y) by bisection on [0, 1] (the mixture CDF has no closed
+    inverse)."""
+    y = _as_tensor(y, stats.mu)
+    lo, hi = torch.zeros_like(y), torch.ones_like(y)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        below = mixture_cdf(stats, mid) < y
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def single_trunc_norm_inverse_cdf(mu, sigma, y) -> torch.Tensor:
+    """Closed-form inverse for one truncated normal (App. A.2, Eq. 18)."""
+    mu, sigma, y = (torch.as_tensor(t, dtype=torch.float32)
+                    for t in (mu, sigma, y))
+    Phi_a = _Phi((0.0 - mu) / sigma)
+    Phi_b = _Phi((1.0 - mu) / sigma)
+    ybar = (Phi_b - Phi_a) * y + Phi_a
+    return sigma * torch.special.ndtri(
+        torch.clamp(ybar, 1e-12, 1.0 - 1e-12)) + mu
+
+
 def expected_variance(stats: TruncNormStats, levels: torch.Tensor
                       ) -> torch.Tensor:
     """Psi(l) = sum_j int_{l_j}^{l_{j+1}} (l_{j+1}-r)(r-l_j) dF(r) (Eq. 3)."""
@@ -132,6 +156,23 @@ def stats_from_moments(mu: torch.Tensor, var: torch.Tensor,
     w = bucket_norms ** 2 if weighted else torch.ones_like(bucket_norms)
     gamma = w / torch.clamp(torch.sum(w), min=1e-30)
     return TruncNormStats(mu=mu, sigma=sigma, gamma=gamma)
+
+
+def fit_bucket_stats(r: torch.Tensor, bucket_norms: torch.Tensor, *,
+                     weighted: bool = True, max_components: int = 64,
+                     mask: torch.Tensor | None = None) -> TruncNormStats:
+    """Fit per-bucket (mu, sigma) of normalized magnitudes r (nb,
+    bucket_size) normalized by ``bucket_norms`` (nb,); ``mask`` (nb,
+    bucket_size) marks the valid coordinates (not padding)."""
+    if mask is None:
+        mu = torch.mean(r, dim=1)
+        var = torch.var(r, dim=1, correction=0)
+    else:
+        cnt = torch.clamp(torch.sum(mask, dim=1), min=1.0)
+        mu = torch.sum(r * mask, dim=1) / cnt
+        var = torch.sum(mask * (r - mu[:, None]) ** 2, dim=1) / cnt
+    return stats_from_moments(mu, var, bucket_norms, weighted=weighted,
+                              max_components=max_components)
 
 
 def merge_stats(stacked: TruncNormStats) -> TruncNormStats:

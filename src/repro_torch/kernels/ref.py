@@ -8,7 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantize import bucket_norm, code_dtype
+from repro_torch.core.quantize import (
+    bucket_norm, code_dtype, rounding_interval)
 
 
 def rounding(vb: torch.Tensor, norms: torch.Tensor, levels: torch.Tensor
@@ -17,11 +18,7 @@ def rounding(vb: torch.Tensor, norms: torch.Tensor, levels: torch.Tensor
     rounding up, under the given bucket norms."""
     safe = torch.where(norms > 0, norms, torch.ones_like(norms))
     r = torch.clamp(torch.abs(vb.float()) / safe[:, None], 0.0, 1.0)
-    tau = torch.searchsorted(levels, r, right=True) - 1
-    tau = torch.clamp(tau, 0, levels.shape[0] - 2)
-    lo = levels[tau]
-    hi = levels[tau + 1]
-    return tau, (r - lo) / torch.clamp(hi - lo, min=1e-30)
+    return rounding_interval(r, levels)
 
 
 def quantize_ref(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor,

@@ -7,7 +7,8 @@ Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
 milliseconds of each step) so that scripts can drive it too.
 
-``--codec entropy|mixed_width`` (with ``--widths``) picks the wire codec
+``--smoke`` takes the arch's reduced config.  ``--codec
+entropy|mixed_width`` (with ``--widths``) picks the wire codec
 and ``--micro k`` splits each worker's rows into k micro-batches.
 
 ``--ckpt-dir`` saves the trainer's whole state every ``--save-every``
@@ -39,6 +40,8 @@ SEED = 0        # weights, data and the stochastic rounding
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-proxy")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config for this arch")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = as "
                          "configured)")
@@ -106,7 +109,8 @@ def resume_state(ckpt_dir: str, trainer: Trainer) -> int:
 
 
 def run(args: argparse.Namespace) -> dict:
-    cfg = configs.get_config(args.arch)
+    cfg = (configs.get_smoke_config(args.arch) if args.smoke
+           else configs.get_config(args.arch))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     device = torch.device(args.device)

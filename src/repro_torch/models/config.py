@@ -1,18 +1,30 @@
 """Model configuration.
 
 The fields are those of the reference package's ``ModelConfig`` that the
-dense decoder reads: the port runs the dense family (full causal GQA
-attention, RoPE, SwiGLU, RMSNorm) with float32 parameters so far.
+dense family reads: GQA attention with RoPE (full, sliding-window or
+chunked, optionally FULL every k-th layer), optional qk-norm and qkv
+bias, SwiGLU and RMSNorm, with float32 parameters.  Layers repeat as
+``num_groups`` groups of ``group_size`` slots, in the reference's
+parameter layout.
 """
 from __future__ import annotations
 
 import dataclasses
 
+# attention kinds
+FULL = "full"
+SLIDING = "sliding"
+CHUNKED = "chunked"
+
+# arch types the port builds: "audio" (musicgen) is a plain decoder over
+# codec tokens, as in the reference
+ARCH_TYPES = ("dense", "audio")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str            # the port runs "dense"
+    arch_type: str            # dense | audio (moe, ssm, hybrid, vlm: not yet)
     num_layers: int
     d_model: int
     num_heads: int
@@ -20,15 +32,28 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0         # 0 -> d_model // num_heads
+
+    # attention flavour
+    attn_kind: str = FULL     # full | sliding | chunked
+    window: int = 4096        # sliding-window size
+    chunk: int = 8192         # chunked-attention chunk
+    full_attn_every: int = 0  # >0: every k-th attention layer is FULL
+    qk_norm: bool = False     # qwen3
+    qkv_bias: bool = False    # qwen1.5
     rope_theta: float = 1e6
+
     norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
     source: str = ""
 
     def __post_init__(self):
-        if self.arch_type != "dense":
+        if self.arch_type not in ARCH_TYPES:
             raise NotImplementedError(
-                f"{self.name}: the port runs dense decoders only so far")
+                f"{self.name}: arch_type {self.arch_type!r} is not ported "
+                "yet (ROADMAP section 1: MoE is item 4, RWKV item 5, Mamba "
+                "and the hybrid stack item 6, the VLM item 7)")
+        if self.attn_kind not in (FULL, SLIDING, CHUNKED):
+            raise ValueError(f"{self.name}: attn_kind {self.attn_kind!r}")
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.name}: {self.num_heads} heads do not "
                              f"share {self.num_kv_heads} kv heads evenly")
@@ -36,3 +61,22 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def group_size(self) -> int:
+        """Length of the repeating layer pattern."""
+        return self.full_attn_every or 1
+
+    @property
+    def num_groups(self) -> int:
+        if self.num_layers % self.group_size:
+            raise ValueError(
+                f"{self.name}: num_layers {self.num_layers} not divisible by "
+                f"group_size {self.group_size}")
+        return self.num_layers // self.group_size
+
+    def slot_attn_kind(self, slot: int) -> str:
+        k = self.full_attn_every
+        if k:
+            return FULL if slot % k == k - 1 else self.attn_kind
+        return self.attn_kind

@@ -2,10 +2,11 @@
 
 Every parameter is a view into ``Model.flat``, a float32 vector laid out
 exactly as the reference's ``ravel_pytree(params)`` flattens its
-parameter tree: dict keys sorted, and each per-layer leaf stacked over
-the layers as ``(num_layers, tp=1, ...)``, so all layers' ``w1`` come
-before all layers' ``w2``.  Bucket membership, and with it every norm
-and code on the wire, depends on this order.
+parameter tree: dict keys sorted, ``slots`` a list of ``group_size``
+layer slots, and each slot's leaves stacked over the groups as
+``(num_groups, tp=1, ...)``, so all groups' ``w1`` of a slot come before
+their ``w2``.  Bucket membership, and with it every norm and code on the
+wire, depends on this order.
 
 Because the parameters alias the buffer, the flat vector needs no copy:
 ``attach_grads(g)`` points every parameter's ``.grad`` at its slice of a
@@ -21,53 +22,81 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import causal_attention
+from .attention import attn_forward
 from .config import ModelConfig
 from .layers import lm_head_loss, rms_norm, swiglu
 
-# init codes: -1 ones (norm weights), > 0 normal * in_dim ** -0.5
+# init codes: -1 ones (norm weights), 0 zeros (biases), > 0 normal *
+# in_dim ** -0.5
 _ONES = -1
+_ZEROS = 0
+
+# the attention leaves that a layer's attention reads, besides the norms
+# and the SwiGLU weights
+_MIXER = ("bk", "bq", "bv", "k_norm", "q_norm", "wk", "wo", "wq", "wv")
+
+
+def _slot_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int]]:
+    """leaf path within a slot -> (per-layer shape, init code), for the
+    reference's ``slot_param_specs`` of an attention slot."""
+    d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    specs = {
+        "ffn.w1": ((d, ff), d),
+        "ffn.w2": ((ff, d), ff),
+        "ffn.w3": ((d, ff), d),
+        "mixer.wk": ((d, nkv), d),
+        "mixer.wo": ((nq, d), nq),
+        "mixer.wq": ((d, nq), d),
+        "mixer.wv": ((d, nkv), d),
+        "norm1": ((d,), _ONES),
+        "norm2": ((d,), _ONES),
+    }
+    if cfg.qkv_bias:
+        specs.update({"mixer.bq": ((nq,), _ZEROS),
+                      "mixer.bk": ((nkv,), _ZEROS),
+                      "mixer.bv": ((nkv,), _ZEROS)})
+    if cfg.qk_norm:
+        specs.update({"mixer.q_norm": ((hd,), _ONES),
+                      "mixer.k_norm": ((hd,), _ONES)})
+    return specs
 
 
 def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
-    """(name, shape, init code) of every leaf, in flat (ravel) order."""
-    d, ff, V, G = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
-    hd = cfg.head_dim_
-    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    return [
-        ("embed", (1, V, d), d),
-        ("final_norm", (d,), _ONES),
-        ("lm_head", (1, d, V), d),
-        ("slots.0.ffn.w1", (G, 1, d, ff), d),
-        ("slots.0.ffn.w2", (G, 1, ff, d), ff),
-        ("slots.0.ffn.w3", (G, 1, d, ff), d),
-        ("slots.0.mixer.wk", (G, 1, d, nkv), d),
-        ("slots.0.mixer.wo", (G, 1, nq, d), nq),
-        ("slots.0.mixer.wq", (G, 1, d, nq), d),
-        ("slots.0.mixer.wv", (G, 1, d, nkv), d),
-        ("slots.0.norm1", (G, 1, d), _ONES),
-        ("slots.0.norm2", (G, 1, d), _ONES),
-    ]
+    """(name, shape, init code) of every leaf, in flat (ravel) order:
+    ``embed``, ``final_norm``, ``lm_head``, then ``slots``, a list of
+    ``group_size`` dicts whose leaves are stacked as (num_groups, 1,
+    ...), each with its keys sorted."""
+    d, V, G = cfg.d_model, cfg.vocab_size, cfg.num_groups
+    layout = [("embed", (1, V, d), d), ("final_norm", (d,), _ONES),
+              ("lm_head", (1, d, V), d)]
+    specs = _slot_specs(cfg)
+    for slot in range(cfg.group_size):
+        for path in sorted(specs):   # the order of sorted nested keys
+            shape, code = specs[path]
+            layout.append((f"slots.{slot}.{path}", (G, 1, *shape), code))
+    return layout
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention + SwiGLU block; ``leaves`` maps the short leaf
-    names (``w1``, ``wq``, ``norm1``, ...) to views into the flat buffer."""
+    names (``w1``, ``wq``, ``norm1``, ...) to views into the flat buffer,
+    and ``attn_kind`` is its slot's attention kind."""
 
-    def __init__(self, cfg: ModelConfig, leaves: dict[str, torch.Tensor]):
+    def __init__(self, cfg: ModelConfig, leaves: dict[str, torch.Tensor],
+                 attn_kind: str):
         super().__init__()
         self.cfg = cfg
+        self.attn_kind = attn_kind
         for name, view in leaves.items():
             self.register_parameter(name, nn.Parameter(view))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg, cd = self.cfg, x.dtype
+        mixer = {k: getattr(self, k).to(cd) for k in _MIXER
+                 if hasattr(self, k)}
         h = rms_norm(x, self.norm1.to(cd), cfg.norm_eps)
-        x = x + causal_attention(
-            h, self.wq.to(cd), self.wk.to(cd), self.wv.to(cd),
-            self.wo.to(cd), num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
-            theta=cfg.rope_theta)
+        x = x + attn_forward(cfg, mixer, h, self.attn_kind)
         h = rms_norm(x, self.norm2.to(cd), cfg.norm_eps)
         return x + swiglu(h, self.w1.to(cd), self.w3.to(cd), self.w2.to(cd))
 
@@ -96,6 +125,8 @@ class Model(nn.Module):
             view = self.flat[off:off + n].view(shape)
             if code == _ONES:
                 view.fill_(1.0)
+            elif code == _ZEROS:
+                view.zero_()
             else:
                 view.normal_(generator=gen).mul_(code ** -0.5)
             lv[name] = view
@@ -103,11 +134,17 @@ class Model(nn.Module):
         self.embed = nn.Parameter(lv["embed"][0])
         self.lm_head = nn.Parameter(lv["lm_head"][0])
         self.final_norm = nn.Parameter(lv["final_norm"])
-        short = {name.rsplit(".", 1)[1]: name for name in lv
-                 if name.startswith("slots.")}
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, {k: lv[full][g, 0] for k, full in short.items()})
-            for g in range(cfg.num_layers))
+        # layer g * group_size + s is slot s of group g
+        layers = []
+        for g in range(cfg.num_groups):
+            for slot in range(cfg.group_size):
+                pre = f"slots.{slot}."
+                leaves = {name.rsplit(".", 1)[1]: view[g, 0]
+                          for name, view in lv.items()
+                          if name.startswith(pre)}
+                layers.append(DecoderLayer(cfg, leaves,
+                                           cfg.slot_attn_kind(slot)))
+        self.layers = nn.ModuleList(layers)
 
     def load_flat(self, flat: torch.Tensor) -> None:
         """Copy a flat (ravel-ordered) parameter vector into the buffer."""

@@ -18,6 +18,12 @@ The entropy-coded and mixed-width codecs run the same kernels at every
 width 1..8 (the mixed width's groups on resampled grids of 2..256
 levels): their words on the card equal the CPU's wherever the codes
 agree, and the card decodes the CPU's words exactly.
+
+The model's attention is deterministic: two backward passes at 1024
+tokens give bit-equal gradients, as the entry points run and under
+``torch.use_deterministic_algorithms`` (in a process of its own, with
+``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts).  ``repro_torch.core``'s
+encode and decode launch the kernels on card tensors.
 """
 import pytest
 import torch
@@ -370,3 +376,68 @@ def test_ring_on_card_matches_cpu(dev, M):
     assert card.hops == cpu.hops == 2 * (M - 1)
     torch.testing.assert_close(card.quant_error.cpu(), cpu.quant_error,
                                rtol=1e-5, atol=0)
+
+
+_GRAD_TWICE = """
+import dataclasses, sys
+import torch
+from repro_torch import configs
+from repro_torch.models.transformer import Model
+if sys.argv[1] == "strict":
+    torch.use_deterministic_algorithms(True)
+cfg = dataclasses.replace(configs.get_config("llama3.2-1b"), num_layers=1)
+model = Model(cfg, device="cuda", seed=0)
+g = torch.Generator(device="cuda").manual_seed(0)
+ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g, device="cuda")
+grads = []
+for _ in range(2):
+    grads.append(torch.zeros(model.d, device="cuda"))
+    model.attach_grads(grads[-1])
+    model.loss(ids[:, :-1], ids[:, 1:]).backward()
+assert torch.equal(*grads), float((grads[0] - grads[1]).abs().max())
+print("bit-equal")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["strict", "as_run"])
+def test_two_backward_passes_give_bit_equal_gradients(dev, mode):
+    """llama3.2-1b at full width, one layer, 2 x 1024 tokens: the same
+    weights and tokens give the same gradient bits twice, in a process of
+    its own; "strict" runs under ``torch.use_deterministic_algorithms``
+    (which refuses an op on the path that has no deterministic version),
+    "as_run" as the entry points run."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", _GRAD_TWICE, mode], env=env,
+                         capture_output=True, text=True)
+    assert out.returncode == 0 and "bit-equal" in out.stdout, out.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,norm", [(3, "l2"), (8, "linf")])
+def test_core_encode_decode_on_card_match_plain_versions(dev, bits, norm):
+    """``repro_torch.core``'s encode and decode launch the kernels on a
+    card tensor and match the plain versions on the same tensors."""
+    from repro_torch import core
+    d, bs = 100_003, 1024
+    g = torch.Generator(device=dev).manual_seed(bits)
+    v = torch.randn(d, generator=g, device=dev) * 1e-2
+    u = torch.rand(-(-d // bs), bs, generator=g, device=dev)
+    levels = lv.uniform_levels(bits, device=dev)
+    before = dict(kcuda.LAUNCHES)
+    qt = core.encode(v, levels, u, bucket_size=bs, norm_type=norm)
+    out = core.decode(qt, levels)
+    assert kcuda.LAUNCHES["quantize"] == before.get("quantize", 0) + 1
+    assert kcuda.LAUNCHES["dequantize"] == before.get("dequantize", 0) + 1
+    vb = core.pad_to_buckets(v, bs)
+    c2, n2 = ref.quantize_ref(vb, u, levels, norm)
+    assert qt.dim == d and qt.codes.dtype == c2.dtype
+    torch.testing.assert_close(qt.norms, n2, rtol=1e-5, atol=0)
+    ref.code_mismatches(qt.codes, c2, vb, u, n2, levels)
+    assert torch.equal(out, ref.dequantize_ref(qt.codes, qt.norms,
+                                               levels).reshape(-1)[:d])

@@ -151,9 +151,9 @@ def test_level_helpers_match_reference():
 
 def test_bucketing_matches_reference():
     import importlib
-    # repro.core re-exports a function named ``quantize``
+    # both packages' core re-exports a function named ``quantize``
     jq = importlib.import_module("repro.core.quantize")
-    from repro_torch.core import quantize as tq
+    tq = importlib.import_module("repro_torch.core.quantize")
     rng = np.random.default_rng(3)
     v = rng.standard_normal(1000).astype(np.float32)
     vb = tq.pad_to_buckets(torch.from_numpy(v), 128)

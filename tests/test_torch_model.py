@@ -1,13 +1,20 @@
-"""The port's dense decoder against the reference's ``Model``.
+"""The port's dense decoder against the reference's ``Model``, for every
+registered arch (qk-norm, qkv bias, a head_dim other than d_model /
+heads, the audio decoder) and the sliding, chunked and FULL-every-k
+attention variants.
 
 Both sides get the same weights, made with numpy from a seed in the
-reference's ``Model.init`` layout; ``from_jax_params`` carries them over.  The flat parameter vector must equal ``ravel_pytree(params)``
+reference's ``Model.init`` layout (biases at unit scale, so that they
+matter); ``from_jax_params`` carries them over.  The flat parameter
+vector must equal ``ravel_pytree(params)``
 exactly (the wire's bucket membership depends on that order), and the
 loss and the flat gradient must agree with ``jax.value_and_grad``.
 Tolerances: loss rtol 1e-5; gradient within 1e-4 of its largest entry
 (float32 throughout, but attention, softmax and matmul sums run in
 another order and through other kernels).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +28,19 @@ from repro_torch import configs
 from repro_torch.models.transformer import Model
 from repro_torch.weights import from_jax_params
 
-CASES = [("paper-proxy", False), ("llama3.2-1b", True)]
+# (arch, smoke, fields replaced on both sides): every registered arch,
+# and the attention variants on one SMOKE config: a sliding window below
+# the sequence, chunks with a trailing partial chunk, and chunked layers
+# with every second one FULL (group_size 2, two groups)
+VARIANTS = {
+    "sliding": dict(attn_kind="sliding", window=8),
+    "chunked": dict(attn_kind="chunked", chunk=12),
+    "full_every_2": dict(attn_kind="chunked", chunk=12, full_attn_every=2,
+                         num_layers=4),
+}
+CASES = ([("paper-proxy", False, None)]
+         + [(a, True, None) for a in configs.ARCH_NAMES]
+         + [("llama3.2-1b", True, v) for v in VARIANTS])
 
 
 def _ravel(tree):
@@ -45,16 +64,18 @@ def _jax_loss_and_grad(jcfg, params, batch):
         return fn(params, batch)
 
 
-def _pair(arch, smoke):
+def _pair(arch, smoke, variant):
     jcfg = (jconfigs.get_smoke_config(arch) if smoke
             else jconfigs.get_config(arch))
     cfg = (configs.get_smoke_config(arch) if smoke
            else configs.get_config(arch))
-    for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-              "vocab_size", "rope_theta", "norm_eps", "compute_dtype"):
-        assert getattr(cfg, f) == getattr(jcfg, f), f
-    assert jcfg.param_dtype == "float32" and not jcfg.qk_norm
-    assert not jcfg.qkv_bias and jcfg.arch_type == cfg.arch_type == "dense"
+    if variant:
+        jcfg = dataclasses.replace(jcfg, **VARIANTS[variant])
+        cfg = dataclasses.replace(cfg, **VARIANTS[variant])
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert jcfg.param_dtype == "float32" and not jcfg.moe
+    assert jcfg.group_size == cfg.group_size
     return jcfg, cfg
 
 
@@ -75,9 +96,9 @@ def _random_params(jcfg, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-@pytest.mark.parametrize("arch,smoke", CASES)
-def test_loss_and_flat_gradient_match_reference(arch, smoke):
-    jcfg, cfg = _pair(arch, smoke)
+@pytest.mark.parametrize("arch,smoke,variant", CASES)
+def test_loss_and_flat_gradient_match_reference(arch, smoke, variant):
+    jcfg, cfg = _pair(arch, smoke, variant)
     np_params = _random_params(jcfg)
     params = jax.tree.map(jnp.asarray, np_params)
     flat = from_jax_params(np_params, cfg)

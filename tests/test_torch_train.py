@@ -21,7 +21,8 @@ Tolerances, each with its reason:
     other way, moving the coordinate by one level step instead.  At
     most 0.5% of the coordinates may do so.
 
-The same step over the entropy-coded and mixed-width wires and with two
+The launcher's ``--smoke`` on every registered arch.  The same step over
+the entropy-coded and mixed-width wires and with two
 micro-batches (without a level update), and the launcher's ``--codec``,
 ``--widths`` and ``--micro`` on the CPU.
 
@@ -300,6 +301,22 @@ def test_launcher_trains_on_the_cpu_when_asked(capsys):
     logged = [ln for ln in capsys.readouterr().out.splitlines()
               if ln.startswith("step")]
     assert len(logged) == 2  # step 0 and the last step
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_NAMES)
+def test_launcher_smoke_takes_the_reduced_config(arch):
+    """``--smoke``, as in the reference's launcher: the arch's SMOKE
+    config, at its width and depth, trains through the quantized wire."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import param_layout
+    res = train.run(train.parse_args([
+        "--arch", arch, "--smoke", "--device", "cpu", "--workers", "2",
+        "--steps", "2", "--batch", "4", "--seq", "16", "--update-at", "1"]))
+    cfg = configs.get_smoke_config(arch)
+    assert res["config"] == cfg
+    assert res["d"] == sum(np.prod(s) for _, s, _ in param_layout(cfg))
+    assert res["num_updates"] == 1
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
 
 
 @pytest.mark.parametrize("argv", [
