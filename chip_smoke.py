@@ -17,8 +17,8 @@ Phases, each of which must pass:
      (median and spread) beside its plain version and its bound (the
      simulator's: the param server's 8-bit L-inf downlink, a ring hop
      over 4 workers' chunks, buckets of 512 in shared memory; phase H's
-     91,752 buckets of 8192), and the top-k selection is timed at full
-     width;
+     91,752 and phase I's 129,163 buckets of 8192), and the top-k
+     selection is timed at full width;
   3. sync checks on the card against the same calls on the CPU (the
      plain versions), with the same gradients and uniforms, 4 workers:
      all_gather, two_phase without and with integrity words,
@@ -47,10 +47,18 @@ Phases, each of which must pass:
      qwen1.5-32b, musicgen-large) and llama3.2's with a sliding window
      and with chunks, one forward and backward pass of 2 x 1024 tokens
      on the card against the CPU with the same weights, then 4 quantized
-     steps of each new SMOKE config through ``--smoke``; determinism
-     check: llama3.2-1b at full width, one layer, 2 x 1024 tokens, two
-     backward passes give bit-equal gradients, as the entry points run
-     them and in a subprocess under deterministic algorithms;
+     steps of each new SMOKE config through ``--smoke``;
+     moe/rwkv config check: the mixtral, llama4-scout and rwkv6 SMOKE
+     configs the same way (losses within 1e-6, gradients within 1e-5 of
+     their largest entry), then 4 steps of each through ``--smoke``;
+     determinism checks: llama3.2-1b, mixtral-8x7b (8 experts of d_ff
+     14336, top-2, capacity 640, bf16) and rwkv6-7b (trained-like
+     decays), each at full width, one layer, 2 x 1024 tokens: two
+     backward passes give finite, bit-equal gradients, as the entry
+     points run them and in a subprocess under deterministic algorithms
+     (``--grad-twice ARCH``), with the time and added peak memory of a
+     pass; mixtral's first pass also reports its finite aux loss, the
+     dropped share and the expert loads;
   6. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
      1024, level updates at steps 2 and 10, 16 steps through the
      training entry point: the loss falls, the levels move after step 2
@@ -91,6 +99,12 @@ Phases, each of which must pass:
      step 1, 3 steps, all_gather: finite losses, the stage split, peak
      memory, every kernel launched, quantize and bucket_stats in the
      register layout;
+ 12c. phase I: rwkv6-7b at full width (d_model 4096, 64 heads of 64,
+     d_ff 14336, vocab 65536) cut to 2 of its 32 layers (d =
+     1,058,099,200), phase H's batch, scheme, buckets, optimizer and
+     update step, 3 steps: finite losses, the stage split, peak memory,
+     every kernel launched, quantize and bucket_stats in the register
+     layout;
  13. scenario check: ``python -m repro_torch.sim`` (its ``main``) runs
      paper_mlp for 4 steps twice on the card (identical JSON, buckets of
      512 in shared memory) and once with ``--device cpu`` (equal bytes,
@@ -107,16 +121,17 @@ Phases, each of which must pass:
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
      ``torch.profiler`` trace of one worker's forward and backward in
-     phase H's model (device busy time and idle share, launches, the ops
-     with the most device time).
+     phase H's and phase I's models (device busy time and idle share,
+     launches, the ops with the most device time).
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
-over phases B-H), then as the last
+over phases B-I), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -135,6 +150,8 @@ NB_B, NB_RING = 93_832, 93_856  # buckets of d: one stream; the ring's plan
 K_D = 1927                    # phase D's top-k: the equal wire budget
 D_H, NB_H = 751_632_384, 91_752  # phase H: qwen3-0.6b whole, buckets of d
 NEW_ARCHS = ("granite-3-2b", "qwen3-0.6b", "qwen1.5-32b", "musicgen-large")
+MOE_RWKV_ARCHS = ("mixtral-8x7b", "llama4-scout-17b-a16e", "rwkv6-7b")
+D_I, NB_I = 1_058_099_200, 129_163  # phase I: rwkv6-7b, 2 layers
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -1163,36 +1180,39 @@ def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
     return res, counts, layouts, peak
 
 
-def phase_h_shapes(ops, ref, lv, out):
-    """Each kernel at the shapes phase H gives it (qwen3-0.6b, d =
-    751,632,384 in 91,752 buckets of 8192, 4 workers), against its plain
-    version, timed in 3 rounds beside the plain version and the bound
-    (records appended to ``out``)."""
+def phase_shapes(ops, ref, lv, out, phase, nb):
+    """Each kernel at the shapes a full-width phase gives it (``nb``
+    buckets of 8192 a worker, 4 workers: phase H's qwen3-0.6b, d =
+    751,632,384 in 91,752 buckets; phase I's rwkv6-7b at 2 layers, d =
+    1,058,099,200 in 129,163), against its plain version, timed in 3
+    rounds beside the plain version and the bound (records appended to
+    ``out``)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
     levels = lv.uniform_levels(3, device=dev)
     L = levels.numel()
-    vb = torch.randn(NB_H, BS_B, generator=g, device=dev) * 1e-3
-    u = torch.rand(NB_H, BS_B, generator=g, device=dev)
+    vb = torch.randn(nb, BS_B, generator=g, device=dev) * 1e-3
+    u = torch.rand(nb, BS_B, generator=g, device=dev)
     codes, norms = ops.quantize_op(vb, u, levels)
-    parts, rows = chunks(NB_H)
+    parts, rows = chunks(nb)
     worst, mism = 0.0, 0
     for i in parts:
         c2, n2 = ref.quantize_ref(vb[i:i + rows], u[i:i + rows], levels, "l2")
         check(bool(torch.allclose(norms[i:i + rows], n2, rtol=1e-5, atol=0)),
-              "quantize norms at phase H's shape beyond rtol 1e-5")
+              f"quantize norms at phase {phase}'s shape beyond rtol 1e-5")
         worst = max(worst, float((norms[i:i + rows] - n2).abs().max()))
         mism += ref.code_mismatches(codes[i:i + rows], c2, vb[i:i + rows],
                                     u[i:i + rows], n2, levels)
         del c2, n2
     del codes, norms
-    n = NB_H * BS_B
-    record_shape(out, "phase H shape", "quantize", f"({NB_H}, {BS_B}) f32 l2 "
-                 "3-bit", lambda: ops.quantize_op(vb, u, levels),
+    n = nb * BS_B
+    record_shape(out, f"phase {phase} shape", "quantize",
+                 f"({nb}, {BS_B}) f32 l2 3-bit",
+                 lambda: ops.quantize_op(vb, u, levels),
                  lambda: [ref.quantize_ref(vb[i:i + rows], u[i:i + rows],
                                            levels, "l2") for i in parts],
-                 n * 9 + NB_H * 4, n * (20 + math.log2(L)), worst,
+                 n * 9 + nb * 4, n * (20 + math.log2(L)), worst,
                  f"encode of one worker, int8 codes, {mism} codes off by "
                  "one at ties")
     vals = ops.bucket_stats_op(vb)
@@ -1200,31 +1220,31 @@ def phase_h_shapes(ops, ref, lv, out):
     for i in parts:
         for a, r in zip(vals, ref.bucket_stats_ref(vb[i:i + rows], "l2")):
             check(torch.allclose(a[i:i + rows], r, rtol=1e-5, atol=1e-7),
-                  "bucket_stats at phase H's shape beyond rtol 1e-5")
+                  f"bucket_stats at phase {phase}'s shape beyond rtol 1e-5")
             worst = max(worst, float((a[i:i + rows] - r).abs().max()))
     del vals
-    record_shape(out, "phase H shape", "bucket_stats",
-                 f"({NB_H}, {BS_B}) f32 l2", lambda: ops.bucket_stats_op(vb),
+    record_shape(out, f"phase {phase} shape", "bucket_stats",
+                 f"({nb}, {BS_B}) f32 l2", lambda: ops.bucket_stats_op(vb),
                  lambda: [ref.bucket_stats_ref(vb[i:i + rows], "l2")
                           for i in parts],
-                 n * 4 + NB_H * 12, n * 8, worst, "stats of one worker")
+                 n * 4 + nb * 12, n * 8, worst, "stats of one worker")
     del vb, u
-    c32 = torch.randint(-(L - 1), L, (M_B * NB_H, BS_B), generator=g,
+    c32 = torch.randint(-(L - 1), L, (M_B * nb, BS_B), generator=g,
                         device=dev, dtype=torch.int32)
-    n4 = torch.rand(M_B * NB_H, generator=g, device=dev) + 0.1
+    n4 = torch.rand(M_B * nb, generator=g, device=dev) + 0.1
     got = ops.dequantize_op(c32, n4, levels)
-    parts, rows = chunks(M_B * NB_H, 32)
+    parts, rows = chunks(M_B * nb, 32)
     for i in parts:
         check(torch.equal(got[i:i + rows], ref.dequantize_ref(
             c32[i:i + rows], n4[i:i + rows], levels)),
-            "dequantize at phase H's shape not exact")
+            f"dequantize at phase {phase}'s shape not exact")
     del got
-    record_shape(out, "phase H shape", "dequantize",
-                 f"({M_B * NB_H}, {BS_B}) int32",
+    record_shape(out, f"phase {phase} shape", "dequantize",
+                 f"({M_B * nb}, {BS_B}) int32",
                  lambda: ops.dequantize_op(c32, n4, levels),
                  lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
                                              levels) for i in parts],
-                 M_B * n * 8 + M_B * NB_H * 4, M_B * n * 5, 0.0,
+                 M_B * n * 8 + M_B * nb * 4, M_B * n * 5, 0.0,
                  "decode of the 4 gathered streams")
     del c32, n4
     torch.cuda.synchronize()
@@ -1270,22 +1290,15 @@ def api_check(core, ref, lv, cuda):
           flush=True)
 
 
-def dense_config_check(train, configs, Model, cuda):
-    """Each new SMOKE config, and llama3.2's with a sliding window and
-    with chunks (a partial trailing chunk): one forward and backward pass
-    of 2 x 1024 tokens on the card and on the CPU with the same weights
-    (losses at rtol 1e-5, flat gradients within 1e-4 of their largest
-    entry); then 4 quantized steps of each new SMOKE config through the
-    launcher's ``--smoke`` on the card."""
-    import dataclasses
+def config_check(train, configs, Model, cuda, label, cases, archs,
+                 loss_rtol, grad_rtol):
+    """Each (name, config) of ``cases``: one forward and backward pass of
+    2 x 1024 tokens on the card and on the CPU with the same weights
+    (losses within ``loss_rtol``, flat gradients within ``grad_rtol`` of
+    their largest entry); then 4 quantized steps of each of ``archs``'s
+    SMOKE configs through the launcher's ``--smoke`` on the card."""
     import numpy as np
     import torch
-    cases = [(a, configs.get_smoke_config(a)) for a in NEW_ARCHS]
-    llama = configs.get_smoke_config("llama3.2-1b")
-    cases += [("llama3.2 sliding 256", dataclasses.replace(
-                  llama, attn_kind="sliding", window=256)),
-              ("llama3.2 chunked 384", dataclasses.replace(
-                  llama, attn_kind="chunked", chunk=384))]
     toks = np.random.default_rng(14).integers(0, 509, (2, 1025))
     for name, cfg in cases:
         ids = torch.from_numpy(toks % cfg.vocab_size)
@@ -1303,13 +1316,14 @@ def dense_config_check(train, configs, Model, cuda):
         (lc, gc), (lg, gg) = res
         rel = abs(lg - lc) / abs(lc)
         gerr = float((gg - gc).abs().max() / gc.abs().max())
-        check(rel <= 1e-5, f"dense check {name}: loss card {lg} CPU {lc}")
-        check(gerr <= 1e-4, f"dense check {name}: gradient off by {gerr} of "
-              "its largest entry")
-        print(f"dense check {name}: loss card {lg:.6f} CPU {lc:.6f} (rel "
+        check(rel <= loss_rtol, f"{label} check {name}: loss card {lg} CPU "
+              f"{lc}")
+        check(gerr <= grad_rtol, f"{label} check {name}: gradient off by "
+              f"{gerr} of its largest entry")
+        print(f"{label} check {name}: loss card {lg:.6f} CPU {lc:.6f} (rel "
               f"{rel:.2g}), gradient within {gerr:.2g} of its largest entry",
               flush=True)
-    for arch in NEW_ARCHS:
+    for arch in archs:
         cuda.reset_launches()
         res = train.run(train.parse_args([
             "--arch", arch, "--smoke", "--workers", str(M_B), "--batch", "8",
@@ -1326,47 +1340,152 @@ def dense_config_check(train, configs, Model, cuda):
               flush=True)
 
 
-def grad_twice(configs, Model):
-    """Two forward and backward passes of llama3.2-1b at full width, one
-    layer, 2 x 1024 tokens, on the same weights and tokens; returns
-    (bit-equal, max abs difference, grad ms of the second)."""
+def dense_config_check(train, configs, Model, cuda):
+    """Each new SMOKE config of the dense family, and llama3.2's with a
+    sliding window and with chunks (a partial trailing chunk): losses at
+    rtol 1e-5, gradients within 1e-4 of their largest entry."""
+    import dataclasses
+    cases = [(a, configs.get_smoke_config(a)) for a in NEW_ARCHS]
+    llama = configs.get_smoke_config("llama3.2-1b")
+    cases += [("llama3.2 sliding 256", dataclasses.replace(
+                  llama, attn_kind="sliding", window=256)),
+              ("llama3.2 chunked 384", dataclasses.replace(
+                  llama, attn_kind="chunked", chunk=384))]
+    config_check(train, configs, Model, cuda, "dense", cases, NEW_ARCHS,
+                 1e-5, 1e-4)
+
+
+def moe_rwkv_config_check(train, configs, Model, cuda):
+    """The mixtral, llama4-scout and rwkv6 SMOKE configs (float32: top-2
+    routing, top-1 with the shared expert, the RWKV6 chunk loop), the loss
+    with the aux loss: losses within 1e-6, gradients within 1e-5 of their
+    largest entry."""
+    cases = [(a, configs.get_smoke_config(a)) for a in MOE_RWKV_ARCHS]
+    config_check(train, configs, Model, cuda, "moe/rwkv", cases,
+                 MOE_RWKV_ARCHS, 1e-6, 1e-5)
+
+
+def trained_decays(model, gen) -> None:
+    """RWKV6's time-mix as a trained model has it: token-shift mixes in
+    [0, 1], w0 in [-4, -0.5] and the LoRA's B at a fifth of its scale, so
+    that the log decays stay within -0.01 to -1 a token.  The init's
+    (zero mixes and w0) let some channel of 2 x 1024 random tokens
+    overflow the reference's masked ``exp(diff)``, and the gradient then
+    holds NaN in both packages.  No other arch has these leaves."""
+    import torch
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("mu_"):
+                p.uniform_(0.0, 1.0, generator=gen)
+            elif leaf == "w0":
+                p.uniform_(-4.0, -0.5, generator=gen)
+            elif leaf == "w_lora_b":
+                p.mul_(0.2)
+
+
+def grad_twice(configs, Model, arch, first_pass=None):
+    """Two forward and backward passes of ``arch`` at full width, one
+    layer, 2 x 1024 tokens, on the same weights (``trained_decays``) and
+    tokens, the first inside ``first_pass()`` where one is given (a
+    context that may spy on the model).  Returns (both gradients finite
+    and bit-equal, with the losses; max abs difference; the second pass's
+    ms and added peak bytes)."""
     import dataclasses
     import torch
-    cfg = dataclasses.replace(configs.get_config("llama3.2-1b"), num_layers=1)
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=1)
     model = Model(cfg, device="cuda", seed=0)
     g = torch.Generator(device="cuda").manual_seed(15)
+    trained_decays(model, g)
     ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
                         device="cuda")
-    grads = []
-    for _ in range(2):
+    grads, losses = [], []
+    for i in range(2):
         grad = torch.zeros(model.d, device="cuda")
         model.attach_grads(grad)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model.loss(ids[:, :-1], ids[:, 1:]).backward()
+        with (first_pass() if first_pass and i == 0
+              else contextlib.nullcontext()):
+            loss = model.loss(ids[:, :-1], ids[:, 1:])
+        loss.backward()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        added = torch.cuda.max_memory_allocated() - base
+        losses.append(loss.item())
         grads.append(grad)
-    return (torch.equal(*grads), float((grads[0] - grads[1]).abs().max()),
-            ms)
+    same = (bool(torch.isfinite(grads[0]).all()) and math.isfinite(losses[0])
+            and torch.equal(*grads) and losses[0] == losses[1])
+    diff = float((grads[0] - grads[1]).abs().max())
+    del model, grads
+    torch.cuda.empty_cache()
+    return same, diff, ms, added
 
 
-def determinism_check(configs, Model):
-    """Bit-equal gradients of two backward passes (``grad_twice``) as the
-    entry points run them, and again in a subprocess under
+def determinism_check(configs, Model, arch, first_pass=None):
+    """``grad_twice`` as the entry points run it, and again in a
+    subprocess (``chip_smoke.py --grad-twice ARCH``) under
     ``torch.use_deterministic_algorithms(True)``, which refuses any op on
     the path that has no deterministic implementation."""
-    same, diff, ms = grad_twice(configs, Model)
-    check(same, f"determinism check: two backward passes differ by {diff}")
+    same, diff, ms, added = grad_twice(configs, Model, arch, first_pass)
+    check(same, f"determinism check ({arch}): two backward passes differ "
+          f"by {diff} or are not finite")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     sub = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--grad-twice"], env=env, capture_output=True,
-                         text=True)
-    check(sub.returncode == 0, "determinism check under deterministic "
-          f"algorithms failed: {sub.stderr[-2000:]}")
-    print(f"determinism check: llama3.2-1b width, 1 layer, 2 x 1024 tokens: "
-          f"two backward passes bit-equal (second {ms:.1f} ms); under "
-          f"deterministic algorithms: {sub.stdout.strip()}", flush=True)
+                          "--grad-twice", arch], env=env,
+                         capture_output=True, text=True)
+    check(sub.returncode == 0, f"determinism check ({arch}) under "
+          f"deterministic algorithms failed: {sub.stderr[-2000:]}")
+    print(f"determinism check: {arch} width, 1 layer, 2 x 1024 tokens: two "
+          f"backward passes finite and bit-equal (second {ms:.1f} ms, "
+          f"+{added / 2**30:.2f} GiB); under deterministic algorithms: "
+          f"{sub.stdout.strip()}", flush=True)
+    return {"ms": ms, "added_bytes": added,
+            "deterministic": sub.stdout.strip()}
+
+
+def moe_width_check(configs, Model):
+    """``determinism_check`` of mixtral-8x7b at full width, one layer (8
+    experts of d_ff 14336, top-2, bf16 compute), whose first pass goes
+    through a spy that reads the MoE layer's aux loss, capacity, dropped
+    share and expert loads: a finite aux loss at capacity 640."""
+    import torch
+    from repro_torch.models import moe, transformer
+    stats = []
+
+    def spy(cfg, p, x):
+        y, aux = moe.moe_ffn(cfg, p, x)
+        with torch.no_grad():
+            xt = x.reshape(-1, x.shape[-1])
+            probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+            _, expert = moe.route(cfg, probs)
+            C = moe.capacity(cfg, xt.shape[0])
+            _, keep, counts = moe.dispatch_positions(expert,
+                                                     cfg.num_experts, C)
+        stats.append({"aux": aux.item(), "capacity": C,
+                      "dropped_share": 1 - keep.float().mean().item(),
+                      "loads": counts.tolist()})
+        return y, aux
+
+    @contextlib.contextmanager
+    def first_pass():
+        transformer.moe_ffn, orig = spy, transformer.moe_ffn
+        try:
+            yield
+        finally:
+            transformer.moe_ffn = orig
+
+    res = determinism_check(configs, Model, "mixtral-8x7b", first_pass)
+    check(len(stats) == 1 and math.isfinite(stats[0]["aux"])
+          and stats[0]["capacity"] == 640, f"moe width check: {stats}")
+    st = stats[0]
+    print(f"moe width check: mixtral-8x7b width, 1 layer: aux "
+          f"{st['aux']:.6g}, capacity {st['capacity']}, dropped share "
+          f"{st['dropped_share']:.6f}, expert loads {st['loads']}",
+          flush=True)
+    return dict(res, layers=stats)
 
 
 def attention_timing(attention):
@@ -1420,15 +1539,14 @@ def attention_timing(attention):
     return out
 
 
-def grad_profile(configs, Model):
-    """One worker's forward and backward in phase H's model (qwen3-0.6b
-    whole, 2 x 1024 tokens): host-clock ms, and under ``torch.profiler``
-    the device's busy time (kernel time summed), its idle share of the
+def grad_profile(Model, cfg, label):
+    """One worker's forward and backward in a phase's model (``cfg``, 2 x
+    1024 tokens): host-clock ms, and under ``torch.profiler`` the
+    device's busy time (kernel time summed), its idle share of the
     host-clock time, the launches, and the ops that take the most device
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    cfg = configs.get_config("qwen3-0.6b")
     model = Model(cfg, device="cuda", seed=0)
     g = torch.Generator(device="cuda").manual_seed(17)
     ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
@@ -1455,14 +1573,14 @@ def grad_profile(configs, Model):
                  key=lambda e: -e.self_device_time_total)
     top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in top[:8]]
     if not kernels:   # the profiler saw no device activity
-        print(f"grad profile (phase H's model, one worker, 2 x 1024): "
+        print(f"grad profile ({label}, one worker, 2 x 1024): "
               f"{host_ms:.1f} ms host clock; device time not measured "
               "(the profiler recorded no kernel)", flush=True)
         return {"host_ms": host_ms}
     res = {"host_ms": host_ms, "busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / host_ms, "launches": len(kernels),
            "top": top}
-    print(f"grad profile (phase H's model, one worker, 2 x 1024): "
+    print(f"grad profile ({label}, one worker, 2 x 1024): "
           f"{host_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms "
           f"(idle {res['idle_share']:.0%}), {len(kernels)} kernels; most "
           "device time: " + "; ".join(f"{k} {t:.1f} ms x{c}"
@@ -1548,12 +1666,14 @@ def main() -> None:
         from repro_torch.sim import topology
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
-    if sys.argv[1:] == ["--grad-twice"]:
+    if sys.argv[1:2] == ["--grad-twice"]:
         # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
         torch.use_deterministic_algorithms(True)
-        same, diff, ms = grad_twice(configs, Model)
-        check(same, f"two backward passes differ by {diff}")
-        print(f"bit-equal, no op refused (second pass {ms:.1f} ms)")
+        same, diff, ms, _ = grad_twice(configs, Model, sys.argv[2])
+        check(same, f"two backward passes differ by {diff} or are not "
+              "finite")
+        print(f"finite and bit-equal, no op refused (second pass "
+              f"{ms:.1f} ms)")
         return
 
     smi = subprocess.run(
@@ -1581,7 +1701,8 @@ def main() -> None:
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
                                     QuantScheme, SparseCodec, resample_levels)
     sim_shapes(ops, ref, lv, cuda, shapes)
-    phase_h_shapes(ops, ref, lv, shapes)
+    phase_shapes(ops, ref, lv, shapes, "H", NB_H)
+    phase_shapes(ops, ref, lv, shapes, "I", NB_I)
     sync_check(sync, compress, QuantScheme, make_codec)
     entropy_words_check(ops, QuantScheme, make_codec)
     table_check(QuantScheme, make_codec, from_int32_bits)
@@ -1590,7 +1711,10 @@ def main() -> None:
     sim_check(topology, compress, QuantScheme, make_codec)
     api_check(core, ref, lv, cuda)
     dense_config_check(train, configs, Model, cuda)
-    determinism_check(configs, Model)
+    moe_rwkv_config_check(train, configs, Model, cuda)
+    determinism_check(configs, Model, "llama3.2-1b")
+    moe_width = moe_width_check(configs, Model)
+    rwkv_twice = determinism_check(configs, Model, "rwkv6-7b")
 
     # ---- phase A ----
     cuda.reset_launches()
@@ -1772,19 +1896,49 @@ def main() -> None:
         flush=True)
     del res
 
+    # ---- phase I: rwkv6-7b at full width, 2 of 32 layers ----
+    res, counts_i, layouts_i, peak = run_phase(
+        train, "I", ["--arch", "rwkv6-7b", "--layers", "2", "--workers",
+                     str(M_B), "--batch", str(2 * M_B), "--seq", "1024",
+                     "--data", "uniform", "--scheme", "alq", "--bits", "3",
+                     "--bucket", str(BS_B), "--optim", "adamw", "--lr",
+                     "1e-4", "--update-at", "1", "--time-stages", "--steps",
+                     "3"], cuda.KERNELS, cuda, d=D_I)
+    check(res["config"].d_model == 4096 and res["config"].num_layers == 2,
+          "phase I is not rwkv6-7b at full width and 2 layers")
+    check(all(layouts_i.get(f"{k}/regs", 0) == counts_i[k]
+              for k in ("quantize", "bucket_stats")),
+          f"phase I bucket layouts {layouts_i}")
+    print(f"phase I: d={res['d']} ({NB_I} buckets of {BS_B}), 2 layers, "
+          f"peak memory {peak / 2**30:.2f} GiB, launches {counts_i}, "
+          f"layouts {layouts_i}", flush=True)
+    print(json.dumps({"phase_i": {
+        "card": smi, "d": res["d"], "peak_bytes": peak, "launches": counts_i,
+        "layouts": layouts_i, "moe_width": moe_width,
+        "rwkv_twice": rwkv_twice,
+        "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
+                   "loss": h["loss"]} for h in res["history"]]}}),
+        flush=True)
+    cfg_i = res["config"]
+    del res
+
     scenario_check(sim_main, cuda)
     resume_check(train)
     micro_check(train)
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
-                      "grad_profile": grad_profile(configs, Model),
+                      "grad_profile": grad_profile(
+                          Model, configs.get_config("qwen3-0.6b"),
+                          "phase H's model"),
+                      "grad_profile_i": grad_profile(
+                          Model, cfg_i, "phase I's model"),
                       "card": smi}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
             counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
-            counts_h))
+            counts_h, counts_i))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -2,16 +2,22 @@
 from . import (
     granite_3_2b,
     llama3_2_1b,
+    llama4_scout_17b_a16e,
+    mixtral_8x7b,
     musicgen_large,
     paper_mlp,
     qwen1_5_32b,
     qwen3_0_6b,
+    rwkv6_7b,
 )
 
 _MODULES = {
+    "rwkv6-7b": rwkv6_7b,
     "qwen1.5-32b": qwen1_5_32b,
     "qwen3-0.6b": qwen3_0_6b,
     "musicgen-large": musicgen_large,
+    "mixtral-8x7b": mixtral_8x7b,
+    "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "granite-3-2b": granite_3_2b,
     "llama3.2-1b": llama3_2_1b,
     "paper-proxy": paper_mlp,

@@ -1,1 +1,2 @@
-"""Decoder models of the port (the dense family)."""
+"""Decoder models of the port: the dense family, mixture-of-experts and
+RWKV6."""

@@ -1,4 +1,4 @@
-"""The dense decoder stack, with its parameters in one flat buffer.
+"""The decoder stack, with its parameters in one flat buffer.
 
 Every parameter is a view into ``Model.flat``, a float32 vector laid out
 exactly as the reference's ``ravel_pytree(params)`` flattens its
@@ -23,42 +23,52 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import attn_forward
-from .config import ModelConfig
+from .config import RWKV, ModelConfig
 from .layers import lm_head_loss, rms_norm, swiglu
+from .moe import moe_ffn
+from .rwkv import rwkv_forward, rwkv_specs
 
 # init codes: -1 ones (norm weights), 0 zeros (biases), > 0 normal *
 # in_dim ** -0.5
 _ONES = -1
 _ZEROS = 0
 
-# the attention leaves that a layer's attention reads, besides the norms
-# and the SwiGLU weights
-_MIXER = ("bk", "bq", "bv", "k_norm", "q_norm", "wk", "wo", "wq", "wv")
-
-
-def _slot_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int]]:
-    """leaf path within a slot -> (per-layer shape, init code), for the
-    reference's ``slot_param_specs`` of an attention slot."""
+def _slot_specs(cfg: ModelConfig, slot: int
+                ) -> dict[str, tuple[tuple, int]]:
+    """leaf path within layer slot ``slot`` -> (per-layer shape, init
+    code), the reference's ``slot_param_specs``: the norms, the mixer
+    (attention or RWKV6 time-mix) and the FFN (SwiGLU or MoE)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
-    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    specs = {
-        "ffn.w1": ((d, ff), d),
-        "ffn.w2": ((ff, d), ff),
-        "ffn.w3": ((d, ff), d),
-        "mixer.wk": ((d, nkv), d),
-        "mixer.wo": ((nq, d), nq),
-        "mixer.wq": ((d, nq), d),
-        "mixer.wv": ((d, nkv), d),
-        "norm1": ((d,), _ONES),
-        "norm2": ((d,), _ONES),
-    }
-    if cfg.qkv_bias:
-        specs.update({"mixer.bq": ((nq,), _ZEROS),
-                      "mixer.bk": ((nkv,), _ZEROS),
-                      "mixer.bv": ((nkv,), _ZEROS)})
-    if cfg.qk_norm:
-        specs.update({"mixer.q_norm": ((hd,), _ONES),
-                      "mixer.k_norm": ((hd,), _ONES)})
+    specs = {"norm1": ((d,), _ONES), "norm2": ((d,), _ONES)}
+    if cfg.slot_kind(slot) == RWKV:
+        specs.update({f"mixer.{k}": v for k, v in rwkv_specs(cfg).items()})
+    else:
+        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        specs.update({"mixer.wk": ((d, nkv), d),
+                      "mixer.wo": ((nq, d), nq),
+                      "mixer.wq": ((d, nq), d),
+                      "mixer.wv": ((d, nkv), d)})
+        if cfg.qkv_bias:
+            specs.update({"mixer.bq": ((nq,), _ZEROS),
+                          "mixer.bk": ((nkv,), _ZEROS),
+                          "mixer.bv": ((nkv,), _ZEROS)})
+        if cfg.qk_norm:
+            specs.update({"mixer.q_norm": ((hd,), _ONES),
+                          "mixer.k_norm": ((hd,), _ONES)})
+    if cfg.slot_is_moe(slot):
+        E = cfg.num_experts
+        specs.update({"ffn.router": ((d, E), d),
+                      "ffn.w1": ((E, d, ff), d),
+                      "ffn.w2": ((E, ff, d), ff),
+                      "ffn.w3": ((E, d, ff), d)})
+        if cfg.shared_expert:
+            specs.update({"ffn.sw1": ((d, ff), d),
+                          "ffn.sw2": ((ff, d), ff),
+                          "ffn.sw3": ((d, ff), d)})
+    else:
+        specs.update({"ffn.w1": ((d, ff), d),
+                      "ffn.w2": ((ff, d), ff),
+                      "ffn.w3": ((d, ff), d)})
     return specs
 
 
@@ -70,8 +80,8 @@ def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
     d, V, G = cfg.d_model, cfg.vocab_size, cfg.num_groups
     layout = [("embed", (1, V, d), d), ("final_norm", (d,), _ONES),
               ("lm_head", (1, d, V), d)]
-    specs = _slot_specs(cfg)
     for slot in range(cfg.group_size):
+        specs = _slot_specs(cfg, slot)
         for path in sorted(specs):   # the order of sorted nested keys
             shape, code = specs[path]
             layout.append((f"slots.{slot}.{path}", (G, 1, *shape), code))
@@ -79,30 +89,48 @@ def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SwiGLU block; ``leaves`` maps the short leaf
-    names (``w1``, ``wq``, ``norm1``, ...) to views into the flat buffer,
-    and ``attn_kind`` is its slot's attention kind."""
+    """Pre-norm block of one layer slot: a mixer (attention of the slot's
+    ``attn_kind``, or the RWKV6 time-mix) and an FFN (SwiGLU, or MoE).
+    ``leaves`` maps the slot's leaf paths (``norm1``, ``mixer.wq``,
+    ``ffn.w1``, ...) to views into the flat buffer."""
 
     def __init__(self, cfg: ModelConfig, leaves: dict[str, torch.Tensor],
-                 attn_kind: str):
+                 slot: int):
         super().__init__()
         self.cfg = cfg
-        self.attn_kind = attn_kind
-        for name, view in leaves.items():
-            self.register_parameter(name, nn.Parameter(view))
+        self.kind = cfg.slot_kind(slot)
+        self.attn_kind = cfg.slot_attn_kind(slot)
+        self.is_moe = cfg.slot_is_moe(slot)
+        self.norm1 = nn.Parameter(leaves["norm1"])
+        self.norm2 = nn.Parameter(leaves["norm2"])
+        self.mixer = nn.ParameterDict()
+        self.ffn = nn.ParameterDict()
+        for path, view in leaves.items():
+            group, _, name = path.partition(".")
+            if name:
+                getattr(self, group)[name] = nn.Parameter(view)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, S, d) -> (x, the MoE aux loss or 0)."""
         cfg, cd = self.cfg, x.dtype
-        mixer = {k: getattr(self, k).to(cd) for k in _MIXER
-                 if hasattr(self, k)}
+        mixer = {k: v.to(cd) for k, v in self.mixer.items()}
         h = rms_norm(x, self.norm1.to(cd), cfg.norm_eps)
-        x = x + attn_forward(cfg, mixer, h, self.attn_kind)
+        if self.kind == RWKV:
+            mix = rwkv_forward(cfg, mixer, h)
+        else:
+            mix = attn_forward(cfg, mixer, h, self.attn_kind)
+        x = x + mix.to(cd)
+        ffn = {k: v.to(cd) for k, v in self.ffn.items()}
         h = rms_norm(x, self.norm2.to(cd), cfg.norm_eps)
-        return x + swiglu(h, self.w1.to(cd), self.w3.to(cd), self.w2.to(cd))
+        if self.is_moe:
+            y, aux = moe_ffn(cfg, ffn, h)
+        else:
+            y, aux = swiglu(h, ffn["w1"], ffn["w3"], ffn["w2"]), 0.0
+        return x + y, aux
 
 
 class Model(nn.Module):
-    """Dense decoder whose parameters live in one flat float32 buffer.
+    """Decoder whose parameters live in one flat float32 buffer.
 
     ``seed`` draws the weights with a ``torch.Generator`` on ``device``
     (normal * in_dim ** -0.5, norm weights 1); ``load_flat`` replaces
@@ -139,11 +167,10 @@ class Model(nn.Module):
         for g in range(cfg.num_groups):
             for slot in range(cfg.group_size):
                 pre = f"slots.{slot}."
-                leaves = {name.rsplit(".", 1)[1]: view[g, 0]
+                leaves = {name[len(pre):]: view[g, 0]
                           for name, view in lv.items()
                           if name.startswith(pre)}
-                layers.append(DecoderLayer(cfg, leaves,
-                                           cfg.slot_attn_kind(slot)))
+                layers.append(DecoderLayer(cfg, leaves, slot))
         self.layers = nn.ModuleList(layers)
 
     def load_flat(self, flat: torch.Tensor) -> None:
@@ -162,10 +189,14 @@ class Model(nn.Module):
             p.grad = grad_flat[off:off + p.numel()].view(p.shape)
 
     def loss(self, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """Mean next-token cross-entropy of a (B, S) batch."""
+        """Mean next-token cross-entropy of a (B, S) batch, plus the MoE
+        layers' aux losses summed in layer order over ``num_layers``."""
         cd = self.compute_dtype
         x = F.embedding(ids, self.embed.to(cd))
+        aux = 0.0
         for layer in self.layers:
-            x = layer(x)
+            x, a = layer(x)
+            aux = aux + a
         x = rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps)
-        return lm_head_loss(self.lm_head.to(cd), x, labels)
+        ce = lm_head_loss(self.lm_head.to(cd), x, labels)
+        return ce + aux / max(self.cfg.num_layers, 1)

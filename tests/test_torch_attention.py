@@ -21,6 +21,9 @@ import torch
 from repro.models import attention as jattn
 from repro_torch.models import attention
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 # (S, q_block, kv_block, window): several q and kv blocks, q blocks
 # wider and narrower than kv blocks, a window across block edges, the
 # MAX_Q_BLOCKS floor (q_block 1 at S=64 -> 2), a q block grown to divide

@@ -23,6 +23,9 @@ from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.train.optim import OptimConfig
 from repro_torch.train.train_step import TrainConfig, Trainer
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 def _arrays():
     g = torch.Generator().manual_seed(0)

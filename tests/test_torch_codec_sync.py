@@ -23,6 +23,9 @@ from repro_torch.core.packing import unpack_norms
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 def _grads(M, d, seed=0):
     rng = np.random.default_rng(seed)

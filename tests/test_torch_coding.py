@@ -23,6 +23,9 @@ from repro.core.stats import TruncNormStats as JStats
 from repro_torch.core import coding
 from repro_torch.core.stats import TruncNormStats
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 def _probs(n, seed, ties=False):
     rng = np.random.default_rng(seed)

@@ -33,6 +33,9 @@ from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 from repro_torch.train.train_step import TrainConfig, _make_algo
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(3)
 M, D = 4, 5000
 

@@ -22,6 +22,9 @@ import repro.core as J
 import repro_torch.core as T
 from repro_torch.kernels import cuda, ref
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 BS = 256
 
 

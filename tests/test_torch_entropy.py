@@ -41,6 +41,9 @@ from repro_torch.core import codec, packing
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(11)
 
 

@@ -33,6 +33,9 @@ from repro_torch.dist.faults import FaultModel, FaultyTransport, faulty
 from repro_torch.dist.transport import (
     MaskedTransport, StackedTransport, make_transport)
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(7)
 M, D, BS = 4, 6144, 256
 KW = dict(name="alq", bits=3, bucket_size=BS)

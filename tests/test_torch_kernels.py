@@ -29,6 +29,9 @@ from repro_torch.kernels import cuda as kcuda
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 SHAPES = [(8, 256), (16, 512), (8, 1024), (32, 128), (24, 256)]
 LEVELS = {
     "uniform3": lambda: uniform_levels(3),

@@ -10,8 +10,12 @@ import re
 import stat
 
 import pytest
+import torch
 
 from repro_torch.kernels import cuda
+
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
 
 ALIGNED = (0x7F0000000000, 0x7F0000100000, 0x7F0000200000)
 BUCKET_CUH = (cuda.CSRC / "bucket.cuh").read_text()

@@ -27,6 +27,9 @@ from repro_torch.core import levels
 from repro_torch.core.schemes import QuantScheme, default_update_schedule
 from repro_torch.dist import sync
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("bits", range(1, 9))
 def test_level_grids_match_bit_for_bit(bits):

@@ -34,6 +34,9 @@ from repro_torch.core.packing import unpack_norms
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist import sync
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(13)
 
 

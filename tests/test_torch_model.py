@@ -1,7 +1,7 @@
-"""The port's dense decoder against the reference's ``Model``, for every
+"""The port's decoder against the reference's ``Model``, for every
 registered arch (qk-norm, qkv bias, a head_dim other than d_model /
-heads, the audio decoder) and the sliding, chunked and FULL-every-k
-attention variants.
+heads, the audio decoder, mixture-of-experts with its aux loss, RWKV6)
+and the sliding, chunked and FULL-every-k attention variants.
 
 Both sides get the same weights, made with numpy from a seed in the
 reference's ``Model.init`` layout (biases at unit scale, so that they
@@ -27,6 +27,9 @@ from repro.models import Model as JModel
 from repro_torch import configs
 from repro_torch.models.transformer import Model
 from repro_torch.weights import from_jax_params
+
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
 
 # (arch, smoke, fields replaced on both sides): every registered arch,
 # and the attention variants on one SMOKE config: a sliding window below
@@ -74,14 +77,18 @@ def _pair(arch, smoke, variant):
         cfg = dataclasses.replace(cfg, **VARIANTS[variant])
     for f in dataclasses.fields(cfg):
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-    assert jcfg.param_dtype == "float32" and not jcfg.moe
+    assert jcfg.param_dtype == "float32"
     assert jcfg.group_size == cfg.group_size
     return jcfg, cfg
 
 
 def _random_params(jcfg, seed=0):
     """Weights from numpy in the reference's ``Model.init`` layout: matrices
-    at 1/sqrt(fan-in), the embedding at unit scale, norm gains near 1."""
+    at 1/sqrt(fan-in), the embedding at unit scale, norm gains near 1.
+    RWKV6's time-mix as a trained one has it: token-shift mixes in [0, 1],
+    w0 in [-4, -0.5] and a LoRA within about +-0.5, so that its log decays
+    stay within -0.01 to -1 a token (larger ones overflow the reference's
+    masked ``exp`` in both packages; ``test_torch_rwkv.py``)."""
     shapes = jax.eval_shape(JModel(jcfg, tp=1, dp=1).init,
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -89,8 +96,14 @@ def _random_params(jcfg, seed=0):
     def leaf(path, x):
         z = rng.standard_normal(x.shape).astype(np.float32)
         name = jax.tree_util.keystr(path)
-        if "norm" in name:
+        if "norm" in name or "ln_x" in name:
             return 1.0 + 0.1 * z
+        if "mu_" in name:
+            return rng.uniform(0, 1, x.shape).astype(np.float32)
+        if "'w0'" in name:
+            return rng.uniform(-4, -0.5, x.shape).astype(np.float32)
+        if "w_lora_b" in name:
+            return 0.2 * z / np.sqrt(x.shape[-2])
         return z if "embed" in name else z / np.sqrt(x.shape[-2])
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)

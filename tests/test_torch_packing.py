@@ -12,6 +12,9 @@ import torch
 from repro.core import packing as jpack
 from repro_torch.core import packing as tpack
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 def _words(w):
     return np.asarray(w).view(np.int32)

@@ -19,6 +19,9 @@ from repro.core import codec as jcodec
 from repro.core.schemes import QuantScheme as JScheme
 from repro_torch.core import codec
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 
 def _grid(L, seed):
     g = np.sort(np.random.default_rng(seed).random(L).astype(np.float32))

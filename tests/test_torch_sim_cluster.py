@@ -17,6 +17,9 @@ from repro_torch.dist.faults import FaultModel, FaultyTransport, faulty
 from repro_torch.dist.transport import StackedTransport
 from repro_torch.sim import cluster
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 CONFIGS = [
     dict(),
     dict(num_workers=8, compute_jitter=0.3, straggler_prob=0.25,

@@ -60,6 +60,9 @@ from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.weights import from_jax_params
 from test_torch_sim_topology import _port_uniforms
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 SEED = 0
 M = 4
 

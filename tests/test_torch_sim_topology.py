@@ -54,6 +54,9 @@ from repro_torch.core import codec
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.sim import topology
 
+# one thread: xdist workers that each take every core starve one another
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(7)
 
 
