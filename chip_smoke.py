@@ -51,14 +51,21 @@ Phases, each of which must pass:
      moe/rwkv config check: the mixtral, llama4-scout and rwkv6 SMOKE
      configs the same way (losses within 1e-6, gradients within 1e-5 of
      their largest entry), then 4 steps of each through ``--smoke``;
+     hybrid/vlm config check: the jamba and llama-vision SMOKE configs
+     with trained-like weights (open conv and gate), the same way
+     (gradients within 5e-5 and 1e-5 of their largest entry), each also
+     against float64 and against a bfloat16 control that must read
+     outside the band, then 4 steps of each through ``--smoke``; vision
+     step check: one 4-worker train step of llama-vision-smoke with image
+     embeddings, card against CPU;
      determinism checks: llama3.2-1b, mixtral-8x7b (8 experts of d_ff
      14336, top-2, capacity 640, bf16) and rwkv6-7b (trained-like
      decays), each at full width, one layer, 2 x 1024 tokens: two
      backward passes give finite, bit-equal gradients, as the entry
      points run them and in a subprocess under deterministic algorithms
-     (``--grad-twice ARCH``), with the time and added peak memory of a
-     pass; mixtral's first pass also reports its finite aux loss, the
-     dropped share and the expert loads;
+     (``--grad-twice CASE``, an arch or ``mamba-slot``), with the time
+     and added peak memory of a pass; mixtral's first pass also reports
+     its finite aux loss, the dropped share and the expert loads;
   6. phase A: paper-proxy, markov data, 4 workers, ALQ 3-bit, buckets of
      1024, level updates at steps 2 and 10, 16 steps through the
      training entry point: the loss falls, the levels move after step 2
@@ -117,6 +124,12 @@ Phases, each of which must pass:
      equal the straight run's;
  15. micro-batches: paper-proxy, 4 workers, ``--micro 2`` against
      ``--micro 1``, 4 steps: the losses agree at rtol 1e-4;
+ 15b. phase J and the Mamba width check: the determinism check of
+     llama-3.2-vision-11b at full width, one group of 5 layers (d =
+     2,183,184,385), 2 x 1024 tokens and 2 x 1601 image embeddings, and
+     of jamba-1.5-large's slot 0 alone (``mamba-slot``: the Mamba mixer
+     and the dense FFN, 1,024,327,680 bf16 parameters) on 2 x 1024
+     hidden states, each with a ``torch.profiler`` split;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -151,6 +164,8 @@ K_D = 1927                    # phase D's top-k: the equal wire budget
 D_H, NB_H = 751_632_384, 91_752  # phase H: qwen3-0.6b whole, buckets of d
 NEW_ARCHS = ("granite-3-2b", "qwen3-0.6b", "qwen1.5-32b", "musicgen-large")
 MOE_RWKV_ARCHS = ("mixtral-8x7b", "llama4-scout-17b-a16e", "rwkv6-7b")
+JAMBA, VLM = "jamba-1.5-large-398b", "llama-3.2-vision-11b"
+MAMBA_SLOT = "mamba-slot"     # grad_twice's case of jamba's slot 0 alone
 D_I, NB_I = 1_058_099_200, 129_163  # phase I: rwkv6-7b, 2 layers
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
@@ -1290,46 +1305,103 @@ def api_check(core, ref, lv, cuda):
           flush=True)
 
 
+@contextlib.contextmanager
+def float64_everywhere():
+    """The port's float32 casts and default dtype as float64, for an
+    evaluation of the same formulas in float64."""
+    import torch
+    from unittest import mock
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with mock.patch.object(torch.Tensor, "float", torch.Tensor.double):
+            yield
+    finally:
+        torch.set_default_dtype(default)
+
+
 def config_check(train, configs, Model, cuda, label, cases, archs,
-                 loss_rtol, grad_rtol):
+                 loss_rtol, grad_rtol, prepare=False):
     """Each (name, config) of ``cases``: one forward and backward pass of
     2 x 1024 tokens on the card and on the CPU with the same weights
-    (losses within ``loss_rtol``, flat gradients within ``grad_rtol`` of
-    their largest entry); then 4 quantized steps of each of ``archs``'s
-    SMOKE configs through the launcher's ``--smoke`` on the card."""
+    (with ``prepare``, drawn by ``trained_like``; both gradients are also
+    measured against a float64 evaluation of the same formulas on the
+    card, and a control computed in bfloat16 on the card must read above
+    ``grad_rtol``, so that the band tells a lower precision apart) and,
+    for a VLM, the same image embeddings (losses within ``loss_rtol``,
+    flat gradients within ``grad_rtol`` of their largest entry); then 4
+    quantized steps of each of ``archs``'s SMOKE configs
+    through the launcher's ``--smoke`` on the card.  Returns each
+    ``--smoke`` run's launches."""
+    import dataclasses
     import numpy as np
     import torch
     toks = np.random.default_rng(14).integers(0, 509, (2, 1025))
     for name, cfg in cases:
         ids = torch.from_numpy(toks % cfg.vocab_size)
         on_cpu = Model(cfg, device="cpu", seed=0)
+        gen = torch.Generator().manual_seed(14)
+        if prepare:
+            trained_like(on_cpu, gen)
+        vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model,
+                              generator=gen)
+                  if cfg.cross_attn_every else None)
         on_card = Model(cfg, device="cuda", seed=0)
         on_card.load_flat(on_cpu.flat.cuda())
+        models = [on_cpu, on_card]
+        if prepare:
+            exact = Model(dataclasses.replace(
+                cfg, param_dtype="float64", compute_dtype="float64"),
+                device="cuda", seed=0)
+            exact.load_flat(on_cpu.flat.double().cuda())
+            control = Model(dataclasses.replace(cfg, compute_dtype="bfloat16"),
+                            device="cuda", seed=0)
+            control.load_flat(on_cpu.flat.cuda())
+            models += [exact, control]
         res = []
-        for model in (on_cpu, on_card):
+        for model in models:
             grad = torch.zeros_like(model.flat)
             model.attach_grads(grad)
-            x = ids.to(model.flat.device)
-            loss = model.loss(x[:, :-1], x[:, 1:])
-            loss.backward()
+            dev = model.flat.device
+            x = ids.to(dev)
+            with (float64_everywhere() if model.flat.dtype == torch.float64
+                  else contextlib.nullcontext()):
+                loss = model.loss(
+                    x[:, :-1], x[:, 1:], None if vision is None
+                    else vision.to(dev, model.flat.dtype))
+                loss.backward()
             res.append((loss.item(), grad.cpu()))
-        (lc, gc), (lg, gg) = res
+        (lc, gc), (lg, gg) = res[:2]
         rel = abs(lg - lc) / abs(lc)
         gerr = float((gg - gc).abs().max() / gc.abs().max())
         check(rel <= loss_rtol, f"{label} check {name}: loss card {lg} CPU "
               f"{lc}")
         check(gerr <= grad_rtol, f"{label} check {name}: gradient off by "
               f"{gerr} of its largest entry")
+        f64 = ""
+        if prepare:
+            g64 = res[2][1]
+            off = [float((g.double() - g64).abs().max() / g64.abs().max())
+                   for g in (gc, gg)]
+            ctrl = float((res[3][1] - gc).abs().max() / gc.abs().max())
+            check(max(off) <= grad_rtol, f"{label} check {name}: float32 "
+                  f"gradients off float64 by {off}")
+            check(ctrl > grad_rtol, f"{label} check {name}: the bfloat16 "
+                  f"control reads {ctrl}, inside the band {grad_rtol}")
+            f64 = (f"; against float64 on the card: CPU {off[0]:.2g}, card "
+                   f"{off[1]:.2g}; the bfloat16 control {ctrl:.2g}")
         print(f"{label} check {name}: loss card {lg:.6f} CPU {lc:.6f} (rel "
-              f"{rel:.2g}), gradient within {gerr:.2g} of its largest entry",
-              flush=True)
+              f"{rel:.2g}), gradient within {gerr:.2g} of its largest entry"
+              f"{f64}", flush=True)
+        del models, on_cpu, on_card, res
+    launches = {}
     for arch in archs:
         cuda.reset_launches()
         res = train.run(train.parse_args([
             "--arch", arch, "--smoke", "--workers", str(M_B), "--batch", "8",
             "--seq", "128", "--steps", "4", "--update-at", "1", "--bucket",
             "1024"]))
-        counts = dict(cuda.LAUNCHES)
+        counts = launches[arch] = dict(cuda.LAUNCHES)
         losses = [h["loss"] for h in res["history"]]
         check(all(math.isfinite(x) for x in losses),
               f"--smoke {arch}: losses {losses}")
@@ -1338,6 +1410,7 @@ def config_check(train, configs, Model, cuda, label, cases, archs,
         print(f"--smoke {arch}: {res['config'].name}, d={res['d']}, 4 steps, "
               f"losses {[round(x, 4) for x in losses]}, launches {counts}",
               flush=True)
+    return launches
 
 
 def dense_config_check(train, configs, Model, cuda):
@@ -1365,13 +1438,113 @@ def moe_rwkv_config_check(train, configs, Model, cuda):
                  MOE_RWKV_ARCHS, 1e-6, 1e-5)
 
 
-def trained_decays(model, gen) -> None:
-    """RWKV6's time-mix as a trained model has it: token-shift mixes in
-    [0, 1], w0 in [-4, -0.5] and the LoRA's B at a fifth of its scale, so
-    that the log decays stay within -0.01 to -1 a token.  The init's
-    (zero mixes and w0) let some channel of 2 x 1024 random tokens
-    overflow the reference's masked ``exp(diff)``, and the gradient then
-    holds NaN in both packages.  No other arch has these leaves."""
+def hybrid_vlm_config_check(train, configs, Model, cuda):
+    """The jamba and llama-vision SMOKE configs (float32: Mamba mixers,
+    attention every 8th layer and MoE every 2nd; cross-attention on the
+    5th layer over 16 image embeddings), with ``trained_like`` weights
+    (open conv and gate): losses within 1e-6, gradients within 1e-5 of
+    their largest entry for the VLM and 5e-5 for jamba, whose 8 layers'
+    float32 gradient is itself ~2e-5 of its largest entry off a float64
+    evaluation (printed: the card's and the CPU's, each against float64,
+    and a bfloat16 control's reading, far above either band);
+    then 4 steps of each through ``--smoke`` (which, as the reference's
+    launcher, passes no image embeddings).  Returns the ``--smoke`` runs'
+    launches."""
+    launches = {}
+    for arch, band in ((JAMBA, 5e-5), (VLM, 1e-5)):
+        launches.update(config_check(
+            train, configs, Model, cuda, "hybrid/vlm",
+            [(arch, configs.get_smoke_config(arch))], (arch,), 1e-6, band,
+            prepare=True))
+    return launches
+
+
+def vision_step_check(configs, Model, cuda):
+    """One train step of llama-vision-smoke with 4 workers and the
+    pipeline's image embeddings (8 x 128 tokens, 16 embeddings a
+    sequence, split over the workers as the ids are), on the card against
+    the CPU: the same ``trained_like`` weights (an open gate), batch,
+    embeddings and uniforms; ALQ 3-bit, buckets of 1024, a level update
+    at step 0, SGD at lr 0.5.  Loss within 1e-6, the workers' gradient
+    rows within 1e-5 of their largest entry, levels within 1e-4 (ALQ's
+    coordinate descent), and each parameter's move within lr x its
+    bucket's norm x (the levels' difference + 1e-5) at 99.5% of the
+    coordinates (the rest: a rounding tie, one level step off).  Returns
+    the card step's launches."""
+    import torch
+    from repro_torch.core.codec import codec_for_scheme
+    from repro_torch.core.schemes import QuantScheme
+    from repro_torch.train.data import DataConfig, Pipeline
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    cfg = configs.get_smoke_config(VLM)
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=1024)
+    pipe = Pipeline(DataConfig(kind="markov", vocab_size=cfg.vocab_size,
+                               seq_len=128, global_batch=8))
+    batch = dict(pipe.batch(0, "cpu"), vision=pipe.vision_stub(
+        cfg.num_image_tokens, cfg.d_model, 0, "cpu"))
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(19)
+    trained_like(on_cpu, gen)
+    p0 = on_cpu.flat.clone()
+    on_card = Model(cfg, device="cuda", seed=0)
+    on_card.load_flat(p0.cuda())
+    plan = codec_for_scheme(scheme).plan(on_cpu.d)
+    u = [torch.rand(plan.nb, plan.bucket_size, generator=gen)
+         for _ in range(M_B)]
+    out = {}
+    for dev, model in (("cpu", on_cpu), ("cuda", on_card)):
+        trainer = Trainer(model, TrainConfig(
+            scheme=scheme, optim=OptimConfig(name="sgdm", lr=0.5,
+                                             weight_decay=0.0),
+            update_milestones=(0,), update_every=0, workers=M_B))
+        cuda.reset_launches()
+        m = trainer.train_step({k: v.to(dev) for k, v in batch.items()},
+                               u=[x.to(dev) for x in u])
+        out[dev] = (m, trainer, dict(cuda.LAUNCHES))
+    (mc, tc, _), (mg, tg, counts) = out["cpu"], out["cuda"]
+    rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    gerr = float((tg.grads.cpu() - tc.grads).abs().max()
+                 / tc.grads.abs().max())
+    lv, lc = tg.scheme_state.levels.cpu(), tc.scheme_state.levels
+    dlev = float((lv - lc).abs().max())
+    g = torch.nn.functional.pad(tc.grads, (0, plan.n - on_cpu.d))
+    scale = (0.5 * torch.linalg.vector_norm(g.reshape(M_B, plan.nb, -1),
+                                            dim=2).amax(0)
+             ).repeat_interleave(plan.bucket_size)[:on_cpu.d]
+    diff = ((on_card.flat.cpu() - p0) - (on_cpu.flat - p0)).abs()
+    close = float((diff <= scale * (dlev + 1e-5)).float().mean())
+    tie = bool((diff <= scale * (float(lc.diff().max()) + dlev + 1e-5)).all())
+    cross = max(float(p.grad.abs().max())
+                for p in on_card.layers[4].cross.values())
+    check(rel <= 1e-6 and gerr <= 1e-5 and dlev <= 1e-4 and close >= 0.995
+          and tie and cross > 0,
+          f"vision step check: loss rel {rel}, gradient {gerr}, levels "
+          f"{dlev}, moves within bound at {close}, all within a level step "
+          f"{tie}, cross gradient {cross}")
+    check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS),
+          f"vision step check: launches {counts}")
+    print(f"vision step check: {cfg.name}, 4 workers x 2 x 128 tokens + 16 "
+          f"image embeddings, d={on_cpu.d}: loss card {mg['loss']:.6f} CPU "
+          f"{mc['loss']:.6f} (rel {rel:.2g}), gradient rows within "
+          f"{gerr:.2g} of their largest entry, levels within {dlev:.2g}, "
+          f"{close:.6f} of the moves within bound, cross-attention gradient "
+          f"max {cross:.3g}, launches {counts}", flush=True)
+    del out, tc, tg, on_cpu, on_card
+    return counts
+
+
+def trained_like(model, gen) -> None:
+    """The leaves whose init hides the math, as a trained model has them.
+    RWKV6's time-mix: token-shift mixes in [0, 1], w0 in [-4, -0.5] and
+    the LoRA's B at a fifth of its scale, so that the log decays stay
+    within -0.01 to -1 a token (the init's zero mixes and w0 let some
+    channel of 2 x 1024 random tokens overflow the reference's masked
+    ``exp(diff)``, and the gradient then holds NaN in both packages).
+    Mamba's conv weights and bias, zero at init (the mixer's output would
+    be exactly 0), normal at half scale; the VLM's cross gate, zero at
+    init (the block would be shut), in [0.5, 1].  Other archs have none
+    of these leaves, and their draws are unchanged."""
     import torch
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1382,34 +1555,89 @@ def trained_decays(model, gen) -> None:
                 p.uniform_(-4.0, -0.5, generator=gen)
             elif leaf == "w_lora_b":
                 p.mul_(0.2)
+            elif leaf in ("conv_w", "conv_b"):
+                p.copy_(torch.randn(p.shape, generator=gen,
+                                    device=p.device) * 0.5)
+            elif leaf == "gate":
+                p.uniform_(0.5, 1.0, generator=gen)
 
 
-def grad_twice(configs, Model, arch, first_pass=None):
-    """Two forward and backward passes of ``arch`` at full width, one
-    layer, 2 x 1024 tokens, on the same weights (``trained_decays``) and
-    tokens, the first inside ``first_pass()`` where one is given (a
-    context that may spy on the model).  Returns (both gradients finite
-    and bit-equal, with the losses; max abs difference; the second pass's
-    ms and added peak bytes)."""
+def mamba_slot(configs):
+    """jamba-1.5-large's layer slot 0 at full width: the Mamba mixer
+    (d_inner 16384, d_state 16, dt_rank 512, conv 4) and the dense SwiGLU
+    FFN (d_ff 24576), 1,024,327,680 parameters in a bfloat16 buffer of
+    its own (the config's param_dtype).  Returns (config, buffer, layer);
+    no train step of the model fits one card (ROADMAP section 1 item
+    10)."""
+    import torch
+    from repro_torch.models import transformer
+    cfg = configs.get_config(JAMBA)
+    flat, views = transformer.init_flat(transformer.slot_layout(cfg, 0),
+                                        getattr(torch, cfg.param_dtype),
+                                        "cuda", 0)
+    return cfg, flat, transformer.DecoderLayer(cfg, views, 0)
+
+
+def twice_case(configs, Model, case):
+    """(what it is, module, its flat parameters, a loss function) of
+    ``grad_twice``: for ``MAMBA_SLOT`` jamba's slot 0 on 2 x 1024
+    bfloat16 hidden states (the loss <y, dy> / n for a fixed random dy);
+    else the arch ``case`` at full width, one group of layers (one layer;
+    five for the VLM, whose fifth holds the cross-attention, fed 2 x 1601
+    image embeddings), 2 x 1024 tokens.  Weights by ``trained_like``; all
+    inputs from seed 15."""
     import dataclasses
     import torch
-    cfg = dataclasses.replace(configs.get_config(arch), num_layers=1)
-    model = Model(cfg, device="cuda", seed=0)
     g = torch.Generator(device="cuda").manual_seed(15)
-    trained_decays(model, g)
+    if case == MAMBA_SLOT:
+        cfg, flat, layer = mamba_slot(configs)
+        trained_like(layer, g)
+        x, dy = (torch.randn(2, 1024, cfg.d_model, generator=g,
+                             device="cuda") for _ in range(2))
+        x = x.to(torch.bfloat16)
+
+        def loss():
+            return (layer(x)[0].float() * dy).mean()
+
+        return (f"{JAMBA} slot 0 (Mamba + FFN, bf16), 2 x 1024 hidden "
+                "states", layer, flat, loss)
+    base = configs.get_config(case)
+    cfg = dataclasses.replace(base, num_layers=base.group_size)
+    model = Model(cfg, device="cuda", seed=0)
+    trained_like(model, g)
     ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
                         device="cuda")
+    vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model, generator=g,
+                          device="cuda") if cfg.cross_attn_every else None)
+
+    def loss():
+        return model.loss(ids[:, :-1], ids[:, 1:], vision)
+
+    return (f"{case} width, {cfg.num_layers} layer(s), 2 x 1024 tokens",
+            model, model.flat, loss)
+
+
+def grad_twice(configs, Model, case, first_pass=None, profile=""):
+    """Two forward and backward passes of ``twice_case(case)`` on the same
+    weights and inputs, the first inside ``first_pass()`` where one is
+    given (a context that may spy on the model); with ``profile``, a third
+    under ``profile_step``.  Returns (both gradients finite and bit-equal,
+    with the losses; max abs difference; the second pass's ms and added
+    peak bytes; the loss; the profile or None; what the case is)."""
+    import torch
+    from repro_torch.models.transformer import attach_grads
+    what, module, flat, loss_fn = twice_case(configs, Model, case)
     grads, losses = [], []
     for i in range(2):
-        grad = torch.zeros(model.d, device="cuda")
-        model.attach_grads(grad)
+        grad = torch.zeros_like(flat)
+        attach_grads(module, flat, grad)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with (first_pass() if first_pass and i == 0
               else contextlib.nullcontext()):
-            loss = model.loss(ids[:, :-1], ids[:, 1:])
+            loss = loss_fn()
         loss.backward()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
@@ -1419,31 +1647,42 @@ def grad_twice(configs, Model, arch, first_pass=None):
     same = (bool(torch.isfinite(grads[0]).all()) and math.isfinite(losses[0])
             and torch.equal(*grads) and losses[0] == losses[1])
     diff = float((grads[0] - grads[1]).abs().max())
-    del model, grads
+    del grads
+    prof = None
+    if profile:
+        attach_grads(module, flat, torch.zeros_like(flat))
+
+        def step():
+            loss_fn().backward()
+            torch.cuda.synchronize()
+
+        prof = profile_step(step, profile)
+    del module, flat, loss_fn
     torch.cuda.empty_cache()
-    return same, diff, ms, added
+    return same, diff, ms, added, losses[0], prof, what
 
 
-def determinism_check(configs, Model, arch, first_pass=None):
+def determinism_check(configs, Model, case, first_pass=None, profile=""):
     """``grad_twice`` as the entry points run it, and again in a
-    subprocess (``chip_smoke.py --grad-twice ARCH``) under
+    subprocess (``chip_smoke.py --grad-twice CASE``) under
     ``torch.use_deterministic_algorithms(True)``, which refuses any op on
     the path that has no deterministic implementation."""
-    same, diff, ms, added = grad_twice(configs, Model, arch, first_pass)
-    check(same, f"determinism check ({arch}): two backward passes differ "
+    same, diff, ms, added, loss, prof, what = grad_twice(
+        configs, Model, case, first_pass, profile)
+    check(same, f"determinism check ({case}): two backward passes differ "
           f"by {diff} or are not finite")
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     sub = subprocess.run([sys.executable, os.path.abspath(__file__),
-                          "--grad-twice", arch], env=env,
+                          "--grad-twice", case], env=env,
                          capture_output=True, text=True)
-    check(sub.returncode == 0, f"determinism check ({arch}) under "
+    check(sub.returncode == 0, f"determinism check ({case}) under "
           f"deterministic algorithms failed: {sub.stderr[-2000:]}")
-    print(f"determinism check: {arch} width, 1 layer, 2 x 1024 tokens: two "
-          f"backward passes finite and bit-equal (second {ms:.1f} ms, "
+    print(f"determinism check: {what}: loss {loss:.6g}; two backward "
+          f"passes finite and bit-equal (second {ms:.1f} ms, "
           f"+{added / 2**30:.2f} GiB); under deterministic algorithms: "
           f"{sub.stdout.strip()}", flush=True)
-    return {"ms": ms, "added_bytes": added,
-            "deterministic": sub.stdout.strip()}
+    return {"ms": ms, "added_bytes": added, "loss": loss,
+            "deterministic": sub.stdout.strip(), "profile": prof}
 
 
 def moe_width_check(configs, Model):
@@ -1539,25 +1778,14 @@ def attention_timing(attention):
     return out
 
 
-def grad_profile(Model, cfg, label):
-    """One worker's forward and backward in a phase's model (``cfg``, 2 x
-    1024 tokens): host-clock ms, and under ``torch.profiler`` the
+def profile_step(step, label):
+    """``step()`` (one forward and backward, synchronised) twice on the
+    host clock, then once under ``torch.profiler``: host-clock ms, the
     device's busy time (kernel time summed), its idle share of the
     host-clock time, the launches, and the ops that take the most device
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    model = Model(cfg, device="cuda", seed=0)
-    g = torch.Generator(device="cuda").manual_seed(17)
-    ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
-                        device="cuda")
-    grad = torch.zeros(model.d, device="cuda")
-    model.attach_grads(grad)
-
-    def step():
-        model.loss(ids[:, :-1], ids[:, 1:]).backward()
-        torch.cuda.synchronize()
-
     step()
     t0 = time.perf_counter()
     step()
@@ -1573,19 +1801,36 @@ def grad_profile(Model, cfg, label):
                  key=lambda e: -e.self_device_time_total)
     top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in top[:8]]
     if not kernels:   # the profiler saw no device activity
-        print(f"grad profile ({label}, one worker, 2 x 1024): "
-              f"{host_ms:.1f} ms host clock; device time not measured "
-              "(the profiler recorded no kernel)", flush=True)
+        print(f"grad profile ({label}): {host_ms:.1f} ms host clock; device "
+              "time not measured (the profiler recorded no kernel)",
+              flush=True)
         return {"host_ms": host_ms}
     res = {"host_ms": host_ms, "busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / host_ms, "launches": len(kernels),
            "top": top}
-    print(f"grad profile ({label}, one worker, 2 x 1024): "
-          f"{host_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms "
-          f"(idle {res['idle_share']:.0%}), {len(kernels)} kernels; most "
-          "device time: " + "; ".join(f"{k} {t:.1f} ms x{c}"
-                                      for k, t, c in top), flush=True)
-    del model, grad
+    print(f"grad profile ({label}): {host_ms:.1f} ms host clock, device busy "
+          f"{busy_ms:.1f} ms (idle {res['idle_share']:.0%}), {len(kernels)} "
+          "kernels; most device time: " + "; ".join(
+              f"{k} {t:.1f} ms x{c}" for k, t, c in top), flush=True)
+    return res
+
+
+def grad_profile(Model, cfg, label):
+    """``profile_step`` of one worker's forward and backward in a phase's
+    model (``cfg``, 2 x 1024 tokens)."""
+    import torch
+    model = Model(cfg, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g,
+                        device="cuda")
+    model.attach_grads(torch.zeros(model.d, device="cuda"))
+
+    def step():
+        model.loss(ids[:, :-1], ids[:, 1:]).backward()
+        torch.cuda.synchronize()
+
+    res = profile_step(step, f"{label}, one worker, 2 x 1024")
+    del model
     torch.cuda.empty_cache()
     return res
 
@@ -1669,7 +1914,7 @@ def main() -> None:
     if sys.argv[1:2] == ["--grad-twice"]:
         # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
         torch.use_deterministic_algorithms(True)
-        same, diff, ms, _ = grad_twice(configs, Model, sys.argv[2])
+        same, diff, ms, *_ = grad_twice(configs, Model, sys.argv[2])
         check(same, f"two backward passes differ by {diff} or are not "
               "finite")
         print(f"finite and bit-equal, no op refused (second pass "
@@ -1712,6 +1957,8 @@ def main() -> None:
     api_check(core, ref, lv, cuda)
     dense_config_check(train, configs, Model, cuda)
     moe_rwkv_config_check(train, configs, Model, cuda)
+    counts_smoke = hybrid_vlm_config_check(train, configs, Model, cuda)
+    counts_v = vision_step_check(configs, Model, cuda)
     determinism_check(configs, Model, "llama3.2-1b")
     moe_width = moe_width_check(configs, Model)
     rwkv_twice = determinism_check(configs, Model, "rwkv6-7b")
@@ -1925,6 +2172,16 @@ def main() -> None:
     scenario_check(sim_main, cuda)
     resume_check(train)
     micro_check(train)
+    # ---- phase J and the Mamba width check: one worker at full width ----
+    torch.cuda.empty_cache()
+    phase_j = determinism_check(
+        configs, Model, VLM, profile="phase J, llama-3.2-vision-11b, 5 "
+        "layers, 2 x 1024 tokens + 2 x 1601 image embeddings")
+    mamba_width = determinism_check(
+        configs, Model, MAMBA_SLOT, profile="Mamba width check, jamba slot 0, "
+        "2 x 1024 hidden states")
+    print(json.dumps({"phase_j": phase_j, "mamba_width": mamba_width,
+                      "card": smi}), flush=True)
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
                       "grad_profile": grad_profile(
@@ -1938,7 +2195,7 @@ def main() -> None:
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
             counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
-            counts_h, counts_i))
+            counts_h, counts_i, counts_v, *counts_smoke.values()))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

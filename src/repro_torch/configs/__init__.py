@@ -1,8 +1,10 @@
 """Architecture registry of the port: the configurations it can run."""
 from . import (
     granite_3_2b,
+    jamba_1_5_large_398b,
     llama3_2_1b,
     llama4_scout_17b_a16e,
+    llama_3_2_vision_11b,
     mixtral_8x7b,
     musicgen_large,
     paper_mlp,
@@ -14,7 +16,9 @@ from . import (
 _MODULES = {
     "rwkv6-7b": rwkv6_7b,
     "qwen1.5-32b": qwen1_5_32b,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
     "qwen3-0.6b": qwen3_0_6b,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
     "musicgen-large": musicgen_large,
     "mixtral-8x7b": mixtral_8x7b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,

@@ -1,5 +1,6 @@
 """Causal self-attention: GQA with RoPE, optional qk-norm and qkv bias;
-full, sliding-window and chunked variants.
+full, sliding-window and chunked variants; and the VLM's tanh-gated
+cross-attention to image embeddings.
 
 The reference computes attention outside any TPU kernel, as a
 flash-style loop in plain jnp (``_flash``), and so does the port: a
@@ -138,3 +139,25 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
         window = cfg.window if kind == SLIDING else 0
         out = _flash(q, k, v, causal=True, window=window, **blocks)
     return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                       x: torch.Tensor, vision: torch.Tensor
+                       ) -> torch.Tensor:
+    """Gated cross-attention: x (B, S, d) attends to ``vision`` (B, S_img,
+    d) image embeddings, without RoPE, qk-norm or a causal mask; returns
+    tanh(gate) * y.  ``p`` holds ``wq``, ``wk``, ``wv``, ``wo`` and
+    ``gate`` in x's dtype.  K and V are computed in the promoted dtype of
+    the embeddings and the weights, as the reference's jnp promotes a
+    float32 stub against bf16 weights; the attention returns q's dtype."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    kv_dtype = torch.promote_types(vision.dtype, x.dtype)
+    v_in = vision.to(kv_dtype)
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (v_in @ p["wk"].to(kv_dtype)).reshape(B, -1, KV, hd)
+    v = (v_in @ p["wv"].to(kv_dtype)).reshape(B, -1, KV, hd)
+    out = _flash(q, _expand_kv(k, H), _expand_kv(v, H), causal=False,
+                 window=0, q_block=512, kv_block=512)
+    y = out.reshape(B, S, H * hd) @ p["wo"]
+    return torch.tanh(p["gate"]) * y

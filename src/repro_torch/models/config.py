@@ -1,13 +1,15 @@
 """Model configuration.
 
-The fields are those of the reference package's ``ModelConfig`` that the
-port's families read: the dense decoder (GQA attention with RoPE: full,
-sliding-window or chunked, optionally FULL every k-th layer; optional
-qk-norm and qkv bias; SwiGLU and RMSNorm), the mixture-of-experts FFN
-(top-k routing with capacity, a shared expert, MoE every k-th layer) and
-the RWKV6 time-mix, with float32 parameters.  Layers repeat as
-``num_groups`` groups of ``group_size`` slots, in the reference's
-parameter layout.
+The fields are those of the reference package's ``ModelConfig``: the
+dense decoder (GQA attention with RoPE: full, sliding-window or chunked,
+optionally FULL every k-th layer; optional qk-norm and qkv bias; SwiGLU
+and RMSNorm), the mixture-of-experts FFN (top-k routing with capacity, a
+shared expert, MoE every k-th layer), the RWKV6 time-mix, Mamba's
+selective scan in the hybrid stack (an attention slot every
+``attn_every`` layers, Mamba in the others), the VLM's gated
+cross-attention every ``cross_attn_every`` layers, and the parameters'
+dtype.  Layers repeat as ``num_groups`` groups of ``group_size`` slots,
+in the reference's parameter layout.
 """
 from __future__ import annotations
 
@@ -16,22 +18,27 @@ import math
 
 # layer-slot kinds
 ATTN = "attn"
+MAMBA = "mamba"
 RWKV = "rwkv"
+
+# layer patterns
+MAMBA_HYBRID = "mamba_hybrid"
 
 # attention kinds
 FULL = "full"
 SLIDING = "sliding"
 CHUNKED = "chunked"
 
-# arch types the port builds: "audio" (musicgen) is a plain decoder over
-# codec tokens, as in the reference; "ssm" is RWKV6 (layer_pattern "rwkv")
-ARCH_TYPES = ("dense", "audio", "moe", "ssm")
+# the reference's arch types: "audio" (musicgen) is a plain decoder over
+# codec tokens; "ssm" is RWKV6 (layer_pattern "rwkv"); "hybrid" is Jamba
+# (layer_pattern "mamba_hybrid"); "vlm" a decoder with cross-attention
+ARCH_TYPES = ("dense", "audio", "moe", "ssm", "hybrid", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str            # dense | audio | moe | ssm
+    arch_type: str            # dense | audio | moe | ssm | hybrid | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -59,30 +66,31 @@ class ModelConfig:
     router_aux_coef: float = 0.01
 
     # recurrent mixers
-    layer_pattern: str = ATTN  # attn | rwkv (mamba_hybrid: not yet)
+    layer_pattern: str = ATTN  # attn | rwkv | mamba_hybrid
+    attn_every: int = 0        # hybrid: an attention slot every k-th layer
+    mamba_d_state: int = 16
+    mamba_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0     # 0 -> ceil(d_model / 16)
     rwkv_head_dim: int = 64
 
-    # vlm (not yet: a non-zero value is refused)
-    cross_attn_every: int = 0
+    # vlm
+    cross_attn_every: int = 0  # a cross-attention block every k-th layer
+    num_image_tokens: int = 1601
 
     norm_eps: float = 1e-5
     compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
     source: str = ""
 
     def __post_init__(self):
         if self.arch_type not in ARCH_TYPES:
-            raise NotImplementedError(
-                f"{self.name}: arch_type {self.arch_type!r} is not ported "
-                "yet (ROADMAP section 1: Mamba and the hybrid stack are "
-                "item 6, the VLM item 7)")
-        if self.layer_pattern not in (ATTN, RWKV):
-            raise NotImplementedError(
-                f"{self.name}: layer_pattern {self.layer_pattern!r} is not "
-                "ported yet (ROADMAP section 1 item 6)")
-        if self.cross_attn_every:
-            raise NotImplementedError(
-                f"{self.name}: cross-attention is not ported yet (ROADMAP "
-                "section 1 item 7)")
+            raise ValueError(f"{self.name}: arch_type {self.arch_type!r}")
+        if self.layer_pattern not in (ATTN, RWKV, MAMBA_HYBRID):
+            raise ValueError(
+                f"{self.name}: layer_pattern {self.layer_pattern!r}")
+        if self.layer_pattern == MAMBA_HYBRID and self.attn_every < 1:
+            raise ValueError(f"{self.name}: mamba_hybrid needs attn_every")
         if self.attn_kind not in (FULL, SLIDING, CHUNKED):
             raise ValueError(f"{self.name}: attn_kind {self.attn_kind!r}")
         if self.num_heads % self.num_kv_heads:
@@ -94,9 +102,17 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.num_heads
 
     @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
     def group_size(self) -> int:
         """Length of the repeating layer pattern."""
         g = 1
+        if self.attn_every:
+            g = math.lcm(g, self.attn_every)
+        if self.cross_attn_every:
+            g = math.lcm(g, self.cross_attn_every)
         if self.moe and self.moe_every > 1:
             g = math.lcm(g, self.moe_every)
         if self.full_attn_every:
@@ -112,8 +128,19 @@ class ModelConfig:
         return self.num_layers // self.group_size
 
     def slot_kind(self, slot: int) -> str:
-        """Mixer kind of layer slot ``slot`` within a group."""
-        return RWKV if self.layer_pattern == RWKV else ATTN
+        """Mixer kind of layer slot ``slot`` within a group: in the hybrid
+        stack, attention on every ``attn_every``-th slot, Mamba on the
+        others."""
+        if self.layer_pattern == RWKV:
+            return RWKV
+        if self.layer_pattern == MAMBA_HYBRID:
+            k = self.attn_every
+            return ATTN if slot % k == k - 1 else MAMBA
+        return ATTN
+
+    def slot_has_cross(self, slot: int) -> bool:
+        k = self.cross_attn_every
+        return bool(k) and slot % k == k - 1
 
     def slot_is_moe(self, slot: int) -> bool:
         if not self.moe:

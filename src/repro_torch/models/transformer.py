@@ -1,12 +1,14 @@
 """The decoder stack, with its parameters in one flat buffer.
 
-Every parameter is a view into ``Model.flat``, a float32 vector laid out
-exactly as the reference's ``ravel_pytree(params)`` flattens its
-parameter tree: dict keys sorted, ``slots`` a list of ``group_size``
-layer slots, and each slot's leaves stacked over the groups as
-``(num_groups, tp=1, ...)``, so all groups' ``w1`` of a slot come before
-their ``w2``.  Bucket membership, and with it every norm and code on the
-wire, depends on this order.
+Every parameter is a view into ``Model.flat``, a vector of the config's
+``param_dtype`` laid out exactly as the reference's
+``ravel_pytree(params)`` flattens its parameter tree: dict keys sorted
+(upper case before lower case, so Mamba's ``A_log`` and ``D`` come
+first, and ``cross`` before ``cross_norm``), ``slots`` a list of
+``group_size`` layer slots, and each slot's leaves stacked over the
+groups as ``(num_groups, tp=1, ...)``, so all groups' ``w1`` of a slot
+come before their ``w2``.  Bucket membership, and with it every norm and
+code on the wire, depends on this order.
 
 Because the parameters alias the buffer, the flat vector needs no copy:
 ``attach_grads(g)`` points every parameter's ``.grad`` at its slice of a
@@ -22,14 +24,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import attn_forward
-from .config import RWKV, ModelConfig
+from .attention import attn_forward, cross_attn_forward
+from .config import MAMBA, RWKV, ModelConfig
 from .layers import lm_head_loss, rms_norm, swiglu
+from .mamba import A_LOG_INIT, mamba_forward, mamba_specs
 from .moe import moe_ffn
 from .rwkv import rwkv_forward, rwkv_specs
 
-# init codes: -1 ones (norm weights), 0 zeros (biases), > 0 normal *
-# in_dim ** -0.5
+# init codes: -1 ones (norm weights), 0 zeros (biases and the cross gate),
+# A_LOG_INIT (-2) Mamba's log(1..d_state), > 0 normal * in_dim ** -0.5
 _ONES = -1
 _ZEROS = 0
 
@@ -37,13 +40,17 @@ def _slot_specs(cfg: ModelConfig, slot: int
                 ) -> dict[str, tuple[tuple, int]]:
     """leaf path within layer slot ``slot`` -> (per-layer shape, init
     code), the reference's ``slot_param_specs``: the norms, the mixer
-    (attention or RWKV6 time-mix) and the FFN (SwiGLU or MoE)."""
+    (attention, the RWKV6 time-mix or Mamba), the cross-attention block
+    on a VLM's cross slots, and the FFN (SwiGLU or MoE)."""
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     specs = {"norm1": ((d,), _ONES), "norm2": ((d,), _ONES)}
-    if cfg.slot_kind(slot) == RWKV:
+    kind = cfg.slot_kind(slot)
+    if kind == RWKV:
         specs.update({f"mixer.{k}": v for k, v in rwkv_specs(cfg).items()})
+    elif kind == MAMBA:
+        specs.update({f"mixer.{k}": v for k, v in mamba_specs(cfg).items()})
     else:
-        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
         specs.update({"mixer.wk": ((d, nkv), d),
                       "mixer.wo": ((nq, d), nq),
                       "mixer.wq": ((d, nq), d),
@@ -55,6 +62,13 @@ def _slot_specs(cfg: ModelConfig, slot: int
         if cfg.qk_norm:
             specs.update({"mixer.q_norm": ((hd,), _ONES),
                           "mixer.k_norm": ((hd,), _ONES)})
+    if cfg.slot_has_cross(slot):
+        specs.update({"cross_norm": ((d,), _ONES),
+                      "cross.gate": ((1,), _ZEROS),
+                      "cross.wk": ((d, nkv), d),
+                      "cross.wo": ((nq, d), nq),
+                      "cross.wq": ((d, nq), d),
+                      "cross.wv": ((d, nkv), d)})
     if cfg.slot_is_moe(slot):
         E = cfg.num_experts
         specs.update({"ffn.router": ((d, E), d),
@@ -72,6 +86,15 @@ def _slot_specs(cfg: ModelConfig, slot: int
     return specs
 
 
+def slot_layout(cfg: ModelConfig, slot: int
+                ) -> list[tuple[str, tuple, int]]:
+    """(leaf path, per-layer shape, init code) of layer slot ``slot``, in
+    the order of sorted nested keys (a block's leaves together)."""
+    specs = _slot_specs(cfg, slot)
+    return [(path, *specs[path])
+            for path in sorted(specs, key=lambda p: p.split("."))]
+
+
 def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
     """(name, shape, init code) of every leaf, in flat (ravel) order:
     ``embed``, ``final_norm``, ``lm_head``, then ``slots``, a list of
@@ -81,18 +104,58 @@ def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
     layout = [("embed", (1, V, d), d), ("final_norm", (d,), _ONES),
               ("lm_head", (1, d, V), d)]
     for slot in range(cfg.group_size):
-        specs = _slot_specs(cfg, slot)
-        for path in sorted(specs):   # the order of sorted nested keys
-            shape, code = specs[path]
-            layout.append((f"slots.{slot}.{path}", (G, 1, *shape), code))
+        layout += [(f"slots.{slot}.{path}", (G, 1, *shape), code)
+                   for path, shape, code in slot_layout(cfg, slot)]
     return layout
+
+
+def init_flat(layout, dtype: torch.dtype, device, seed: int
+              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """A flat buffer for ``layout`` ((name, shape, init code) triples)
+    and a view of it per name, drawn by init code with a
+    ``torch.Generator`` on ``device`` seeded ``seed``."""
+    flat = torch.empty(sum(math.prod(shape) for _, shape, _ in layout),
+                       dtype=dtype, device=device)
+    gen = torch.Generator(device=flat.device).manual_seed(seed)
+    views, off = {}, 0
+    for name, shape, code in layout:
+        n = math.prod(shape)
+        view = flat[off:off + n].view(shape)
+        if code == _ONES:
+            view.fill_(1.0)
+        elif code == A_LOG_INIT:
+            view.copy_(torch.log(torch.arange(
+                1, shape[-1] + 1, dtype=torch.float32, device=flat.device)))
+        elif code == _ZEROS:
+            view.zero_()
+        else:
+            view.normal_(generator=gen).mul_(code ** -0.5)
+        views[name] = view
+        off += n
+    return flat, views
+
+
+def attach_grads(module: nn.Module, flat: torch.Tensor,
+                 grad_flat: torch.Tensor) -> None:
+    """Point the ``.grad`` of each parameter of ``module``, a view of
+    ``flat``, at its slice of ``grad_flat`` (``flat``'s shape and
+    dtype)."""
+    if grad_flat.dtype != flat.dtype:
+        raise ValueError(f"gradient {grad_flat.dtype} for parameters "
+                         f"{flat.dtype}")
+    base, size = flat.data_ptr(), flat.element_size()
+    for p in module.parameters():
+        off = (p.data_ptr() - base) // size
+        p.grad = grad_flat[off:off + p.numel()].view(p.shape)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm block of one layer slot: a mixer (attention of the slot's
-    ``attn_kind``, or the RWKV6 time-mix) and an FFN (SwiGLU, or MoE).
-    ``leaves`` maps the slot's leaf paths (``norm1``, ``mixer.wq``,
-    ``ffn.w1``, ...) to views into the flat buffer."""
+    ``attn_kind``, the RWKV6 time-mix or Mamba), on a cross slot the
+    gated cross-attention to the image embeddings, and an FFN (SwiGLU,
+    or MoE).  ``leaves`` maps the slot's leaf paths (``norm1``,
+    ``mixer.wq``, ``cross.gate``, ``ffn.w1``, ...) to views into the flat
+    buffer."""
 
     def __init__(self, cfg: ModelConfig, leaves: dict[str, torch.Tensor],
                  slot: int):
@@ -101,25 +164,37 @@ class DecoderLayer(nn.Module):
         self.kind = cfg.slot_kind(slot)
         self.attn_kind = cfg.slot_attn_kind(slot)
         self.is_moe = cfg.slot_is_moe(slot)
+        self.has_cross = cfg.slot_has_cross(slot)
         self.norm1 = nn.Parameter(leaves["norm1"])
         self.norm2 = nn.Parameter(leaves["norm2"])
+        if self.has_cross:
+            self.cross_norm = nn.Parameter(leaves["cross_norm"])
         self.mixer = nn.ParameterDict()
+        self.cross = nn.ParameterDict()
         self.ffn = nn.ParameterDict()
         for path, view in leaves.items():
             group, _, name = path.partition(".")
             if name:
                 getattr(self, group)[name] = nn.Parameter(view)
 
-    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, S, d) -> (x, the MoE aux loss or 0)."""
+    def forward(self, x: torch.Tensor, vision: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, S, d) -> (x, the MoE aux loss or 0).  A cross slot runs
+        its cross-attention block only when ``vision`` is given."""
         cfg, cd = self.cfg, x.dtype
         mixer = {k: v.to(cd) for k, v in self.mixer.items()}
         h = rms_norm(x, self.norm1.to(cd), cfg.norm_eps)
         if self.kind == RWKV:
             mix = rwkv_forward(cfg, mixer, h)
+        elif self.kind == MAMBA:
+            mix = mamba_forward(cfg, mixer, h)
         else:
             mix = attn_forward(cfg, mixer, h, self.attn_kind)
         x = x + mix.to(cd)
+        if self.has_cross and vision is not None:
+            cross = {k: v.to(cd) for k, v in self.cross.items()}
+            h = rms_norm(x, self.cross_norm.to(cd), cfg.norm_eps)
+            x = x + cross_attn_forward(cfg, cross, h, vision).to(cd)
         ffn = {k: v.to(cd) for k, v in self.ffn.items()}
         h = rms_norm(x, self.norm2.to(cd), cfg.norm_eps)
         if self.is_moe:
@@ -130,35 +205,23 @@ class DecoderLayer(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder whose parameters live in one flat float32 buffer.
+    """Decoder whose parameters live in one flat buffer of the config's
+    ``param_dtype``.
 
     ``seed`` draws the weights with a ``torch.Generator`` on ``device``
-    (normal * in_dim ** -0.5, norm weights 1); ``load_flat`` replaces
-    them, e.g. with weights carried over from the reference
-    (``repro_torch.weights``).
+    (normal * in_dim ** -0.5, norm weights 1, Mamba's A_log
+    log(1..d_state)); ``load_flat`` replaces them, e.g. with weights
+    carried over from the reference (``repro_torch.weights``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
-        layout = param_layout(cfg)
-        self.d = sum(math.prod(shape) for _, shape, _ in layout)
-        self.flat = torch.empty(self.d, dtype=torch.float32, device=device)
-        lv: dict[str, torch.Tensor] = {}
-        gen = torch.Generator(device=self.flat.device).manual_seed(seed)
-        off = 0
-        for name, shape, code in layout:
-            n = math.prod(shape)
-            view = self.flat[off:off + n].view(shape)
-            if code == _ONES:
-                view.fill_(1.0)
-            elif code == _ZEROS:
-                view.zero_()
-            else:
-                view.normal_(generator=gen).mul_(code ** -0.5)
-            lv[name] = view
-            off += n
+        self.flat, lv = init_flat(param_layout(cfg),
+                                  getattr(torch, cfg.param_dtype), device,
+                                  seed)
+        self.d = self.flat.numel()
         self.embed = nn.Parameter(lv["embed"][0])
         self.lm_head = nn.Parameter(lv["lm_head"][0])
         self.final_norm = nn.Parameter(lv["final_norm"])
@@ -183,19 +246,19 @@ class Model(nn.Module):
     def attach_grads(self, grad_flat: torch.Tensor) -> None:
         """Point every parameter's ``.grad`` at its slice of
         ``grad_flat`` (d,), which the next backward accumulates into."""
-        base = self.flat.data_ptr()
-        for p in self.parameters():
-            off = (p.data_ptr() - base) // 4
-            p.grad = grad_flat[off:off + p.numel()].view(p.shape)
+        attach_grads(self, self.flat, grad_flat)
 
-    def loss(self, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def loss(self, ids: torch.Tensor, labels: torch.Tensor,
+             vision: torch.Tensor | None = None) -> torch.Tensor:
         """Mean next-token cross-entropy of a (B, S) batch, plus the MoE
-        layers' aux losses summed in layer order over ``num_layers``."""
+        layers' aux losses summed in layer order over ``num_layers``.
+        ``vision``: (B, S_img, d_model) image embeddings for the VLM's
+        cross slots (without them those blocks are skipped)."""
         cd = self.compute_dtype
         x = F.embedding(ids, self.embed.to(cd))
         aux = 0.0
         for layer in self.layers:
-            x, a = layer(x)
+            x, a = layer(x, vision)
             aux = aux + a
         x = rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps)
         ce = lm_head_loss(self.lm_head.to(cd), x, labels)

@@ -7,6 +7,9 @@ tensors on the requested device.
   * ``markov``: sequences from a fixed random bigram table, a learnable
     synthetic LM task (its V x V table limits it to small vocabularies);
   * ``uniform``: i.i.d. uniform tokens (throughput filler).
+
+``vision_stub`` gives the VLM's stand-in image embeddings from the same
+seeded stream as the reference's.
 """
 from __future__ import annotations
 
@@ -60,3 +63,15 @@ class Pipeline:
         toks = torch.from_numpy(self.tokens(step)).to(device=device,
                                                       dtype=torch.int64)
         return {"ids": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def vision_stub(self, num_tokens: int, d_model: int, step: int,
+                    device="cuda") -> torch.Tensor:
+        """(B, num_tokens, d_model) float32 standard-normal embeddings of
+        batch ``step``: the precomputed patch embeddings that stand in
+        for the VLM's image frontend."""
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, step, 0xFACE]))
+        x = rng.standard_normal(
+            (cfg.global_batch, num_tokens, d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(device)

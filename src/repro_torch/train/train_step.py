@@ -3,17 +3,25 @@ for M logical workers on one device.
 
 Per step:
   1. each worker runs forward and backward on its contiguous rows of the
-     global batch, and its gradient lands in its row of one (M, d)
-     buffer (the model's parameters and gradients are flat views, in the
-     reference's ravel order); with ``microbatches=k`` the rows run as k
-     consecutive micro-batches whose gradients accumulate in that row;
+     global batch (and of its ``vision`` embeddings, where the batch has
+     them), and its gradient lands in its row of one (M, d) buffer of the
+     parameters' dtype (the model's parameters and gradients are flat
+     views, in the reference's ravel order); with ``microbatches=k`` the
+     rows run as k consecutive micro-batches whose gradients accumulate
+     in that row, in the parameters' dtype as in the reference;
   2. on the update schedule: bucket statistics per worker, the merged
      mixture, and the ALQ/AMQ level update (lines 2-4);
   3. ENCODE -> collective -> DECODE -> average (lines 6-9) through
      ``dist.sync.compressed_allreduce``, with the configured compression
      algorithm around the wire (the error-feedback residual is formed in
-     place in the gradient rows and updated worker by worker);
-  4. one SGD-momentum / AdamW update of the flat parameters.
+     place in the gradient rows and updated worker by worker); bfloat16
+     rows go to the wire as float32, whose values they hold exactly, as
+     the reference's quantizer reads them, and the decoded aggregate is
+     float32; the plain mean (``fp32``, or an unquantized scheme) keeps
+     the rows' dtype, as the reference's ``psum`` does;
+  4. one SGD-momentum / AdamW update of the flat parameters from the
+     aggregate, with moments in the aggregate's dtype (as the reference's
+     are after its first step) and parameters rounded back to theirs.
 
 ``Trainer.state_arrays`` / ``load_state_arrays`` give its whole state as
 named tensors for ``train.checkpoint``.
@@ -91,8 +99,14 @@ class Trainer:
         self.model = model
         self.tcfg = tcfg
         dev = model.flat.device
-        self.grads = torch.zeros((tcfg.workers, model.d), device=dev)
-        self.opt = init_opt_state(tcfg.optim, model.flat)
+        self.grads = torch.zeros((tcfg.workers, model.d),
+                                 dtype=model.flat.dtype, device=dev)
+        # the wire decodes to float32; the plain mean keeps the rows' dtype
+        self.plain_mean = (tcfg.sync_mode == "fp32"
+                           or not tcfg.scheme.quantized)
+        self.opt = init_opt_state(
+            tcfg.optim, model.flat,
+            model.flat.dtype if self.plain_mean else torch.float32)
         self.scheme_state = tcfg.scheme.init_state(dev)
         self.algo = _make_algo(tcfg)
         self.compress_state = None
@@ -106,7 +120,8 @@ class Trainer:
                    u: Sequence[torch.Tensor] | None = None,
                    u2: Sequence[torch.Tensor] | None = None,
                    clock=NO_CLOCK) -> dict[str, float]:
-        """One step on a global batch (ids, labels of shape (B, S)).
+        """One step on a global batch (ids, labels of shape (B, S), and
+        for a VLM optionally ``vision`` of shape (B, S_img, d_model)).
 
         ``u`` and ``u2`` optionally give each worker's uniforms (see
         ``quantized_allreduce``).  Returns the step's metrics; per-worker
@@ -124,6 +139,7 @@ class Trainer:
             raise ValueError(f"{rows} rows a worker do not split into {k} "
                              "micro-batches")
         mb = rows // k
+        vision = batch.get("vision")
         losses = []
         for w in range(M):
             g = self.grads[w]
@@ -131,8 +147,9 @@ class Trainer:
             model.attach_grads(g)
             loss = 0.0
             for i in range(w * rows, (w + 1) * rows, mb):
-                part = model.loss(batch["ids"][i:i + mb],
-                                  batch["labels"][i:i + mb])
+                part = model.loss(
+                    batch["ids"][i:i + mb], batch["labels"][i:i + mb],
+                    None if vision is None else vision[i:i + mb])
                 part.backward()     # accumulates into the worker's row
                 loss = loss + part.detach()
             if k > 1:
@@ -140,21 +157,23 @@ class Trainer:
                 loss = loss / k
             losses.append(loss)
         clock.mark("grad")
+        # float32 rows are the same tensor
+        rows = self.grads if self.plain_mean else self.grads.float()
         self.scheme_state = maybe_update_levels(
-            self.grads, tcfg.scheme, self.scheme_state,
+            rows, tcfg.scheme, self.scheme_state,
             is_update_step(tcfg, self.step), clock=clock)
         if self.algo is None:   # fp32 / super_sgd: the plain mean
             synced, m = quantized_allreduce(
-                self.grads, tcfg.scheme, self.scheme_state,
+                rows, tcfg.scheme, self.scheme_state,
                 mode=tcfg.sync_mode, clock=clock)
         else:
             synced, self.compress_state, m = compressed_allreduce(
-                self.grads, tcfg.scheme, self.scheme_state, self.algo,
+                rows, tcfg.scheme, self.scheme_state, self.algo,
                 self.compress_state, mode=tcfg.sync_mode, u=u, u2=u2,
                 generator=self.generator, clock=clock)
         grad_norm = torch.sqrt(torch.sum(synced * synced))
         self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
-        del synced
+        del synced, rows
         clock.mark("optimizer")
         self.step += 1
         return {

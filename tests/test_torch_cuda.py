@@ -498,12 +498,19 @@ with torch.no_grad():
             p.uniform_(-4.0, -0.5, generator=g)
         elif leaf == "w_lora_b":
             p.mul_(0.2)
+        # Mamba's conv and the cross gate, zero at init (test_torch_model.py)
+        elif leaf in ("conv_w", "conv_b"):
+            p.normal_(generator=g).mul_(0.5)
+        elif leaf == "gate":
+            p.uniform_(0.5, 1.0, generator=g)
 ids = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g, device="cuda")
+vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model, generator=g,
+                      device="cuda") if cfg.cross_attn_every else None)
 grads = []
 for _ in range(2):
     grads.append(torch.zeros(model.d, device="cuda"))
     model.attach_grads(grads[-1])
-    model.loss(ids[:, :-1], ids[:, 1:]).backward()
+    model.loss(ids[:, :-1], ids[:, 1:], vision).backward()
 assert torch.isfinite(grads[0]).all(), int((~torch.isfinite(grads[0])).sum())
 assert torch.equal(*grads), float((grads[0] - grads[1]).abs().max())
 print("bit-equal and finite")
@@ -529,3 +536,111 @@ def test_moe_and_rwkv_backward_is_deterministic_on_card(dev, arch):
     out = subprocess.run([sys.executable, "-c", _GRAD_TWICE_SMOKE, arch],
                          env=env, capture_output=True, text=True)
     assert out.returncode == 0 and "bit-equal" in out.stdout, out.stderr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
+                                  "llama-3.2-vision-11b"])
+def test_hybrid_and_vlm_models_on_card_match_cpu(dev, arch):
+    """The jamba (Mamba, attention every 8th layer, MoE every 2nd) and
+    llama-vision (cross-attention on the 5th layer, 16 image embeddings)
+    SMOKE configs, float32, 2 x 256 tokens, with Mamba's conv weights and
+    the cross gate drawn non-zero (zero at init, which would hide both
+    blocks): the loss on the card within 1e-6 of the CPU's, the flat
+    gradient within 1e-5 of its largest entry (5e-5 for jamba, whose 8
+    layers' float32 gradient is itself ~2e-5 of its largest entry off a
+    float64 evaluation on either device, while a bfloat16 computation
+    reads far above the band: ``chip_smoke.py``'s hybrid/vlm check
+    prints all three), and two backward passes on the card bit-equal;
+    then the same two passes under
+    ``torch.use_deterministic_algorithms`` at 2 x 1024 tokens, in a
+    process of its own, bit-equal and finite."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    cfg = configs.get_smoke_config(arch)
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in on_cpu.named_parameters():
+            if name.endswith(("conv_w", "conv_b")):
+                p.normal_(generator=g).mul_(0.5)
+            elif name.endswith("gate"):
+                p.uniform_(0.5, 1.0, generator=g)
+    on_card = Model(cfg, device=dev, seed=0)
+    on_card.load_flat(on_cpu.flat.to(dev))
+    ids = torch.randint(0, cfg.vocab_size, (2, 257), generator=g)
+    vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model, generator=g)
+              if cfg.cross_attn_every else None)
+
+    def loss_and_grad(model, dev):
+        grad = torch.zeros_like(model.flat)
+        model.attach_grads(grad)
+        x = ids.to(dev)
+        loss = model.loss(x[:, :-1], x[:, 1:],
+                          None if vision is None else vision.to(dev))
+        loss.backward()
+        return loss.item(), grad
+
+    lc, gc = loss_and_grad(on_cpu, "cpu")
+    lg, gg = loss_and_grad(on_card, dev)
+    lg2, gg2 = loss_and_grad(on_card, dev)
+    assert abs(lg - lc) <= 1e-6 * abs(lc), (lg, lc)
+    err = float((gg.cpu() - gc).abs().max() / gc.abs().max())
+    assert err <= (5e-5 if cfg.layer_pattern == "mamba_hybrid" else 1e-5), err
+    assert lg2 == lg and torch.equal(gg, gg2)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", _GRAD_TWICE_SMOKE, arch],
+                         env=env, capture_output=True, text=True)
+    assert out.returncode == 0 and "bit-equal" in out.stdout, out.stderr
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_card_matches_cpu(dev):
+    """jamba-smoke with ``param_dtype="bfloat16"``, 2 workers x 2 x 64
+    tokens, ALQ 3-bit with a level update, AdamW: one step on the card
+    and on the CPU from the same weights and uniforms.  Parameters and
+    gradient rows stay bfloat16 and the moments are float32 on the card;
+    the three kernels launch; the loss within 1e-6 of the CPU's; the new
+    parameters within one bfloat16 ulp of the CPU's at 99.5% of the
+    coordinates (a rounding tie that went the other way moves a parameter
+    by a whole AdamW step)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.data import DataConfig, Pipeline
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    cfg = dataclasses.replace(configs.get_smoke_config(
+        "jamba-1.5-large-398b"), param_dtype="bfloat16")
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=1024)
+    batch = Pipeline(DataConfig(kind="markov", vocab_size=cfg.vocab_size,
+                                seq_len=64, global_batch=4)).batch(0, "cpu")
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    plan = codec_for_scheme(scheme).plan(on_cpu.d)
+    g = torch.Generator().manual_seed(2)
+    u = [torch.rand(plan.nb, plan.bucket_size, generator=g) for _ in range(2)]
+    out = []
+    for d in ("cpu", dev):
+        model = Model(cfg, device=d, seed=0)
+        model.load_flat(on_cpu.flat.to(d))
+        trainer = Trainer(model, TrainConfig(
+            scheme=scheme, optim=OptimConfig(name="adamw", lr=1e-2),
+            update_milestones=(0,), update_every=0, workers=2))
+        before = dict(kcuda.LAUNCHES)
+        m = trainer.train_step({k: v.to(d) for k, v in batch.items()},
+                               u=[x.to(d) for x in u])
+        out.append((m, trainer))
+    (mc, tc), (mg, tg) = out
+    assert all(kcuda.LAUNCHES.get(k, 0) > before.get(k, 0)
+               for k in kcuda.KERNELS)
+    assert tg.model.flat.dtype == tg.grads.dtype == torch.bfloat16
+    assert tg.opt.mu.dtype == tg.opt.nu.dtype == torch.float32
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-6 * abs(mc["loss"])
+    got, want = tg.model.flat.float().cpu(), tc.model.flat.float()
+    close = ((got - want).abs() <= want.abs() * 2.0 ** -7).float().mean()
+    assert close >= 0.995, float(close)

@@ -1,7 +1,9 @@
 """The port's decoder against the reference's ``Model``, for every
 registered arch (qk-norm, qkv bias, a head_dim other than d_model /
-heads, the audio decoder, mixture-of-experts with its aux loss, RWKV6)
-and the sliding, chunked and FULL-every-k attention variants.
+heads, the audio decoder, mixture-of-experts with its aux loss, RWKV6,
+the Mamba hybrid stack with MoE every other layer, and the VLM with its
+cross-attention fed the same image embeddings on both sides) and the
+sliding, chunked and FULL-every-k attention variants.
 
 Both sides get the same weights, made with numpy from a seed in the
 reference's ``Model.init`` layout (biases at unit scale, so that they
@@ -55,7 +57,7 @@ def _ravel(tree):
 def _jax_loss_and_grad(jcfg, params, batch):
     model = JModel(jcfg, tp=1, dp=1)
     pspecs = model.param_specs()
-    bspec = {"ids": P("data"), "labels": P("data")}
+    bspec = {k: P("data") for k in batch}
 
     def f(p, b):
         return jax.value_and_grad(lambda q: model.loss(q, b))(p)
@@ -88,7 +90,10 @@ def _random_params(jcfg, seed=0):
     RWKV6's time-mix as a trained one has it: token-shift mixes in [0, 1],
     w0 in [-4, -0.5] and a LoRA within about +-0.5, so that its log decays
     stay within -0.01 to -1 a token (larger ones overflow the reference's
-    masked ``exp`` in both packages; ``test_torch_rwkv.py``)."""
+    masked ``exp`` in both packages; ``test_torch_rwkv.py``).  Mamba's
+    A_log near the init's log(1..d_state); its conv weights and the cross
+    gate, zero at init, drawn like the rest, so that neither block's
+    output is 0."""
     shapes = jax.eval_shape(JModel(jcfg, tp=1, dp=1).init,
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -104,6 +109,9 @@ def _random_params(jcfg, seed=0):
             return rng.uniform(-4, -0.5, x.shape).astype(np.float32)
         if "w_lora_b" in name:
             return 0.2 * z / np.sqrt(x.shape[-2])
+        if "A_log" in name:
+            return (np.log(np.arange(1, x.shape[-1] + 1))
+                    + 0.1 * z).astype(np.float32)
         return z if "embed" in name else z / np.sqrt(x.shape[-2])
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
@@ -120,6 +128,9 @@ def test_loss_and_flat_gradient_match_reference(arch, smoke, variant):
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab_size, size=(2, 33)).astype(np.int32)
     batch = {"ids": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.cross_attn_every:
+        batch["vision"] = rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
     jloss, jgrads = _jax_loss_and_grad(
         jcfg, params, {k: jnp.asarray(v) for k, v in batch.items()})
     want_grad = _ravel(jgrads)
@@ -128,8 +139,10 @@ def test_loss_and_flat_gradient_match_reference(arch, smoke, variant):
     model.load_flat(flat)
     grad = torch.zeros(model.d)
     model.attach_grads(grad)
+    vision = batch.get("vision")
     loss = model.loss(torch.from_numpy(batch["ids"]).long(),
-                      torch.from_numpy(batch["labels"]).long())
+                      torch.from_numpy(batch["labels"]).long(),
+                      None if vision is None else torch.from_numpy(vision))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     err = np.abs(grad.numpy() - want_grad).max()
