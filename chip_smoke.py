@@ -130,6 +130,26 @@ Phases, each of which must pass:
      of jamba-1.5-large's slot 0 alone (``mamba-slot``: the Mamba mixer
      and the dense FFN, 1,024,327,680 bf16 parameters) on 2 x 1024
      hidden states, each with a ``torch.profiler`` split;
+ 15c. serving (none of the three kernels launches): the serve check,
+     each of the 11 SMOKE configs with trained-like weights (the VLM with
+     image embeddings), a prefill of 2 x 128 and 8 teacher-forced decode
+     steps on the card against the CPU (logits and caches), twice
+     bit-equal on the card, and 64 decode steps against the card's own
+     full forward (MoE capacity raised so that nothing drops); rwkv6's
+     SMOKE config at the init's decays, card and CPU each against a
+     float64 evaluation; then ``python -m repro_torch.launch.serve``
+     once; phase K, llama3.2-1b
+     whole (16 layers, d = 1,498,482,688, bf16 compute) through
+     ``make_prefill_step``/``make_decode_step``: 8 x 1024 prompt, 64
+     greedy tokens, prefill ms, decode ms a step (median, spread),
+     tokens/s, peak memory, the caches' bytes and a ``torch.profiler``
+     split of one decode step, then at float32 compute prefill + 4 steps
+     against the full forward (within 1e-4 of the largest logit and the
+     reference's 4e-3; a control with the caches held in bfloat16 must
+     read outside 1e-4); phase L, rwkv6-7b whole (32 layers, d =
+     8,876,462,080), 4 x 512 prompt, 32 tokens, the same numbers, and at
+     float32 a prompt of 480 + 32 steps against the full forward at 512
+     (RWKV6's chunks of 32; band 3e-4, the same control);
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -167,6 +187,7 @@ MOE_RWKV_ARCHS = ("mixtral-8x7b", "llama4-scout-17b-a16e", "rwkv6-7b")
 JAMBA, VLM = "jamba-1.5-large-398b", "llama-3.2-vision-11b"
 MAMBA_SLOT = "mamba-slot"     # grad_twice's case of jamba's slot 0 alone
 D_I, NB_I = 1_058_099_200, 129_163  # phase I: rwkv6-7b, 2 layers
+D_K, D_L = 1_498_482_688, 8_876_462_080  # phases K, L: whole models
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -1779,11 +1800,11 @@ def attention_timing(attention):
 
 
 def profile_step(step, label):
-    """``step()`` (one forward and backward, synchronised) twice on the
-    host clock, then once under ``torch.profiler``: host-clock ms, the
-    device's busy time (kernel time summed), its idle share of the
-    host-clock time, the launches, and the ops that take the most device
-    time."""
+    """``step()`` (a forward and backward, or a decode step; synchronised)
+    twice on the host clock, then once under ``torch.profiler``:
+    host-clock ms, the device's busy time (kernel time summed), its idle
+    share of the host-clock time, the launches, and the ops that take the
+    most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1801,14 +1822,14 @@ def profile_step(step, label):
                  key=lambda e: -e.self_device_time_total)
     top = [(e.key, e.self_device_time_total / 1e3, e.count) for e in top[:8]]
     if not kernels:   # the profiler saw no device activity
-        print(f"grad profile ({label}): {host_ms:.1f} ms host clock; device "
+        print(f"profile ({label}): {host_ms:.1f} ms host clock; device "
               "time not measured (the profiler recorded no kernel)",
               flush=True)
         return {"host_ms": host_ms}
     res = {"host_ms": host_ms, "busy_ms": busy_ms,
            "idle_share": 1 - busy_ms / host_ms, "launches": len(kernels),
            "top": top}
-    print(f"grad profile ({label}): {host_ms:.1f} ms host clock, device busy "
+    print(f"profile ({label}): {host_ms:.1f} ms host clock, device busy "
           f"{busy_ms:.1f} ms (idle {res['idle_share']:.0%}), {len(kernels)} "
           "kernels; most device time: " + "; ".join(
               f"{k} {t:.1f} ms x{c}" for k, t, c in top), flush=True)
@@ -1829,10 +1850,324 @@ def grad_profile(Model, cfg, label):
         model.loss(ids[:, :-1], ids[:, 1:]).backward()
         torch.cuda.synchronize()
 
-    res = profile_step(step, f"{label}, one worker, 2 x 1024")
+    res = profile_step(step, f"grad of {label}, one worker, 2 x 1024")
     del model
     torch.cuda.empty_cache()
     return res
+
+
+def _max_rel(got, want) -> float:
+    """max |got - want| over want's largest entry (both moved to the CPU,
+    in float64)."""
+    want = want.detach().double().cpu()
+    return float((got.detach().double().cpu() - want).abs().max()
+                 / want.abs().max())
+
+
+def _steps_off(got, want) -> tuple[float, float]:
+    """Two ``_serve_steps`` runs: the largest ``_max_rel`` of the logits
+    and of any cache leaf, over the steps."""
+    lerr = max(_max_rel(lg, lw) for (lg, _), (lw, _) in zip(got, want))
+    cerr = max(_max_rel(a, b) for (_, cg), (_, cw) in zip(got, want)
+               for x, y in zip(cg, cw) for a, b in zip(x, y))
+    return lerr, cerr
+
+
+def _serve_steps(model, ids, vision, prompt, steps, max_len):
+    """The prefill of ``ids[:, :prompt]`` and ``steps`` decode steps fed
+    ``ids``'s next tokens (teacher forcing): [(logits, caches) after the
+    prefill and after each step], copied to the CPU (a copy even of a
+    CPU run's caches, which the next step updates in place)."""
+    import torch
+
+    def keep(logits, caches):   # copies: decode updates caches in place
+        return logits.cpu(), [tuple(t.to("cpu", copy=True) for t in c)
+                              for c in caches]
+
+    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=max_len)
+    out = [keep(logits, caches)]
+    for t in range(prompt, prompt + steps):
+        pos = torch.full((ids.shape[0],), t, dtype=torch.int32,
+                         device=ids.device)
+        logits, caches = model.decode(ids[:, t], pos, caches, vision)
+        out.append(keep(logits, caches))
+    return out
+
+
+def init_decays_against_float64(configs, Model):
+    """rwkv6's SMOKE config (float32) with weights from seed 0, its
+    token-shift mixes drawn in [0, 1] as ``trained_like`` draws them and
+    its decays (w0 and the LoRA) as initialised: a prefill of 2 x 64 and
+    4 teacher-forced decode steps on the CPU, on the card, and on the
+    card in float64 (the same formulas, ``float64_everywhere``).  Returns
+    (logits, caches) errors over their largest entry (``_steps_off``):
+    card against CPU, CPU against float64, card against float64."""
+    import dataclasses
+    import torch
+    cfg = configs.get_smoke_config("rwkv6-7b")
+    gen = torch.Generator().manual_seed(3)
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        for name, p in on_cpu.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("mu_"):
+                p.uniform_(0.0, 1.0, generator=gen)
+    ids = torch.randint(0, cfg.vocab_size, (2, 68), generator=gen)
+    on_card = Model(cfg, device="cuda", seed=0)
+    on_card.load_flat(on_cpu.flat.cuda())
+    exact = Model(dataclasses.replace(cfg, param_dtype="float64",
+                                      compute_dtype="float64"),
+                  device="cuda", seed=0)
+    exact.load_flat(on_cpu.flat.double().cuda())
+    cpu = _serve_steps(on_cpu, ids, None, 64, 4, 68)
+    card = _serve_steps(on_card, ids.cuda(), None, 64, 4, 68)
+    with float64_everywhere():
+        f64 = _serve_steps(exact, ids.cuda(), None, 64, 4, 68)
+    return _steps_off(card, cpu), _steps_off(cpu, f64), _steps_off(card, f64)
+
+
+def _full_logits(model, ids, vision):
+    """The full forward's last-position float32 logits."""
+    import torch
+    from repro_torch.models.layers import lm_head_logits
+    with torch.inference_mode():
+        x, _ = model.forward(ids, vision)
+        return lm_head_logits(model.lm_head.to(model.compute_dtype),
+                              x[:, -1])
+
+
+def serve_consistency(model, ids, vision, prompt, steps, every=True,
+                      round_to=None):
+    """The model's prefill of ``ids[:, :prompt]`` and ``steps``
+    teacher-forced decode steps against its full forward's last-position
+    logits, after every step (``every``) or after the last only: the
+    largest error over the largest logit, and whether each step is within
+    the reference's own test's allclose (rtol 4e-3, atol 4e-3).  With
+    ``round_to`` (a control) every cache leaf is rounded to that dtype in
+    place after the prefill and after each step, as if the caches were
+    held in it."""
+    import torch
+
+    def held(caches):       # the caches are inference tensors
+        if round_to is not None:
+            with torch.inference_mode():
+                for c in caches:
+                    for t in c:
+                        t.copy_(t.to(round_to))
+
+    n = prompt + steps
+    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=n)
+    held(caches)
+    worst, inside = 0.0, True
+    for t in range(prompt, n):
+        pos = torch.full((ids.shape[0],), t, dtype=torch.int32,
+                         device=ids.device)
+        logits, caches = model.decode(ids[:, t], pos, caches, vision)
+        held(caches)
+        if every or t == n - 1:
+            want = _full_logits(model, ids[:, :t + 1], vision)
+            worst = max(worst, _max_rel(logits, want))
+            inside &= bool(((logits - want).abs()
+                            <= 4e-3 + 4e-3 * want.abs()).all())
+    return worst, inside
+
+
+def serve_check(configs, Model, cuda):
+    """Each of the 11 SMOKE configs (float32) with ``trained_like``
+    weights and, for the VLM, 2 x 16 image embeddings: a prefill of 2 x
+    128 tokens (a multiple of RWKV6's chunk of 32 and Mamba's of 64) and 8
+    teacher-forced decode steps, max_len 136, on the card and on the CPU
+    with the same weights: logits and every cache leaf within 1e-5 of
+    their largest entry (5e-5 for jamba, as its gradient band); the same
+    run again on the card, bit-equal; then the card's prefill of 64 and 64
+    decode steps against its own full forward at 128 tokens (every step
+    where the config has no recurrent mixer, the last where it does: RWKV6
+    and Mamba take whole chunks), within 1e-4 of the largest logit and
+    the reference's own test's allclose, with the MoE configs' capacity
+    factor raised to num_experts so that nothing drops (prefill and the
+    full forward route different token counts; card against CPU keeps the
+    config's own factor).  Then rwkv6's SMOKE config at the init's decays
+    (``init_decays_against_float64``), where float32's
+    own rounding is larger: card and CPU each against float64 on the
+    card, within 5e-5 (they read 1.1e-5 and 1.75e-5 of the largest
+    logit), printed beside the card against the CPU.  Then
+    ``python -m repro_torch.launch.serve`` (its ``main``) once on the
+    card.  Serving computes no gradient, so
+    none of the three kernels launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    toks = np.random.default_rng(18).integers(0, 509, (2, 136))
+    cuda.reset_launches()
+    for arch in ["paper-proxy"] + configs.ARCH_NAMES:
+        cfg = configs.get_smoke_config(arch)
+        band = 5e-5 if arch == JAMBA else 1e-5
+        ids = torch.from_numpy(toks % cfg.vocab_size)
+        gen = torch.Generator().manual_seed(18)
+        on_cpu = Model(cfg, device="cpu", seed=0)
+        trained_like(on_cpu, gen)
+        vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model,
+                              generator=gen)
+                  if cfg.cross_attn_every else None)
+        on_card = Model(cfg, device="cuda", seed=0)
+        on_card.load_flat(on_cpu.flat.cuda())
+        vcard = None if vision is None else vision.cuda()
+        runs = [_serve_steps(on_cpu, ids, vision, 128, 8, 136)]
+        runs += [_serve_steps(on_card, ids.cuda(), vcard, 128, 8, 136)
+                 for _ in range(2)]
+        lerr, cerr = _steps_off(runs[1], runs[0])
+        for (lg, cg), (lg2, cg2) in zip(runs[1], runs[2]):
+            check(torch.equal(lg, lg2) and all(
+                torch.equal(a, b) for x, y in zip(cg, cg2)
+                for a, b in zip(x, y)), f"serve check {arch}: two runs on "
+                "the card differ")
+        check(lerr <= band and cerr <= band, f"serve check {arch}: logits "
+              f"{lerr:.3g}, caches {cerr:.3g} of their largest entry off "
+              f"the CPU's (band {band})")
+        wide = (dataclasses.replace(cfg, capacity_factor=float(
+            cfg.num_experts)) if cfg.moe else cfg)
+        own = Model(wide, device="cuda", seed=0)
+        own.load_flat(on_card.flat)
+        recurrent = any(cfg.slot_kind(s) != "attn"
+                        for s in range(cfg.group_size))
+        cons, inside = serve_consistency(own, ids[:, :128].cuda(), vcard,
+                                         64, 64, every=not recurrent)
+        check(cons <= 1e-4 and inside, f"serve check {arch}: prefill + "
+              f"decode {cons:.3g} of the largest logit off the full forward")
+        factor = (f" (capacity factor {wide.capacity_factor})" if cfg.moe
+                  else "")
+        print(f"serve check {arch}: {cfg.name}, card against CPU: logits "
+              f"{lerr:.2g}, caches {cerr:.2g} of their largest entry "
+              f"(band {band}) over the prefill of 2 x 128 and 8 steps; two "
+              f"runs bit-equal; 64 steps against the full forward at 128"
+              f"{factor}: {cons:.2g}", flush=True)
+        del on_cpu, on_card, own, runs
+    (lx, cx), (l32, c32), (lg, cg) = init_decays_against_float64(configs,
+                                                                 Model)
+    check(max(l32, c32, lg, cg) <= 5e-5, f"serve check rwkv6-7b at the "
+          f"init's decays: float32 off float64 by {max(l32, c32, lg, cg)}")
+    print(f"serve check rwkv6-7b at the init's decays (2 x 64 prompt + 4 "
+          f"steps; logits, caches): card against CPU {lx:.3g}, {cx:.3g}; "
+          f"against float64 on the card: CPU {l32:.3g}, {c32:.3g}, card "
+          f"{lg:.3g}, {cg:.3g}", flush=True)
+    res = serve.run(serve.parse_args([]))
+    check(res["tokens"].shape == (4, 16), f"serve launcher: tokens "
+          f"{tuple(res['tokens'].shape)}")
+    counts = dict(cuda.LAUNCHES)
+    check(not any(counts.values()), f"serving launched kernels: {counts}")
+    print(f"serve launcher: {res['config'].name}, 4 x 32 prompt, 16 "
+          f"tokens, prefill {res['prefill_ms']:.1f} ms, decode "
+          f"{res['decode_ms'] / 15:.2f} ms a step; launches of the three "
+          f"kernels over the serve check: {counts}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def serve_phase(configs, Model, cuda, name, arch, batch, prompt, gen,
+                d, check_prompt, check_steps, every, band):
+    """One whole model at full width through ``make_prefill_step`` and
+    ``make_decode_step`` (float32 parameters, bf16 compute, weights from
+    seed 0 and ``trained_like``): a ``batch`` x ``prompt`` prefill (once
+    to warm up, then timed), then ``gen`` greedy tokens (``gen`` - 1
+    decode steps, each synchronised), max_len ``prompt`` + ``gen``;
+    prefill ms, decode ms a step (median and spread of the steps after
+    the first), tokens/s, peak memory and the caches' bytes; a
+    ``profile_step`` of one decode step; then, rebuilt at float32 compute
+    with the same weights, the prefill of ``check_prompt`` tokens and
+    ``check_steps`` teacher-forced steps of 2 rows against the full
+    forward (``serve_consistency``): within ``band`` of the largest logit
+    (set from the readings of earlier runs, far inside the reference's
+    4e-3) and the reference's allclose, while a control whose caches are
+    held at bfloat16 precision must read outside ``band``, so that the
+    band tells a lower-precision cache apart."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.serve import (ServeConfig, make_decode_step,
+                                   make_prefill_step)
+    cfg = configs.get_config(arch)
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+    model = Model(cfg, device="cuda", seed=0)
+    check(model.d == d, f"phase {name} d = {model.d}, expected {d}")
+    trained_like(model, torch.Generator(device="cuda").manual_seed(19))
+    g = torch.Generator(device="cuda").manual_seed(20)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt + check_steps),
+                        generator=g, device="cuda")
+    scfg = ServeConfig(max_len=prompt + gen)
+    prefill = make_prefill_step(model, scfg)
+    decode = make_decode_step(model, scfg)
+    prefill(ids[:, :prompt])                  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tok, caches = prefill(ids[:, :prompt])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = sum(t.nbytes for c in caches for t in c)
+    step_ms, out = [], [tok]
+    for i in range(gen - 1):
+        pos = torch.full((batch,), prompt + i, dtype=torch.int32,
+                         device="cuda")
+        t0 = time.perf_counter()
+        tok, caches = decode(tok, pos, caches)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.stack(out, dim=1)
+    check(tokens.shape == (batch, gen) and bool((tokens >= 0).all())
+          and bool((tokens < cfg.vocab_size).all()),
+          f"phase {name}: tokens {tuple(tokens.shape)}")
+    steady = step_ms[1:]
+    med = statistics.median(steady)
+    spread = max(steady) - min(steady)
+    tps = batch * (gen - 1) / (sum(step_ms) / 1e3)
+    last = torch.full((batch,), prompt + gen - 1, dtype=torch.int32,
+                      device="cuda")
+
+    def step():
+        decode(tok, last, caches)
+        torch.cuda.synchronize()
+
+    prof = profile_step(step, f"decode step of phase {name}, {arch}, batch "
+                        f"{batch}")
+    counts = dict(cuda.LAUNCHES)
+    check(not any(counts.values()), f"phase {name}: kernels launched "
+          f"{counts}")
+    print(f"phase {name}: {arch} whole ({cfg.num_layers} layers, d = "
+          f"{model.d}, bf16 compute), {batch} x {prompt} prompt: prefill "
+          f"{prefill_ms:.1f} ms; {gen - 1} decode steps: first "
+          f"{step_ms[0]:.2f} ms, then median {med:.2f} ms (spread "
+          f"{spread:.2f}) a step, {tps:.1f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB, caches {cache_bytes / 2**20:.1f} MiB; "
+          f"launches {counts}", flush=True)
+    del model, caches, prefill, decode, step
+    torch.cuda.empty_cache()
+    exact = Model(dataclasses.replace(cfg, compute_dtype="float32"),
+                  device="cuda", seed=0)
+    trained_like(exact, torch.Generator(device="cuda").manual_seed(19))
+    rows = ids[:2, prompt - check_prompt:]
+    cons, inside = serve_consistency(exact, rows, None, check_prompt,
+                                     check_steps, every)
+    check(inside and cons <= band, f"phase {name}: float32 prefill + "
+          f"decode off the full forward by {cons:.3g} of the largest logit "
+          f"(band {band}; within the reference's allclose: {inside})")
+    ctrl, _ = serve_consistency(exact, rows, None, check_prompt, check_steps,
+                                every, round_to=torch.bfloat16)
+    check(ctrl > band, f"phase {name}: the control with bfloat16 caches "
+          f"reads {ctrl:.3g}, inside the band {band}")
+    print(f"phase {name}: float32 compute, 2 x {check_prompt} prompt + "
+          f"{check_steps} decode steps against the full forward: "
+          f"{cons:.3g} of the largest logit (band {band}; the reference's "
+          f"4e-3); the control with caches held in bfloat16: {ctrl:.3g}",
+          flush=True)
+    del exact
+    torch.cuda.empty_cache()
+    return {"card_arch": arch, "d": d, "batch": batch, "prompt": prompt,
+            "gen": gen, "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "median_ms": med, "spread_ms": spread, "tokens_per_s": tps,
+            "peak_bytes": peak, "cache_bytes": cache_bytes,
+            "profile": prof, "consistency": cons, "control": ctrl}
 
 
 def resume_check(train):
@@ -2175,13 +2510,21 @@ def main() -> None:
     # ---- phase J and the Mamba width check: one worker at full width ----
     torch.cuda.empty_cache()
     phase_j = determinism_check(
-        configs, Model, VLM, profile="phase J, llama-3.2-vision-11b, 5 "
+        configs, Model, VLM, profile="grad, phase J, llama-3.2-vision-11b, 5 "
         "layers, 2 x 1024 tokens + 2 x 1601 image embeddings")
     mamba_width = determinism_check(
-        configs, Model, MAMBA_SLOT, profile="Mamba width check, jamba slot 0, "
-        "2 x 1024 hidden states")
+        configs, Model, MAMBA_SLOT, profile="grad, Mamba width check, jamba "
+        "slot 0, 2 x 1024 hidden states")
     print(json.dumps({"phase_j": phase_j, "mamba_width": mamba_width,
                       "card": smi}), flush=True)
+    # ---- serving: the SMOKE configs, then phases K and L at full width ----
+    serve_check(configs, Model, cuda)
+    phase_k = serve_phase(configs, Model, cuda, "K", "llama3.2-1b", 8, 1024,
+                          64, D_K, 1024, 4, every=True, band=1e-4)
+    phase_l = serve_phase(configs, Model, cuda, "L", "rwkv6-7b", 4, 512, 32,
+                          D_L, 480, 32, every=False, band=3e-4)
+    print(json.dumps({"phase_k": phase_k, "phase_l": phase_l, "card": smi}),
+          flush=True)
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
                       "grad_profile": grad_profile(

@@ -1,6 +1,7 @@
 """Causal self-attention: GQA with RoPE, optional qk-norm and qkv bias;
-full, sliding-window and chunked variants; and the VLM's tanh-gated
-cross-attention to image embeddings.
+full, sliding-window and chunked variants; the VLM's tanh-gated
+cross-attention to image embeddings; and serving's decode of one token
+against a ring-addressed KV cache.
 
 The reference computes attention outside any TPU kernel, as a
 flash-style loop in plain jnp (``_flash``), and so does the port: a
@@ -97,28 +98,60 @@ def _expand_kv(t: torch.Tensor, num_heads: int) -> torch.Tensor:
         B, S, num_heads, hd)
 
 
-def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                 x: torch.Tensor, kind: str, *, q_block: int = 512,
-                 kv_block: int = 512) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's attention
-    leaves in x's dtype (``wq``, ``wk``, ``wv``, ``wo``, and ``bq``,
-    ``bk``, ``bv`` with qkv bias, ``q_norm``, ``k_norm`` with qk-norm);
-    ``kind`` is the slot's attention kind."""
+def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                 x: torch.Tensor, xkv: torch.Tensor,
+                 positions: torch.Tensor | None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B, S, d), xkv: (B, Skv, d) -> q (B, S, H, hd), k and v (B, Skv,
+    KV, hd): the projections, the qkv bias and qk-norm where ``p`` has
+    them, then RoPE at ``positions`` ((..., S); None: no RoPE).  K and V
+    are computed in xkv's dtype."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = x @ p["wq"]
+    k = xkv @ p["wk"].to(xkv.dtype)
+    v = xkv @ p["wv"].to(xkv.dtype)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    k = k.reshape(B, -1, KV, hd)
+    v = v.reshape(B, -1, KV, hd)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    positions = torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    k, v = _expand_kv(k, H), _expand_kv(v, H)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def cache_spec(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    """Slots C of one attention layer's decode cache: the window or the
+    chunk where ``kind`` limits what a token sees, else ``max_len``; a
+    token at position t lives in slot t % C."""
+    if kind == SLIDING:
+        return min(cfg.window, max_len)
+    if kind == CHUNKED:
+        return min(cfg.chunk, max_len)
+    return max_len
+
+
+def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                 x: torch.Tensor, kind: str, *, return_cache: bool = False,
+                 max_len: int = 0, q_block: int = 512, kv_block: int = 512):
+    """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's attention
+    leaves in x's dtype (``wq``, ``wk``, ``wv``, ``wo``, and ``bq``,
+    ``bk``, ``bv`` with qkv bias, ``q_norm``, ``k_norm`` with qk-norm);
+    ``kind`` is the slot's attention kind.
+
+    With ``return_cache`` it returns (y, (k, v)): the decode cache of
+    ``cache_spec(cfg, kind, max_len or S)`` slots, (B, C, KV, hd) in k's
+    dtype, holding the last min(C, S) tokens' k (after RoPE) and v at
+    slot t % C, the others zero: ``attn_decode``'s ring addressing."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim_
+    q, k, v = _project_qkv(cfg, p, x, x, torch.arange(S, device=x.device))
+    ke, ve = _expand_kv(k, H), _expand_kv(v, H)
     blocks = dict(q_block=q_block, kv_block=kv_block)
 
     if kind == CHUNKED and S > cfg.chunk:
@@ -129,16 +162,84 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
         def fold(t):
             return t[:, :body].reshape(B * n_full, c, H, hd)
 
-        out = _flash(fold(q), fold(k), fold(v), causal=True, window=0,
+        out = _flash(fold(q), fold(ke), fold(ve), causal=True, window=0,
                      **blocks).reshape(B, body, H, hd)
         if body < S:  # a trailing partial chunk is its own causal block
-            tail = _flash(q[:, body:], k[:, body:], v[:, body:], causal=True,
-                          window=0, **blocks)
+            tail = _flash(q[:, body:], ke[:, body:], ve[:, body:],
+                          causal=True, window=0, **blocks)
             out = torch.cat([out, tail], dim=1)
     else:
         window = cfg.window if kind == SLIDING else 0
-        out = _flash(q, k, v, causal=True, window=window, **blocks)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+        out = _flash(q, ke, ve, causal=True, window=window, **blocks)
+    y = out.reshape(B, S, H * hd) @ p["wo"]
+    if not return_cache:
+        return y
+    C = cache_spec(cfg, kind, max_len or S)
+    keep = min(C, S)
+    slot = torch.arange(S - keep, S, device=x.device) % C
+    kk = k.new_zeros((B, C) + k.shape[2:])
+    vv = v.new_zeros((B, C) + v.shape[2:])
+    kk[:, slot] = k[:, S - keep:]
+    vv[:, slot] = v[:, S - keep:]
+    return y, (kk, vv)
+
+
+def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                x: torch.Tensor, pos: torch.Tensor,
+                cache: tuple[torch.Tensor, torch.Tensor], kind: str
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One token a row against the ring cache: x (B, 1, d), ``pos`` (B,)
+    its absolute positions, ``cache`` (k, v) of (B, C, KV, hd).  Returns
+    (y (B, 1, d), the cache), whose slot pos % C now holds the token's k
+    and v (written in place).
+
+    Each slot's absolute position follows from ``pos`` and the ring; a
+    slot is seen when it holds a position in [0, pos) that the window or
+    the chunk admits.  The scores and the softmax run in float32, masked
+    with the finite ``NEG_INF``, so that an empty cache weighs nothing
+    once the token's own key is folded in (exactly once, after the
+    cache's slots)."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim_
+    q, k_new, v_new = _project_qkv(cfg, p, x, x, pos[:, None])
+    k_cache, v_cache = cache
+    C = k_cache.shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = (pos % C).long()
+    k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+
+    delta = (pos % C)[:, None] - torch.arange(C, device=x.device)
+    delta = torch.where(delta < 0, delta + C, delta)
+    slot_pos = pos[:, None] - delta                              # (B, C)
+    now = pos[:, None]
+    valid = (slot_pos >= 0) & (slot_pos <= now)
+    if kind == SLIDING:
+        valid &= slot_pos > now - cfg.window
+    elif kind == CHUNKED:
+        valid &= slot_pos >= (now // cfg.chunk) * cfg.chunk
+    valid &= slot_pos != now
+
+    qs = q.float() * hd ** -0.5                                  # (B,1,H,hd)
+    ke, ve = _expand_kv(k_cache, H), _expand_kv(v_cache, H)      # (B,C,H,hd)
+    s = torch.einsum("bqhd,bchd->bhqc", qs, ke.float())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                           # (B,H,1)
+    ps = torch.exp(s - m[..., None])
+    l = ps.sum(dim=-1)
+    acc = torch.einsum("bhqc,bchd->bhqd", ps, ve.float())
+    # the new token's own key and value, always visible to itself
+    ke_new, ve_new = _expand_kv(k_new, H), _expand_kv(v_new, H)
+    s_new = torch.einsum("bqhd,bqhd->bhq", qs, ke_new.float())
+    m2 = torch.maximum(m, s_new)
+    corr = torch.exp(m - m2)
+    pn = torch.exp(s_new - m2)
+    l2 = l * corr + pn
+    acc2 = (acc * corr[..., None]
+            + pn[..., None] * ve_new.float().transpose(1, 2))
+    out = (acc2 / torch.clamp(l2, min=1e-30)[..., None]).transpose(1, 2)
+    y = out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
+    return y, (k_cache, v_cache)
 
 
 def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
@@ -149,14 +250,12 @@ def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     tanh(gate) * y.  ``p`` holds ``wq``, ``wk``, ``wv``, ``wo`` and
     ``gate`` in x's dtype.  K and V are computed in the promoted dtype of
     the embeddings and the weights, as the reference's jnp promotes a
-    float32 stub against bf16 weights; the attention returns q's dtype."""
+    float32 stub against bf16 weights; the attention returns q's dtype.
+    A decode step runs it on its one token."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    H, hd = cfg.num_heads, cfg.head_dim_
     kv_dtype = torch.promote_types(vision.dtype, x.dtype)
-    v_in = vision.to(kv_dtype)
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (v_in @ p["wk"].to(kv_dtype)).reshape(B, -1, KV, hd)
-    v = (v_in @ p["wv"].to(kv_dtype)).reshape(B, -1, KV, hd)
+    q, k, v = _project_qkv(cfg, p, x, vision.to(kv_dtype), None)
     out = _flash(q, _expand_kv(k, H), _expand_kv(v, H), causal=False,
                  window=0, q_block=512, kv_block=512)
     y = out.reshape(B, S, H * hd) @ p["wo"]

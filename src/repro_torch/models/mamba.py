@@ -1,5 +1,5 @@
-"""Mamba selective-SSM layer (Jamba's sequence mixer), the training
-forward at tp = 1.
+"""Mamba selective-SSM layer (Jamba's sequence mixer) at tp = 1: the
+sequence forward of training and prefill, and serving's one-token step.
 
 Diagonal selective state space, per channel and state entry:
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t * x_t
@@ -17,7 +17,9 @@ rounding closest to the reference's; each level is a handful of
 elementwise operations over the whole chunk, so a chunk of 64 costs 6
 levels, not 64 steps.  The conv is a sum of shifted products in the
 reference's order of additions (not ``conv1d``, whose depthwise
-backward on the card is not guaranteed deterministic).
+backward on the card is not guaranteed deterministic).  Serving's cache
+is the last state and the conv's last width - 1 inputs; a decode step is
+the forward on one token from it (the reference's ``mamba_decode``).
 """
 from __future__ import annotations
 
@@ -56,17 +58,23 @@ def mamba_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int]]:
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 conv_state: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv along S.  x: (B, S, di); w: (width, di);
-    b: (di,).  y = b + w[0] * xp[0:S] + w[1] * xp[1:S+1] + ..., xp being
-    x after width - 1 zeros, added in that order."""
+    b: (di,); ``conv_state`` (B, width - 1, di): the inputs before x
+    (None: zeros).  y = b + w[0] * xp[0:S] + w[1] * xp[1:S+1] + ..., xp
+    being x after those width - 1 inputs, added in that order.  Returns
+    (y, the last width - 1 rows of xp: the next call's conv_state)."""
     width, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    if conv_state is None:
+        xp = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        xp = torch.cat([conv_state, x], dim=1)
     y = torch.zeros_like(x) + b
     for j in range(width):
         y = y + w[j] * xp[:, j:j + S]
-    return y
+    return y, xp[:, S:]
 
 
 def _combine(a, b):
@@ -117,24 +125,33 @@ def _ssm_scan(decay: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor
 
 
 def mamba_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, *,
+                  cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  return_state: bool = False):
     """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's Mamba leaves in
     x's dtype; from the conv on the layer computes in float32, and the
-    output projection in x's dtype, as the reference."""
+    output projection in x's dtype, as the reference.  ``cache`` = (h
+    (B, di, d_state) float32, conv_state (B, width - 1, di)) starts the
+    scan and the conv where an earlier call left them (None: zeros); with
+    ``return_state`` it returns (y, (the last h, the next conv_state))."""
     B = x.shape[0]
     di = mamba_dims(cfg)
     st, rk = cfg.mamba_d_state, cfg.dt_rank
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)      # (B, S, di) each
-    xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"]).float())
+    xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
+                                  None if cache is None else cache[1])
+    xc = F.silu(xc.float())
     proj = xc @ p["x_proj"].float()
     dt_raw, Bs, Cs = proj.split([rk, st, st], dim=-1)
     dt = F.softplus(dt_raw @ p["dt_proj"].float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())                 # (di, st)
     decay = torch.exp(dt[..., None] * A)                # (B, S, di, st)
     drive = (dt * xc)[..., None] * Bs[:, :, None, :]
-    h0 = torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
-    _, hs = _ssm_scan(decay, drive, h0)
+    h0 = (torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
+          if cache is None else cache[0])
+    h, hs = _ssm_scan(decay, drive, h0)
     y = torch.einsum("bsdn,bsn->bsd", hs, Cs)
     y = y + p["D"].float() * xc
     y = y * F.silu(z.float())
-    return y.to(x.dtype) @ p["out_proj"]
+    out = y.to(x.dtype) @ p["out_proj"]
+    return (out, (h, conv_state)) if return_state else out

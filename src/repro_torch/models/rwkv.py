@@ -1,5 +1,5 @@
 """RWKV6 ("Finch") time-mix layer: attention-free, with a data-dependent
-decay (tp = 1, the training forward).
+decay (tp = 1).
 
 Recurrence per head (state S in R^{hd x hd}):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t          w_t = exp(-exp(.)) in (0,1)
@@ -14,7 +14,9 @@ runs ``lax.scan``.  The mask is applied after the ``exp``, as in the
 reference, so both packages compute the same values (above the diagonal
 the ``exp`` may overflow; the mask then gives 0 in the forward).  The
 decay path mixes the token-shifted input through a LoRA; r, k, v and g
-use a learned static token-shift interpolation.
+use a learned static token-shift interpolation.  Serving's prefill
+returns the state after the last chunk, and ``rwkv_decode`` runs the
+recurrence itself, one token at a time.
 """
 from __future__ import annotations
 
@@ -97,10 +99,13 @@ def _chunk(S0, rc, kc, vc, wc, u, tri):
 
 
 def rwkv_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, *, return_state: bool = False):
     """x: (B, S, d) -> (B, S, d) float32 (the reference's output dtype:
     its float32 state meets ``wo`` in float32).  ``p`` holds the layer's
-    mixer leaves (``rwkv_specs``) in x's dtype."""
+    mixer leaves (``rwkv_specs``) in x's dtype.  With ``return_state``
+    it returns (y, (state, x[:, -1:])): the float32 (B, H, hd, hd) state
+    after the last token and the token that the next one shifts in, the
+    cache ``rwkv_decode`` continues from."""
     B, S, d = x.shape
     H, hd = rwkv_dims(cfg)
     xs = _token_shift(x)
@@ -127,4 +132,33 @@ def rwkv_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
 
     out = _group_rms(out, p["ln_x"], cfg.norm_eps)
     out = out * F.silu(g.float()).to(out.dtype)
-    return out @ p["wo"].to(out.dtype)
+    y = out @ p["wo"].to(out.dtype)
+    return (y, (state, x[:, -1:])) if return_state else y
+
+
+def rwkv_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                x: torch.Tensor,
+                cache: tuple[torch.Tensor, torch.Tensor]
+                ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One token a row: x (B, 1, d), ``cache`` (state (B, H, hd, hd)
+    float32, prev_x (B, 1, d) the token before).  The recurrence itself:
+    o = r S + (r . (u * k)) v, then S <- exp(logw) * S + k^T v.  Returns
+    (y (B, 1, d) float32, (the new state, x))."""
+    B = x.shape[0]
+    H, hd = rwkv_dims(cfg)
+    state, prev_x = cache
+    xf, xs = x[:, 0], prev_x[:, 0]
+    r = (_mix(xf, xs, p["mu_r"]) @ p["proj_r"]).reshape(B, H, hd)
+    k = (_mix(xf, xs, p["mu_k"]) @ p["proj_k"]).reshape(B, H, hd)
+    v = (_mix(xf, xs, p["mu_v"]) @ p["proj_v"]).reshape(B, H, hd)
+    g = _mix(xf, xs, p["mu_g"]) @ p["proj_g"]
+    logw = _decay_log(p, _mix(xf, xs, p["mu_w"])).reshape(B, H, hd)
+    u = p["u"].reshape(H, hd).float()
+    r32, k32, v32 = r.float(), k.float(), v.float()
+    o = torch.einsum("bhd,bhde->bhe", r32, state)
+    o = o + torch.einsum("bhd,hd,bhd->bh", r32, u, k32)[..., None] * v32
+    state = (torch.exp(logw)[..., None] * state
+             + torch.einsum("bhd,bhe->bhde", k32, v32))
+    o = _group_rms(o[:, None], p["ln_x"], cfg.norm_eps)        # (B, 1, d)
+    o = o * F.silu(g.float())[:, None].to(o.dtype)
+    return o @ p["wo"].to(o.dtype), (state, x)

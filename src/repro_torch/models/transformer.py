@@ -15,6 +15,12 @@ Because the parameters alias the buffer, the flat vector needs no copy:
 flat gradient row ``g``, and a backward pass then accumulates the
 worker's gradient straight into ``g`` (autograd adds into a defined
 ``.grad`` in place).
+
+Serving runs the same layers in another mode (``PREFILL``: the sequence
+forward that also returns each mixer's decode cache; ``DECODE``: one
+token a row against those caches), without autograd.  Caches keep the
+reference's layout: a list with one entry per layer slot, each a tuple
+of tensors stacked over the groups as (num_groups, B, ...).
 """
 from __future__ import annotations
 
@@ -24,17 +30,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import attn_forward, cross_attn_forward
+from .attention import (attn_decode, attn_forward, cache_spec,
+                        cross_attn_forward)
 from .config import MAMBA, RWKV, ModelConfig
-from .layers import lm_head_loss, rms_norm, swiglu
-from .mamba import A_LOG_INIT, mamba_forward, mamba_specs
+from .layers import lm_head_logits, lm_head_loss, rms_norm, swiglu
+from .mamba import A_LOG_INIT, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_ffn
-from .rwkv import rwkv_forward, rwkv_specs
+from .rwkv import rwkv_decode, rwkv_dims, rwkv_forward, rwkv_specs
 
 # init codes: -1 ones (norm weights), 0 zeros (biases and the cross gate),
 # A_LOG_INIT (-2) Mamba's log(1..d_state), > 0 normal * in_dim ** -0.5
 _ONES = -1
 _ZEROS = 0
+
+# what a layer runs: the training forward, serving's prefill (the same
+# forward, also returning the caches) or one decode step
+TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 
 def _slot_specs(cfg: ModelConfig, slot: int
                 ) -> dict[str, tuple[tuple, int]]:
@@ -177,19 +188,32 @@ class DecoderLayer(nn.Module):
             if name:
                 getattr(self, group)[name] = nn.Parameter(view)
 
-    def forward(self, x: torch.Tensor, vision: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, S, d) -> (x, the MoE aux loss or 0).  A cross slot runs
-        its cross-attention block only when ``vision`` is given."""
+    def forward(self, x: torch.Tensor, vision: torch.Tensor | None = None,
+                mode: str = TRAIN, cache: tuple | None = None,
+                pos: torch.Tensor | None = None, max_len: int = 0
+                ) -> tuple[torch.Tensor, torch.Tensor, tuple | None]:
+        """x: (B, S, d) -> (x, the MoE aux loss or 0, the mixer's cache or
+        None).  ``mode``: ``TRAIN``; ``PREFILL``, which also returns the
+        decode cache (attention's of ``max_len`` slots at most); or
+        ``DECODE``, one token a row (S = 1) at positions ``pos`` (B,)
+        against ``cache``.  A cross slot runs its cross-attention block
+        only when ``vision`` is given."""
         cfg, cd = self.cfg, x.dtype
         mixer = {k: v.to(cd) for k, v in self.mixer.items()}
         h = rms_norm(x, self.norm1.to(cd), cfg.norm_eps)
+        prefill = mode == PREFILL
         if self.kind == RWKV:
-            mix = rwkv_forward(cfg, mixer, h)
-        elif self.kind == MAMBA:
-            mix = mamba_forward(cfg, mixer, h)
+            out = (rwkv_decode(cfg, mixer, h, cache) if mode == DECODE else
+                   rwkv_forward(cfg, mixer, h, return_state=prefill))
+        elif self.kind == MAMBA:        # decode: the forward on one token
+            out = mamba_forward(cfg, mixer, h, cache=cache,
+                                return_state=mode != TRAIN)
+        elif mode == DECODE:
+            out = attn_decode(cfg, mixer, h, pos, cache, self.attn_kind)
         else:
-            mix = attn_forward(cfg, mixer, h, self.attn_kind)
+            out = attn_forward(cfg, mixer, h, self.attn_kind,
+                               return_cache=prefill, max_len=max_len)
+        mix, cache = (out, None) if mode == TRAIN else out
         x = x + mix.to(cd)
         if self.has_cross and vision is not None:
             cross = {k: v.to(cd) for k, v in self.cross.items()}
@@ -201,7 +225,7 @@ class DecoderLayer(nn.Module):
             y, aux = moe_ffn(cfg, ffn, h)
         else:
             y, aux = swiglu(h, ffn["w1"], ffn["w3"], ffn["w2"]), 0.0
-        return x + y, aux
+        return x + y, aux, cache
 
 
 class Model(nn.Module):
@@ -248,18 +272,92 @@ class Model(nn.Module):
         ``grad_flat`` (d,), which the next backward accumulates into."""
         attach_grads(self, self.flat, grad_flat)
 
-    def loss(self, ids: torch.Tensor, labels: torch.Tensor,
-             vision: torch.Tensor | None = None) -> torch.Tensor:
-        """Mean next-token cross-entropy of a (B, S) batch, plus the MoE
-        layers' aux losses summed in layer order over ``num_layers``.
+    def forward(self, ids: torch.Tensor, vision: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The training forward of a (B, S) batch: (the hidden states after
+        the final norm (B, S, d), the MoE layers' aux losses summed).
         ``vision``: (B, S_img, d_model) image embeddings for the VLM's
         cross slots (without them those blocks are skipped)."""
         cd = self.compute_dtype
         x = F.embedding(ids, self.embed.to(cd))
         aux = 0.0
         for layer in self.layers:
-            x, a = layer(x, vision)
+            x, a, _ = layer(x, vision)
             aux = aux + a
-        x = rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps)
-        ce = lm_head_loss(self.lm_head.to(cd), x, labels)
+        return rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps), aux
+
+    def loss(self, ids: torch.Tensor, labels: torch.Tensor,
+             vision: torch.Tensor | None = None) -> torch.Tensor:
+        """Mean next-token cross-entropy of a (B, S) batch, plus the MoE
+        layers' aux losses summed in layer order over ``num_layers``."""
+        x, aux = self.forward(ids, vision)
+        ce = lm_head_loss(self.lm_head.to(self.compute_dtype), x, labels)
         return ce + aux / max(self.cfg.num_layers, 1)
+
+    @torch.inference_mode()
+    def prefill(self, ids: torch.Tensor, vision: torch.Tensor | None = None,
+                *, max_len: int) -> tuple[torch.Tensor, list]:
+        """Serving's prefill of a (B, S) prompt: (the last position's
+        float32 logits (B, V), the caches for decode steps up to position
+        ``max_len`` - 1), the caches laid out as ``init_cache``'s."""
+        cd, G = self.compute_dtype, self.cfg.group_size
+        x = F.embedding(ids, self.embed.to(cd))
+        per_layer = []
+        for layer in self.layers:
+            x, _, c = layer(x, vision, PREFILL, max_len=max_len)
+            per_layer.append(c)
+        x = rms_norm(x[:, -1], self.final_norm.to(cd), self.cfg.norm_eps)
+        caches = [tuple(torch.stack([c[i] for c in per_layer[s::G]])
+                        for i in range(2)) for s in range(G)]
+        return lm_head_logits(self.lm_head.to(cd), x), caches
+
+    @torch.inference_mode()
+    def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list,
+               vision: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, list]:
+        """One decode step: ``token`` (B,) ids at absolute positions
+        ``pos`` (B,) against ``caches`` (``prefill``'s or ``init_cache``'s
+        layout), which are updated in place.  Returns (float32 logits
+        (B, V), the caches)."""
+        cd, G = self.compute_dtype, self.cfg.group_size
+        x = F.embedding(token[:, None], self.embed.to(cd))
+        for i, layer in enumerate(self.layers):
+            g, s = divmod(i, G)
+            views = tuple(t[g] for t in caches[s])
+            x, _, new = layer(x, vision, DECODE, views, pos)
+            for view, t in zip(views, new):
+                if t is not view:
+                    view.copy_(t)
+        x = rms_norm(x[:, 0], self.final_norm.to(cd), self.cfg.norm_eps)
+        return lm_head_logits(self.lm_head.to(cd), x), caches
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype | None = None) -> list:
+        """Zero caches of ``batch`` rows, one entry per layer slot, each
+        stacked (num_groups, batch, ...): attention (k, v) of (C, KV, hd)
+        in ``dtype`` (C from ``cache_spec``); RWKV (state (H, hd, hd)
+        float32, prev_x (1, d) in ``dtype``); Mamba (h (d_inner, d_state)
+        float32, conv (width - 1, d_inner) in ``dtype``).  ``dtype``
+        defaults to the compute dtype, that of ``prefill``'s caches."""
+        cfg = self.cfg
+        dtype = dtype or self.compute_dtype
+        lead = (cfg.num_groups, batch)
+        dev = self.flat.device
+        out = []
+        for slot in range(cfg.group_size):
+            kind = cfg.slot_kind(slot)
+            if kind == RWKV:
+                H, hd = rwkv_dims(cfg)
+                shapes = (((H, hd, hd), torch.float32),
+                          ((1, cfg.d_model), dtype))
+            elif kind == MAMBA:
+                di = mamba_dims(cfg)
+                shapes = (((di, cfg.mamba_d_state), torch.float32),
+                          ((cfg.mamba_conv - 1, di), dtype))
+            else:
+                C = cache_spec(cfg, cfg.slot_attn_kind(slot), max_len)
+                kv = (C, cfg.num_kv_heads, cfg.head_dim_)
+                shapes = (kv, dtype), (kv, dtype)
+            out.append(tuple(torch.zeros(lead + shape, dtype=dt, device=dev)
+                             for shape, dt in shapes))
+        return out

@@ -24,6 +24,13 @@ tokens give bit-equal gradients, as the entry points run and under
 ``torch.use_deterministic_algorithms`` (in a process of its own, with
 ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts).  ``repro_torch.core``'s
 encode and decode launch the kernels on card tensors.
+
+Serving: a SMOKE config's prefill and decode steps on the card against
+the CPU (logits and caches within 1e-5 of their largest entry, 5e-5 for
+jamba) and twice bit-equal; RWKV6 at the init's decays, card and CPU
+against float64; a sliding window's ring overwritten by decode steps,
+against the card's own full forward.  These share ``chip_smoke.py``'s
+serving helpers.
 """
 import pytest
 import torch
@@ -644,3 +651,89 @@ def test_bf16_train_step_on_card_matches_cpu(dev):
     got, want = tg.model.flat.float().cpu(), tc.model.flat.float()
     close = ((got - want).abs() <= want.abs() * 2.0 ** -7).float().mean()
     assert close >= 0.995, float(close)
+
+
+def _chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module: its serving helpers
+    (``trained_like``, ``_serve_steps``, ``_steps_off``, ``_full_logits``,
+    ``init_decays_against_float64``) serve these tests too."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-7b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_on_card_matches_cpu(dev, arch):
+    """A SMOKE config's prefill of 2 x 64 tokens and 4 decode steps
+    (float32; ``trained_like`` weights: RWKV6's decays as a trained model
+    has them, Mamba's conv drawn non-zero): the logits and every cache
+    leaf on the card within 1e-5 of their largest entry on the CPU (5e-5
+    for jamba, as its gradient band), and a second run on the card
+    bit-equal to the first."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    smoke = _chip_smoke()
+    cfg = configs.get_smoke_config(arch)
+    on_cpu = Model(cfg, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(3)
+    smoke.trained_like(on_cpu, g)
+    on_card = Model(cfg, device=dev, seed=0)
+    on_card.load_flat(on_cpu.flat.to(dev))
+    ids = torch.randint(0, cfg.vocab_size, (2, 68), generator=g)
+    want = smoke._serve_steps(on_cpu, ids, None, 64, 4, 68)
+    got = smoke._serve_steps(on_card, ids.to(dev), None, 64, 4, 68)
+    again = smoke._serve_steps(on_card, ids.to(dev), None, 64, 4, 68)
+    band = 5e-5 if cfg.layer_pattern == "mamba_hybrid" else 1e-5
+    assert max(smoke._steps_off(got, want)) <= band
+    for (lg, cg), (la, ca) in zip(got, again):
+        assert torch.equal(lg, la)
+        assert all(torch.equal(a, b) for x, y in zip(cg, ca)
+                   for a, b in zip(x, y))
+
+
+@pytest.mark.cuda
+def test_serve_at_init_decays_against_float64(dev):
+    """rwkv6's SMOKE config at the init's decays (w0 and the LoRA as
+    initialised, the token-shift mixes drawn): a prefill of 2 x 64 and 4
+    decode steps in float32 on the card and on the CPU, each within 5e-5
+    of a float64 evaluation of the same formulas (logits and every cache
+    leaf, over their largest entry; they read 1.1e-5 and 1.75e-5 on an
+    H100): float32's own rounding there exceeds 1e-5, and it is what
+    parts the card from the CPU (2.8e-5 apart)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    smoke = _chip_smoke()
+    _, cpu, card = smoke.init_decays_against_float64(configs, Model)
+    assert max(cpu + card) <= 5e-5, (cpu, card)
+
+
+@pytest.mark.cuda
+def test_attention_decode_wraps_the_sliding_ring_on_card(dev):
+    """llama3.2's SMOKE config with a window of 8: a prompt of 5, then
+    decode steps to position 20, which overwrite the ring of 8 slots
+    twice: each step's logits on the card within 1e-5 of the largest
+    entry of its own full forward's last position."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
+                              attn_kind="sliding", window=8)
+    model = Model(cfg, device=dev, seed=0)
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = torch.randint(0, cfg.vocab_size, (2, 21), generator=g, device=dev)
+    logits, caches = model.prefill(ids[:, :5], max_len=32)
+    assert caches[0][0].shape[2] == 8
+    for t in range(5, 21):
+        pos = torch.full((2,), t, dtype=torch.int32, device=dev)
+        logits, caches = model.decode(ids[:, t], pos, caches)
+        want = smoke._full_logits(model, ids[:, :t + 1], None)
+        err = float((logits - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (t, err)
