@@ -150,6 +150,22 @@ Phases, each of which must pass:
      8,876,462,080), 4 x 512 prompt, 32 tokens, the same numbers, and at
      float32 a prompt of 480 + 32 steps against the full forward at 512
      (RWKV6's chunks of 32; band 3e-4, the same control);
+ 15d. phase M, data parallelism across processes, each run a subprocess
+     of this script (``--rank-run``) while this process holds no large
+     tensor on the card: M1, qwen3-0.6b whole, phase H's setting at M =
+     2 (2 x 1024 uniform tokens a rank, ALQ 3-bit, buckets of 8192,
+     AdamW, a level update at step 1, 3 steps, all_gather) in 2 gloo
+     ranks sharing cuda:0 under ``python -m torch.distributed.run``,
+     against the stacked launcher's ``--workers 2`` run of the same
+     arguments in a process of its own; M2, its first 4 layers with
+     ``--sync two_phase --compress ef --integrity``, 5 steps; M3, NCCL at
+     world size 1 with qwen3-0.6b's SMOKE config against ``--workers 1``.
+     Every rank's losses and final parameters' sha256 must equal the
+     stacked run's (if not, both run again under deterministic
+     algorithms, which must agree, and that is reported); per run the
+     steady step time (median, spread), the stage split with its
+     ``collective`` stage, each rank's peak memory and launches, and every
+     rank launched all three kernels;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -158,7 +174,8 @@ Phases, each of which must pass:
      launches, the ops with the most device time).
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
-over phases B-I), then as the last
+over phases B-I, the vision step, slice 8's ``--smoke`` runs and phase
+M's ranks), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -2221,6 +2238,176 @@ def micro_check(train):
           f"within rtol {rel:.3g}: {two}", flush=True)
 
 
+def rank_run(argv: list[str]) -> None:
+    """Phase M's child (``chip_smoke.py --rank-run OUT [--deterministic]
+    ARGV...``, under torchrun or alone): one launcher run with every
+    launch count set to 0 just before it; writes its losses, step and
+    stage times, the sha256 of its final parameters, its launches and
+    its peak memory to OUT/rank<R>.json (R the group rank, or "stacked")."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train
+    out, argv = argv[0], argv[1:]
+    if argv[:1] == ["--deterministic"]:
+        torch.use_deterministic_algorithms(True)
+        argv = argv[1:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.build()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    try:
+        res = train.run(train.parse_args(argv))
+        counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+        peak = torch.cuda.max_memory_allocated()
+        rank = dist.get_rank() if dist.is_initialized() else "stacked"
+        rec = {"rank": rank, "d": res["d"],
+               "layers": res["config"].num_layers,
+               "device": str(res["trainer"].model.flat.device),
+               "loss": [h["loss"] for h in res["history"]],
+               "step_ms": [h["step_ms"] for h in res["history"]],
+               "stage_ms": [h["stage_ms"] for h in res["history"]],
+               "corrupt": [h["corrupt_fraction"] for h in res["history"]],
+               "digest": train.params_digest(res["trainer"].model.flat),
+               "launches": counts, "layouts": layouts, "peak_bytes": peak}
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _rank_runs(label: str, argv: list[str], nproc: int,
+               deterministic: bool) -> list[dict]:
+    """``rank_run`` in ``nproc`` processes under torchrun (0: one plain
+    process, the stacked workers); every process's record."""
+    import glob
+    import shutil
+    out = os.path.join(ROOT, "build", "phase_m", label)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    me = [os.path.abspath(__file__), "--rank-run", out]
+    if deterministic:
+        me.append("--deterministic")
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    if deterministic:
+        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    sub = subprocess.run(cmd + me + argv, env=env, capture_output=True,
+                         text=True)
+    wall = time.perf_counter() - t0
+    check(sub.returncode == 0, f"phase M {label} failed (rc "
+          f"{sub.returncode}): {sub.stdout[-2000:]}\n{sub.stderr[-4000:]}")
+    recs = [json.load(open(f)) for f in sorted(glob.glob(
+        os.path.join(out, "rank*.json")))]
+    check(len(recs) == max(nproc, 1), f"phase M {label}: {len(recs)} "
+          "records")
+    for r in recs:
+        r["wall_s"] = wall
+    return recs
+
+
+def _steady(rec: dict, update_at: int) -> tuple[float, float, int]:
+    """Median and spread of the step times after the first that are not
+    level-update steps, and how many there are."""
+    import statistics
+    ms = [t for i, t in enumerate(rec["step_ms"]) if i and i != update_at]
+    return statistics.median(ms), max(ms) - min(ms), len(ms)
+
+
+def phase_m_run(name: str, argv: list[str], ranks: int, backend: str,
+                kernels_needed) -> dict:
+    """One phase-M cell: the launcher in ``ranks`` processes over
+    ``backend`` on cuda:0, and the stacked launcher with ``--workers
+    ranks`` in a process of its own; every step's loss and the final
+    parameters' sha256 must agree bit for bit on every rank (else both
+    run again under deterministic algorithms, and must agree there)."""
+    group = argv + ["--device", "cuda:0", "--backend", backend]
+    stacked = argv + ["--device", "cuda:0", "--workers", str(ranks)]
+    deterministic = False
+    while True:
+        recs = _rank_runs(f"{name}-group", group, ranks, deterministic)
+        base = _rank_runs(f"{name}-stacked", stacked, 0, deterministic)[0]
+        same = all(r["loss"] == base["loss"] and r["digest"] == base["digest"]
+                   for r in recs)
+        if same or deterministic:
+            break
+        print(f"phase {name}: ranks {[r['loss'] for r in recs]} against "
+              f"stacked {base['loss']}: not bit-equal; again under "
+              "deterministic algorithms", flush=True)
+        deterministic = True
+    check(same, f"phase {name}: ranks and stacked differ under "
+          f"deterministic algorithms: {[r['loss'] for r in recs]} against "
+          f"{base['loss']}")
+    check(all(r["rank"] == i for i, r in enumerate(recs)),
+          f"phase {name} ranks {[r['rank'] for r in recs]}")
+    for r in recs + [base]:
+        check(all(math.isfinite(x) for x in r["loss"]),
+              f"phase {name} loss not finite: {r['loss']}")
+        check(r["device"] == "cuda:0", f"phase {name} on {r['device']}")
+    for r in recs:
+        check(all(r["launches"].get(k, 0) > 0 for k in kernels_needed),
+              f"phase {name} rank {r['rank']} kernel launches "
+              f"{r['launches']}")
+    update_at = int(argv[argv.index("--update-at") + 1])
+    for r in recs + [base]:
+        med, spread, n = _steady(r, update_at)
+        split = "; ".join(", ".join(f"{k} {v:.1f}" for k, v in st.items())
+                          for st in r["stage_ms"])
+        who = f"stacked x{ranks}" if r is base else f"rank {r['rank']}"
+        print(f"phase {name} {who}: d={r['d']}, {r['layers']} layers, "
+              f"steady step {med:.1f} ms (spread {spread:.1f}, {n} steps), "
+              f"steps ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, stages ms by step "
+              f"[{split}], peak memory {r['peak_bytes'] / 2**30:.2f} GiB, "
+              f"launches {r['launches']}, process {r['wall_s']:.1f} s",
+              flush=True)
+    how = " under deterministic algorithms" if deterministic else ""
+    print(f"phase {name}: {ranks} {backend} ranks and the stacked "
+          f"--workers {ranks} run bit-equal{how}: losses {base['loss']}, "
+          f"sha256 {base['digest'][:16]}...", flush=True)
+    return {"ranks": recs, "stacked": base, "backend": backend,
+            "deterministic_rerun": deterministic}
+
+
+def phase_m(smi: str) -> dict:
+    """Phase M: data parallelism across processes, each run in
+    subprocesses while this process holds no large tensor on the card.
+    M1: qwen3-0.6b whole, 2 gloo ranks on cuda:0 (phase H's setting at
+    M = 2); M2: its first 4 layers, two_phase + ef + integrity, 5 steps;
+    M3: NCCL at world size 1, qwen3-0.6b's SMOKE config."""
+    import torch
+    torch.cuda.empty_cache()
+    print(f"phase M: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB on the card",
+          flush=True)
+    full = ["--arch", "qwen3-0.6b", "--batch", "4", "--seq", "1024",
+            "--data", "uniform", "--scheme", "alq", "--bits", "3",
+            "--bucket", str(BS_B), "--optim", "adamw", "--lr", "1e-4",
+            "--update-at", "1", "--time-stages"]
+    out = {"card": smi}
+    out["M1"] = phase_m_run("M1", full + ["--steps", "3"], 2, "gloo",
+                            ("quantize", "dequantize", "bucket_stats"))
+    check(out["M1"]["stacked"]["d"] == D_H
+          and out["M1"]["stacked"]["layers"] == 28,
+          "phase M1 is not qwen3-0.6b whole")
+    out["M2"] = phase_m_run(
+        "M2", full + ["--layers", "4", "--steps", "5", "--sync",
+                      "two_phase", "--compress", "ef", "--integrity"], 2,
+        "gloo", ("quantize", "dequantize", "bucket_stats"))
+    check(all(c == 0.0 for r in out["M2"]["ranks"] for c in r["corrupt"]),
+          "phase M2 corrupt buckets on a clean wire")
+    out["M3"] = phase_m_run(
+        "M3", ["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--seq",
+               "1024", "--data", "uniform", "--update-at", "1",
+               "--time-stages", "--steps", "3"], 1, "nccl",
+        ("quantize", "dequantize", "bucket_stats"))
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2246,6 +2433,9 @@ def main() -> None:
         from repro_torch.sim import topology
     except ImportError as e:
         fail(f"the port is not importable from {ROOT}/src: {e}")
+    if sys.argv[1:2] == ["--rank-run"]:
+        rank_run(sys.argv[2:])
+        return
     if sys.argv[1:2] == ["--grad-twice"]:
         # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
         torch.use_deterministic_algorithms(True)
@@ -2525,6 +2715,11 @@ def main() -> None:
                           D_L, 480, 32, every=False, band=3e-4)
     print(json.dumps({"phase_k": phase_k, "phase_l": phase_l, "card": smi}),
           flush=True)
+    # ---- phase M: one worker a process, in subprocesses ----
+    phase_mm = phase_m(smi)
+    print(json.dumps({"phase_m": phase_mm}), flush=True)
+    counts_m = [r["launches"] for cell in ("M1", "M2", "M3")
+                for r in phase_mm[cell]["ranks"]]
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
                       "grad_profile": grad_profile(
@@ -2538,7 +2733,8 @@ def main() -> None:
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
             counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
-            counts_h, counts_i, counts_v, *counts_smoke.values()))
+            counts_h, counts_i, counts_v, *counts_smoke.values(),
+            *counts_m))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

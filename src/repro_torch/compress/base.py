@@ -7,16 +7,18 @@ checkpoints like optimizer state.  ``dist.sync.compressed_allreduce``
 sequences its hooks:
 
     inp = algo.prepare(flats, state)          # residual injection
-    ... ENCODE -> collective -> DECODE of inp; for each worker w:
-        algo.feedback(state, w, inp[w], own)  # residual update
+    ... ENCODE -> collective -> DECODE of inp; for each local worker i:
+        algo.feedback(state, i, inp[i], own)  # residual update
     new_state = algo.advance(state)
 
-``own`` is worker w's own lossy round trip Q(inp[w]), the decode of the
-bytes it put on the wire, so error feedback costs no wire bytes.
+``own`` is local worker i's own lossy round trip Q(inp[i]), the decode
+of the bytes it put on the wire, so error feedback costs no wire bytes.
 
-The M workers' residuals are the rows of one (M, d) tensor, and both
-hooks work IN PLACE on it and on the (M, d) gradient rows: at full model
-width every (M, d) temporary would cost as much as the gradients.
+The residuals of the L workers a process holds (all M on the stacked
+transport, one a process on a process group) are the rows of one (L, d)
+tensor, and both hooks work IN PLACE on it and on the (L, d) gradient
+rows: at full model width every (L, d) temporary would cost as much as
+the gradients.
 
 Shipped algorithms (``repro_torch.compress.make_algorithm``):
 
@@ -38,16 +40,18 @@ from repro_torch.core.codec import GradientCodec
 
 
 class CompressState(NamedTuple):
-    """The M workers' algorithm state: ``residual`` (M, d) holds worker
-    w's error-feedback memory at row w over the unpadded coordinates;
-    ``step`` counts synchronizations and drives the warmup gate."""
+    """The local workers' algorithm state: ``residual`` (L, d) holds
+    local worker i's error-feedback memory at row i over the unpadded
+    coordinates; ``step`` counts synchronizations and drives the warmup
+    gate."""
 
     residual: torch.Tensor
     step: int
 
     @property
     def residual_norm(self) -> torch.Tensor:
-        """(M,) norm of each worker's residual, one row at a time."""
+        """(L,) norm of each local worker's residual, one row at a
+        time."""
         return torch.stack([torch.linalg.vector_norm(r)
                             for r in self.residual])
 
@@ -71,6 +75,7 @@ class CompressionAlgorithm:
 
     def init_state(self, workers: int, d: int, device="cuda"
                    ) -> CompressState:
+        """Zero state of ``workers`` local workers' residual rows."""
         n = d if self.stateful else 0
         return CompressState(
             residual=torch.zeros((workers, n), dtype=torch.float32,
@@ -79,12 +84,12 @@ class CompressionAlgorithm:
 
     def prepare(self, flats: torch.Tensor,
                 state: CompressState | None) -> torch.Tensor:
-        """What the codec encodes this step (residual-corrected (M, d))."""
+        """What the codec encodes this step (residual-corrected (L, d))."""
         return flats
 
-    def feedback(self, state: CompressState | None, w: int,
+    def feedback(self, state: CompressState | None, i: int,
                  inp: torch.Tensor, own: torch.Tensor) -> None:
-        """Update worker w's state from its round trip ``own`` of
+        """Update local worker i's state from its round trip ``own`` of
         ``inp``."""
 
     def advance(self, state: CompressState | None) -> CompressState | None:
@@ -114,10 +119,10 @@ class EFAlgorithm(CompressionAlgorithm):
             flats.add_(state.residual)
         return flats
 
-    def feedback(self, state, w, inp, own):
+    def feedback(self, state, i, inp, own):
         # during warmup the memory stays zero: the gate applies to the
         # write too, so no error accumulates before it is used
         if self._gate(state):
-            torch.sub(inp, own, out=state.residual[w])
+            torch.sub(inp, own, out=state.residual[i])
         else:
-            state.residual[w].zero_()
+            state.residual[i].zero_()

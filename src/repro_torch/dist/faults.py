@@ -12,7 +12,9 @@ collective -> DECODE path of ``dist.sync`` runs under faults with no
 change to the wire modes.  The draws come from one ``torch.Generator``
 seeded from ``(model.seed, step)``: a run is reproducible, and every
 receiver sees the same corruption of a sender's row (the corruption is
-sender-side).  PyTorch cannot reproduce the reference's ``jax.random``
+sender-side), in whichever process it runs: over a process group every
+rank draws the same flips for all M senders and applies them to the
+rows it received.  PyTorch cannot reproduce the reference's ``jax.random``
 streams, so the two packages flip other bits at the same rates.
 
 What a fault does to the step:
@@ -148,6 +150,9 @@ class FaultyTransport(StackedTransport):
         self._drop: torch.Tensor | None = None
 
     # ---- delegation ------------------------------------------------------
+
+    def local_workers(self):
+        return self.inner.local_workers()
 
     def active_vector(self):
         return self.inner.active_vector()

@@ -1,9 +1,12 @@
 """Quantized gradient synchronization (Algorithm 1, lines 2-9).
 
-The M workers' local gradients arrive stacked as one (M, d) tensor and
-what travels between them is a ``core.codec.WirePayload``: packed level
-symbols plus packed bucket norms, never dequantized floats.  This module
-sequences ENCODE -> collective -> DECODE -> average over a transport.
+The gradients of the workers a process holds (the transport's
+``local_workers()``: all M on the stacked transport, one on a process
+group) arrive as one (L, d) tensor, and what travels between workers is
+a ``core.codec.WirePayload``: packed level symbols plus packed bucket
+norms, never dequantized floats.  This module sequences ENCODE ->
+collective -> DECODE -> average over a transport; every process ends
+with the same aggregate, and with all M workers' metrics.
 
 Wire modes
 ----------
@@ -24,14 +27,16 @@ buckets zero-fill.  ``compressed_allreduce`` wraps the wire modes in the
 ``repro_torch.compress`` hook: residual injection before ENCODE, residual
 update from each worker's own decode after DECODE.
 
-On the stacked transport every worker holds the same aggregate, so the
-aggregate is decoded once; each worker's own round trip Q(g_w) is
-decoded worker by worker and handed to ``on_own(w, own)``, so that no
-(M, d) tensor of own round trips is needed beside the aggregate's.
+Every worker holds the same aggregate, so a process decodes it once;
+each local worker's own round trip Q(g_w) is decoded worker by worker
+and handed to ``on_own(i, own)`` (i its local index), so that no (L, d)
+tensor of own round trips is needed beside the aggregate's.  The
+collectives are booked to the clock's ``collective`` stage.
 
 ``gather_stats`` is the sufficient-statistics path (Algorithm 1, line 4):
-one fused ``bucket_stats`` sweep per worker, strided subsampling to
-``max_stat_components`` and a merge of the M workers' mixtures.
+one fused ``bucket_stats`` sweep per local worker, strided subsampling to
+``max_stat_components``, a gather and a merge of the M workers'
+mixtures.
 ``maybe_update_levels`` runs it, and the level update, on update steps
 only.
 """
@@ -89,16 +94,25 @@ class SyncMetrics(NamedTuple):
     worker_bits_per_coord: tuple = ()
 
 
+def _generator_of(generator, i):
+    """Local worker i's generator: its own where ``generator`` is a
+    sequence of one a local worker, else the one shared generator."""
+    if isinstance(generator, (list, tuple)):
+        return generator[i]
+    return generator
+
+
 def encode_workers(flats, codec, levels, plan, u=None, generator=None,
                    clock=NO_CLOCK) -> list[WirePayload]:
-    """Every worker's payload of its row of ``flats``, worker w rounding
-    with ``u[w]`` (or draws from ``generator``, in worker order)."""
+    """Every local worker's payload of its row of ``flats``, local worker
+    i rounding with ``u[i]`` or else drawing from its generator (see
+    ``_generator_of``; a shared one is drawn in local order)."""
     payloads = []
-    for w in range(flats.shape[0]):
-        vb = codec.bucketize(flats[w], plan)
+    for i in range(flats.shape[0]):
+        vb = codec.bucketize(flats[i], plan)
         payloads.append(codec.encode(
-            vb, levels, plan=plan, u=None if u is None else u[w],
-            generator=generator, clock=clock))
+            vb, levels, plan=plan, u=None if u is None else u[i],
+            generator=_generator_of(generator, i), clock=clock))
         del vb
     return payloads
 
@@ -111,21 +125,41 @@ def payload_bits_per_coord(codec, payloads, plan) -> tuple:
     return tuple(codec.measured_bits_per_coord(p, plan) for p in payloads)
 
 
-def _gather(transport, payloads, collective: str) -> WirePayload:
+def _all_workers(transport, local: torch.Tensor) -> torch.Tensor:
+    """The local workers' (L,) values -> all M workers', in worker order
+    (a float side band: ``FaultyTransport`` passes it un-faulted)."""
+    return transport.all_gather(list(local))
+
+
+def _all_bits(transport, codec, payloads, plan, device) -> tuple:
+    """Every worker's own payload's bits/coord, whichever process holds
+    it (float64 on the wire, so the Python floats come back exact)."""
+    if not plan.variable:
+        return (plan.bits_per_coord,) * transport.size()
+    local = payload_bits_per_coord(codec, payloads, plan)
+    return tuple(_all_workers(transport, torch.tensor(
+        local, dtype=torch.float64, device=device)).tolist())
+
+
+def _gather(transport, payloads, collective: str, clock) -> WirePayload:
     move = getattr(transport, collective)
-    return WirePayload(words=move([p.words for p in payloads]),
-                       norm_words=move([p.norm_words for p in payloads]))
+    out = WirePayload(words=move([p.words for p in payloads]),
+                      norm_words=move([p.norm_words for p in payloads]))
+    clock.mark("collective")
+    return out
 
 
 def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
                           on_own, clock):
-    M, d = flats.shape
+    d = flats.shape[1]
+    local = transport.local_workers()
     plan = codec.plan(d)
     payloads = encode_workers(flats, codec, levels, plan, u, generator, clock)
-    gathered = _gather(transport, payloads, "all_gather")
-    qerr = torch.empty(M, device=flats.device)
-    corrupt = torch.zeros(M, device=flats.device)
-    excluded = torch.zeros(M, device=flats.device)
+    gathered = _gather(transport, payloads, "all_gather", clock)
+    qerr = torch.empty(len(local), device=flats.device)
+    # every worker decodes the same gathered rows: one verdict for all
+    corrupt = torch.zeros(transport.size(), device=flats.device)
+    excluded = torch.zeros(transport.size(), device=flats.device)
     if plan.integrity:
         # corrupt buckets leave the mean; each worker's own round trip
         # comes from its local payload, not its gathered row, so that
@@ -139,23 +173,25 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
         clock.mark("decode")
         corrupt[:] = 1.0 - valid.float().mean()
         excluded[:] = (~valid).all(dim=1).float().sum()
-        for w in range(M):
-            own = codec.decode(payloads[w], levels, plan)[:d]
-            qerr[w] = torch.sum((own - flats[w]) ** 2)
-            on_own(w, own)
+        for i in range(len(local)):
+            own = codec.decode(payloads[i], levels, plan)[:d]
+            qerr[i] = torch.sum((own - flats[i]) ** 2)
+            on_own(i, own)
             del own
     else:
         per_worker = codec.decode(gathered, levels, plan, clock=clock)
         del gathered
         out = transport.mean_workers(per_worker)[:d]
-        for w in range(M):
-            qerr[w] = torch.sum((per_worker[w, :d] - flats[w]) ** 2)
-            on_own(w, per_worker[w, :d])
+        # each worker's own round trip is its row of the gathered decode
+        for i, w in enumerate(local):
+            qerr[i] = torch.sum((per_worker[w, :d] - flats[i]) ** 2)
+            on_own(i, per_worker[w, :d])
     clock.mark("decode")
     # variable-volume codecs bill what each worker's headers say it ships
-    bits = payload_bits_per_coord(codec, payloads, plan)
+    bits = _all_bits(transport, codec, payloads, plan, flats.device)
     # the single gather is the broadcast-all hop (paper Sec. 5)
-    return out, SyncMetrics(bits[0], qerr, 0.0, bits[0], None,
+    return out, SyncMetrics(bits[0], _all_workers(transport, qerr), 0.0,
+                            bits[0], None,
                             corrupt_fraction=corrupt,
                             excluded_workers=excluded,
                             worker_bits_per_coord=bits)
@@ -163,7 +199,8 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
 
 def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
                          on_own, clock):
-    M, d = flats.shape
+    d = flats.shape[1]
+    M, local = transport.size(), transport.local_workers()
     dev = flats.device
     plan = codec.plan(d, shards=M)
     snb, bs = plan.shard_nb, plan.bucket_size
@@ -173,21 +210,23 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     if M == 1:  # an unsharded payload is 1-D; the wire still sees a row
         payloads = [WirePayload(p.words[None], p.norm_words[None])
                     for p in payloads]
-    received = _gather(transport, payloads, "all_to_all")   # [rank, sender]
+    # [local receiver, sender]
+    received = _gather(transport, payloads, "all_to_all", clock)
     codec2 = requant_codec(codec, TWO_PHASE_BITS)
     lv2 = uniform_levels(TWO_PHASE_BITS, device=dev)
     plan2 = codec2.plan_buckets(snb)
-    bad1 = torch.zeros(M, device=dev)
-    excluded = torch.zeros(M, device=dev)
+    bad1 = torch.zeros(len(local), device=dev)
+    excluded = torch.zeros(len(local), device=dev)
     phase2 = []
-    for r in range(M):
-        mine = WirePayload(received.words[r], received.norm_words[r])
+    # each rank decodes, averages and re-quantizes its own shard
+    for i, r in enumerate(local):
+        mine = WirePayload(received.words[i], received.norm_words[i])
         if plan.integrity:
             vals, valid1 = codec.decode_checked(mine, levels, plan, shard=r,
                                                 clock=clock)
             shard_mean = transport.mean_workers_bucketed(vals, valid1, bs)
-            bad1[r] = (~valid1).float().sum()
-            excluded[r] = (~valid1).all(dim=1).float().sum()
+            bad1[i] = (~valid1).float().sum()
+            excluded[i] = (~valid1).all(dim=1).float().sum()
         else:
             vals = codec.decode(mine, levels, plan, shard=r, clock=clock)
             shard_mean = transport.mean_workers(vals)
@@ -197,11 +236,12 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
         # ---- phase 2: re-quantize this rank's shard of the aggregate ----
         phase2.append(codec2.encode(
             shard_mean.view(snb, bs), lv2, plan=plan2,
-            u=None if u2 is None else u2[r], generator=generator,
+            u=None if u2 is None else u2[i],
+            generator=_generator_of(generator, i),
             clock=Renamed(clock, "requant")))
         del shard_mean
     del received
-    g2 = _gather(transport, phase2, "all_gather")
+    g2 = _gather(transport, phase2, "all_gather", clock)
     # every worker decodes the same gathered bytes: decode them once
     if plan2.integrity:
         out, valid2 = codec2.decode_checked(g2, lv2, plan2, clock=clock)
@@ -210,7 +250,7 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
         # as it may decode to NaN)
         out.view(M, snb, bs).masked_fill_(~valid2[:, :, None], 0.0)
         bad2 = (~valid2).float().sum()
-        corrupt = (bad1 + bad2) / (2 * M * snb)
+        corrupt = (_all_workers(transport, bad1) + bad2) / (2 * M * snb)
     else:
         out = codec2.decode(g2, lv2, plan2, clock=clock)
         corrupt = torch.zeros(M, device=dev)
@@ -218,20 +258,22 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     out = out.reshape(-1)[:d]
 
     # each worker's own phase-1 payload, decoded shard by shard
-    qerr = torch.empty(M, device=dev)
-    for w in range(M):
-        own = codec.decode(payloads[w], levels, plan,
+    qerr = torch.empty(len(local), device=dev)
+    for i in range(len(local)):
+        own = codec.decode(payloads[i], levels, plan,
                            clock=clock).reshape(-1)[:d]
-        qerr[w] = torch.sum((own - flats[w]) ** 2)
-        on_own(w, own)
+        qerr[i] = torch.sum((own - flats[i]) ** 2)
+        on_own(i, own)
         del own
     clock.mark("decode")
-    bits_reduce = payload_bits_per_coord(codec, payloads, plan)
+    bits_reduce = _all_bits(transport, codec, payloads, plan, dev)
     bits_bcast = 32.0 * (plan2.code_words + plan2.norm_words) / d
-    return out, SyncMetrics(bits_reduce[0] + bits_bcast, qerr,
+    return out, SyncMetrics(bits_reduce[0] + bits_bcast,
+                            _all_workers(transport, qerr),
                             bits_reduce[0], bits_bcast, None,
                             corrupt_fraction=corrupt,
-                            excluded_workers=excluded,
+                            excluded_workers=_all_workers(transport,
+                                                          excluded),
                             worker_bits_per_coord=bits_reduce)
 
 
@@ -239,19 +281,27 @@ _MODES = {"all_gather": _allreduce_all_gather,
           "two_phase": _allreduce_two_phase}
 
 
+def _transport_for(flats, transport):
+    """``transport``, or the stacked transport of ``flats``'s M rows;
+    ``flats`` must hold one row a local worker."""
+    if transport is None:
+        return make_transport(flats.shape[0])
+    local = transport.local_workers()
+    if len(local) != flats.shape[0]:
+        raise ValueError(f"transport holding {len(local)} of "
+                         f"{transport.size()} workers for "
+                         f"{flats.shape[0]} gradient rows")
+    return transport
+
+
 def _allreduce(flats, scheme, state, mode, transport, codec, u, u2,
                generator, on_own, clock):
     """Every sync mode: (aggregate (d,), SyncMetrics)."""
-    M = flats.shape[0]
-    if transport is None:
-        transport = make_transport(M)
-    if transport.size() != M:
-        raise ValueError(f"transport of {transport.size()} workers for "
-                         f"{M} gradients")
+    M = transport.size()
     if mode == "fp32" or not scheme.quantized:
-        for w in range(M):      # lossless: the own round trip is the input
-            on_own(w, flats[w])
-        return transport.mean_psum(flats), _fp32_metrics(flats)
+        for i in range(flats.shape[0]):  # lossless: own round trip = input
+            on_own(i, flats[i])
+        return transport.mean_psum(flats), _fp32_metrics(M, flats.device)
     if mode not in _MODES:
         raise ValueError(f"unknown sync mode {mode!r}; known: "
                          f"('fp32', {', '.join(map(repr, _MODES))})")
@@ -263,8 +313,7 @@ def _allreduce(flats, scheme, state, mode, transport, codec, u, u2,
                            residual_norm=torch.zeros(M, device=flats.device))
 
 
-def _fp32_metrics(flats) -> SyncMetrics:
-    M, dev = flats.shape[0], flats.device
+def _fp32_metrics(M, dev) -> SyncMetrics:
     zeros = torch.zeros(M, device=dev)
     return SyncMetrics(32.0, zeros, 32.0, 0.0, torch.tensor(32.0, device=dev),
                        residual_norm=zeros, corrupt_fraction=zeros,
@@ -281,34 +330,41 @@ def quantized_allreduce(
     codec: GradientCodec | None = None,
     u: Uniforms = None,
     u2: Uniforms = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | Sequence[torch.Generator] | None = None,
     return_own: bool = False,
     clock=NO_CLOCK,
 ) -> tuple:
     """ENCODE -> collective -> DECODE -> average.
 
     Args:
-      flats: (M, d) local gradients, worker w's at row w.
+      flats: (L, d) gradients of the transport's L local workers, local
+        worker i's (global worker ``transport.local_workers()[i]``) at
+        row i; all M rows on the default stacked transport.
       scheme / state: quantization method and its adaptive state (levels).
       mode: 'fp32' | 'all_gather' | 'two_phase'.
       transport: the collective transport (a ``StackedTransport`` of the
         M workers by default; ``MaskedTransport`` to drop workers,
-        ``dist.faults.FaultyTransport`` to corrupt the wire).
+        ``dist.faults.FaultyTransport`` to corrupt the wire,
+        ``ProcessGroupTransport`` for one worker a process).
       codec: the wire codec (the scheme's uniform codec by default).
-      u: per-worker float32 uniforms of the phase-1 rounding, u[w] for
-        worker w, shaped like the codec's encode draws them (the tests
-        feed the reference's draws); when None every worker draws its own
-        from ``generator``.
+      u: per-worker float32 uniforms of the phase-1 rounding, u[i] for
+        local worker i, shaped like the codec's encode draws them (the
+        tests feed the reference's draws); when None every worker draws
+        its own from ``generator``.
       u2: per-rank (shard_nb, bucket_size) uniforms of the two_phase
-        re-quantization, u2[r] for rank r; drawn from ``generator`` when
-        None.
-      return_own: also return each worker's own lossy round trip
-        Q(flats[w]) as an (M, d) tensor.
+        re-quantization, u2[i] for local worker i's rank; drawn from
+        ``generator`` when None.
+      generator: one generator, drawn in local worker order, or a
+        sequence of one a local worker.
+      return_own: also return each local worker's own lossy round trip
+        Q(flats[i]) as an (L, d) tensor.
       clock: stage clock (``mark(stage)``) for per-stage timing.
 
     Returns (aggregate mean (d,), SyncMetrics), or (aggregate, own,
-    SyncMetrics) with ``return_own``.
+    SyncMetrics) with ``return_own``.  Every process holds the same
+    aggregate, and the per-worker metrics of all M workers.
     """
+    transport = _transport_for(flats, transport)
     own = torch.empty_like(flats) if return_own else None
 
     def keep(w, row):
@@ -331,21 +387,23 @@ def compressed_allreduce(
     transport: StackedTransport | None = None,
     u: Uniforms = None,
     u2: Uniforms = None,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | Sequence[torch.Generator] | None = None,
     clock=NO_CLOCK,
 ) -> tuple:
     """The ``repro_torch.compress`` algorithm hook around ENCODE/DECODE.
 
     ``algorithm.prepare`` injects the residual into ``flats`` IN PLACE
-    (so the (M, d) gradient rows hold what is encoded), the wire runs on
-    the algorithm's codec, and ``algorithm.feedback`` updates worker w's
-    residual row from its own decode as soon as that decode exists.  With
-    the stateless ``plain`` algorithm this is ``quantized_allreduce`` on
-    the same codec, bit for bit (``comp_state`` may then be None).
+    (so the (L, d) local gradient rows hold what is encoded), the wire
+    runs on the algorithm's codec, and ``algorithm.feedback`` updates
+    local worker i's residual row from its own decode as soon as that
+    decode exists.  With the stateless ``plain`` algorithm this is
+    ``quantized_allreduce`` on the same codec, bit for bit (``comp_state``
+    may then be None).
 
     Returns (aggregate mean, new comp_state, SyncMetrics) with
-    ``residual_norm`` (per worker) and ``kept_fraction`` filled in.
+    ``residual_norm`` (all M workers') and ``kept_fraction`` filled in.
     """
+    transport = _transport_for(flats, transport)
     # the stateless passthrough has no stage of its own
     hook_clock = clock if algorithm.stateful else NO_CLOCK
     inp = algorithm.prepare(flats, comp_state)
@@ -361,19 +419,24 @@ def compressed_allreduce(
     new_state = algorithm.advance(comp_state)
     m = m._replace(kept_fraction=algorithm.kept_fraction)
     if algorithm.stateful:
-        m = m._replace(residual_norm=new_state.residual_norm)
+        m = m._replace(residual_norm=_all_workers(
+            transport, new_state.residual_norm))
         hook_clock.mark("compress")
     return out, new_state, m
 
 
-def gather_stats(flats: torch.Tensor, scheme: QuantScheme) -> TruncNormStats:
+def gather_stats(flats: torch.Tensor, scheme: QuantScheme,
+                 transport: StackedTransport | None = None
+                 ) -> TruncNormStats:
     """Sufficient statistics of every worker's gradient, merged.
 
-    One fused ``bucket_stats`` pass per worker gives per-bucket (norm,
-    mean_r, var_r); each worker keeps ``max_stat_components`` components
-    and the M mixtures are merged.
+    One fused ``bucket_stats`` pass per local worker gives per-bucket
+    (norm, mean_r, var_r); each worker keeps ``max_stat_components``
+    components, and the M mixtures, gathered in worker order, are merged
+    (the reference's ``merge_stats`` over the data axes).
     """
-    M, d = flats.shape
+    transport = _transport_for(flats, transport)
+    d = flats.shape[1]
     codec = codec_for_scheme(scheme)
     plan = codec.plan(d)
     # keep only fully populated buckets: alignment padding is all-zero,
@@ -381,24 +444,26 @@ def gather_stats(flats: torch.Tensor, scheme: QuantScheme) -> TruncNormStats:
     # toward 0; drop it unless it is the only bucket
     nb_valid = max(d // scheme.bucket_size, 1)
     per_worker = []
-    for w in range(M):
+    for row in flats:
         norms, mu, var = ops.bucket_stats_op(
-            codec.bucketize(flats[w], plan), norm_type=scheme.norm_type)
+            codec.bucketize(row, plan), norm_type=scheme.norm_type)
         per_worker.append(stats_from_moments(
             mu[:nb_valid], var[:nb_valid], norms[:nb_valid],
             weighted=scheme.weighted_stats,
             max_components=scheme.max_stat_components))
-    return merge_stats(TruncNormStats(*(torch.stack(f)
+    return merge_stats(TruncNormStats(*(transport.all_gather(list(f))
                                         for f in zip(*per_worker))))
 
 
 def maybe_update_levels(flats: torch.Tensor, scheme: QuantScheme,
                         state: SchemeState, do_update: bool, *,
+                        transport: StackedTransport | None = None,
                         clock=NO_CLOCK) -> SchemeState:
     """Run the scheme's level adaptation iff ``do_update``; non-update
     steps pay nothing."""
     if not (scheme.adaptive and do_update):
         return state
-    state = scheme.update_state(state, gather_stats(flats, scheme))
+    state = scheme.update_state(state, gather_stats(flats, scheme,
+                                                    transport))
     clock.mark("stats")
     return state

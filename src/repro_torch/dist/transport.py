@@ -2,11 +2,18 @@
 
 ``dist.sync`` runs its wire modes against this small interface, so the
 same ENCODE -> collective -> DECODE code serves any way of moving
-payloads.  ``StackedTransport`` holds M logical workers on one device:
-every per-worker tensor carries a leading worker axis M, a gather is a
-``torch.stack`` and the cross-worker mean is ``mean(0)``.  It is the
+payloads.  A transport holds ``local_workers()``, the global indices of
+the workers whose tensors this process holds, and every per-worker
+argument is a list (or leading axis) over them, in that order; what a
+collective returns covers all M workers.
+
+``StackedTransport`` holds all M logical workers on one device: a gather
+is a ``torch.stack`` and the cross-worker mean is ``mean(0)``.  It is the
 counterpart of the reference's vmap-axis transport, which its cluster
 simulator uses to run M logical workers on one host.
+``ProcessGroupTransport`` holds one worker a process and moves the words
+with ``torch.distributed`` collectives: the counterpart of the
+reference's ``MeshTransport`` over the data axes.
 
 A transport also owns the cross-worker averaging rule: the plain
 transport averages uniformly; ``MaskedTransport`` renormalizes over the
@@ -16,6 +23,7 @@ wire mode gets dropout support without knowing about it.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def _weighted_sum(weights: torch.Tensor, stacked: torch.Tensor
@@ -38,6 +46,10 @@ class StackedTransport:
 
     def size(self) -> int:
         return self._size
+
+    def local_workers(self) -> list[int]:
+        """The global indices of the workers this process holds."""
+        return list(range(self._size))
 
     def all_gather(self, per_worker: list[torch.Tensor]) -> torch.Tensor:
         """M per-worker tensors -> (M, ...) with worker w's at row w."""
@@ -124,6 +136,62 @@ class MaskedTransport(StackedTransport):
 
     def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
         return self.mean_workers(stacked)
+
+
+class ProcessGroupTransport(StackedTransport):
+    """One worker a process over a ``torch.distributed`` process group.
+
+    Worker w is the process of global rank w.  NCCL gathers into one
+    tensor (``all_gather_into_tensor``), gloo into the rows of one
+    (``all_gather``); both exchange shards with ``all_to_all_single``.
+    Words travel as the int32 bit patterns they are.  The averaging rule
+    acts on gathered rows as the stacked transport's does, so every
+    process holds the aggregate the stacked workers would.
+    """
+
+    def __init__(self, group=None):
+        super().__init__(dist.get_world_size(group))
+        self.group = group
+        self._rank = dist.get_rank(group)
+        self.backend = dist.get_backend(group)
+
+    def rank(self) -> int:
+        return self._rank
+
+    def local_workers(self) -> list[int]:
+        return [self._rank]
+
+    @staticmethod
+    def _own(per_worker) -> torch.Tensor:
+        if len(per_worker) != 1:
+            raise ValueError(f"a process holds one worker, got "
+                             f"{len(per_worker)} payloads")
+        return per_worker[0].contiguous()
+
+    def all_gather(self, per_worker: list[torch.Tensor]) -> torch.Tensor:
+        """This process's payload -> (M, ...) with rank w's at row w."""
+        x = self._own(per_worker)
+        out = x.new_empty((self._size,) + x.shape)
+        if self.backend == dist.Backend.NCCL:
+            dist.all_gather_into_tensor(out, x, group=self.group)
+        else:
+            dist.all_gather(list(out), x, group=self.group)
+        return out
+
+    def all_to_all(self, per_worker: list[torch.Tensor]) -> torch.Tensor:
+        """This process's (M, ...) payload, row j bound for rank j ->
+        (1, M, ...) whose [0, w] is what rank w sent to this one."""
+        x = self._own(per_worker)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out[None]
+
+    def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
+        """The reference's ``psum / size`` of this process's (1, ...)
+        row: a float32 sum over the ranks, divided, in the row's dtype."""
+        total = self._own(stacked).to(torch.float32, copy=True)
+        dist.all_reduce(total, group=self.group)
+        return (total / self._size).to(stacked.dtype)
 
 
 def make_transport(size: int, active: torch.Tensor | None = None

@@ -1,11 +1,26 @@
-"""Training launcher: M logical data-parallel workers on one device.
+"""Training launcher: M data-parallel workers, all on one device or one
+a process.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-proxy \
       --workers 4 --scheme alq --bits 3 --steps 16 --sync all_gather
 
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --backend gloo --arch paper-proxy --steps 16
+
 Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
 milliseconds of each step) so that scripts can drive it too.
+
+Started by ``torch.distributed.run`` (``WORLD_SIZE`` in the environment)
+it runs one worker a process over a ``ProcessGroupTransport``
+(``launch/mesh.py``): ``--backend`` nccl (the default on a card) or gloo
+(on the CPU, or several ranks sharing one card), each rank on
+``cuda:LOCAL_RANK`` unless ``--device`` names one; ``--workers`` is then
+1 or the world size.  Rank 0 logs and saves; every rank checks that its
+parameters equal rank 0's after initialisation and after the last step,
+and ``run`` returns the same metrics on every rank, equal to a stacked
+run's of the same M.
 
 ``--smoke`` takes the arch's reduced config.  ``--codec
 entropy|mixed_width`` (with ``--widths``) picks the wire codec
@@ -20,12 +35,15 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.core.schemes import QuantScheme
+from repro_torch.launch import mesh
 from repro_torch.models.transformer import Model
 from repro_torch.timing import NO_CLOCK, StageClock
 from repro_torch.train.data import DataConfig, Pipeline
@@ -89,13 +107,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the end)")
     ap.add_argument("--save", default="",
                     help="write the final flat parameters to this npz")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cpu, cuda, or cuda:N (under torchrun a bare "
+                         "cuda is cuda:LOCAL_RANK)")
+    ap.add_argument("--backend", default=None, choices=mesh.BACKENDS,
+                    help="process-group backend under torchrun (default: "
+                         "nccl on a card, gloo on the CPU)")
     ap.add_argument("--time-stages", action="store_true",
                     help="time the stages of every step (CUDA events)")
     return ap.parse_args(argv)
 
 
-def resume_state(ckpt_dir: str, trainer: Trainer) -> int:
+def resume_state(ckpt_dir: str, trainer: Trainer, log=print) -> int:
     """Auto-resume: load the newest checkpoint in ``ckpt_dir`` into
     ``trainer`` and return the step after it, or 0 for a fresh start."""
     found = checkpoint.restore_latest(ckpt_dir, trainer.state_arrays())
@@ -103,9 +126,44 @@ def resume_state(ckpt_dir: str, trainer: Trainer) -> int:
         return 0
     step, arrays = found
     trainer.load_state_arrays(arrays)
-    print(f"resumed step {step} from "
-          f"{checkpoint.step_path(ckpt_dir, step)}", flush=True)
+    log(f"resumed step {step} from {checkpoint.step_path(ckpt_dir, step)}")
     return step + 1
+
+
+def params_digest(flat: torch.Tensor) -> str:
+    """sha256 of the flat parameters' bytes."""
+    host = flat.detach().contiguous().cpu()
+    return hashlib.sha256(host.view(torch.uint8).numpy()).hexdigest()
+
+
+def check_replicas(transport, flat: torch.Tensor, when: str) -> None:
+    """Raise unless every rank's parameters equal rank 0's, bit for bit
+    (their digests, gathered)."""
+    mine = torch.tensor(list(bytes.fromhex(params_digest(flat))),
+                        dtype=torch.uint8, device=flat.device)
+    every = transport.all_gather([mine])
+    differ = [w for w in range(every.shape[0])
+              if not torch.equal(every[w], every[0])]
+    if differ:
+        raise RuntimeError(f"the parameters of ranks {differ} differ from "
+                           f"rank 0's {when}")
+
+
+def _group(args: argparse.Namespace):
+    """(device, transport, workers): a process group's under torchrun,
+    else the stacked workers' on ``--device``."""
+    world = mesh.world_size()
+    if not world:
+        if args.backend:
+            raise ValueError("--backend needs a process group: start the "
+                             "launcher with torch.distributed.run")
+        return torch.device(args.device), None, args.workers
+    if args.workers not in (1, world):
+        raise ValueError(f"--workers {args.workers} under {world} ranks: a "
+                         f"rank holds one worker, so --workers is 1 or "
+                         f"{world}")
+    device, transport = mesh.init_process_group(args.backend, args.device)
+    return device, transport, world
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -113,8 +171,16 @@ def run(args: argparse.Namespace) -> dict:
            else configs.get_config(args.arch))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    device = torch.device(args.device)
+    device, transport, workers = _group(args)
+    rank0 = transport is None or transport.rank() == 0
+
+    def log(msg: str) -> None:
+        if rank0:
+            print(msg, flush=True)
+
     model = Model(cfg, device=device, seed=SEED)
+    if transport is not None:
+        check_replicas(transport, model.flat, "after initialisation")
     scheme = QuantScheme(name=args.scheme, bits=args.bits,
                          bucket_size=args.bucket)
     tcfg = TrainConfig(
@@ -123,13 +189,13 @@ def run(args: argparse.Namespace) -> dict:
         sync_mode=args.sync,
         update_milestones=tuple(int(x) for x in args.update_at.split(",")
                                 if x),
-        update_every=0, workers=args.workers, microbatches=args.micro,
+        update_every=0, workers=workers, microbatches=args.micro,
         codec=args.codec,
         mixed_width_pattern=tuple(int(x) for x in args.widths.split(",")
                                   if x),
         compress=args.compress, integrity=args.integrity)
-    trainer = Trainer(model, tcfg, seed=SEED)
-    start = resume_state(args.ckpt_dir, trainer) if args.ckpt_dir else 0
+    trainer = Trainer(model, tcfg, seed=SEED, transport=transport)
+    start = resume_state(args.ckpt_dir, trainer, log) if args.ckpt_dir else 0
     pipe = Pipeline(DataConfig(kind=args.data, vocab_size=cfg.vocab_size,
                                seq_len=args.seq, global_batch=args.batch,
                                seed=SEED))
@@ -149,7 +215,10 @@ def run(args: argparse.Namespace) -> dict:
         if args.ckpt_dir and ((args.save_every > 0
                                and (t + 1) % args.save_every == 0)
                               or t == args.steps - 1):
-            checkpoint.save_step(args.ckpt_dir, t, trainer.state_arrays())
+            arrays = trainer.state_arrays()     # every rank gathers
+            if rank0:
+                checkpoint.save_step(args.ckpt_dir, t, arrays)
+            del arrays
         if t % LOG_EVERY == 0 or t == args.steps - 1:
             lv = [round(x, 3) for x in metrics["levels"][:4]]
             extra = ("" if args.compress == "plain" else
@@ -161,23 +230,29 @@ def run(args: argparse.Namespace) -> dict:
             bits = (f"{metrics['comm_bits_per_coord']:.4f} (measured)"
                     if args.codec.startswith("entropy") else
                     f"{metrics['comm_bits_per_coord']:.1f}")
-            print(f"step {t:4d} loss={metrics['loss']:.4f} "
-                  f"|g|={metrics['grad_norm']:.3f} bits/coord={bits}"
-                  f"{extra} levels={lv}{stages}", flush=True)
+            log(f"step {t:4d} loss={metrics['loss']:.4f} "
+                f"|g|={metrics['grad_norm']:.3f} bits/coord={bits}"
+                f"{extra} levels={lv}{stages}")
     dt = time.perf_counter() - t0
     ran = args.steps - start
-    print(f"done: {ran} steps in {dt:.1f}s "
-          f"({dt / max(ran, 1) * 1e3:.0f} ms/step)", flush=True)
-    if args.save:
+    log(f"done: {ran} steps in {dt:.1f}s "
+        f"({dt / max(ran, 1) * 1e3:.0f} ms/step)")
+    if transport is not None:
+        check_replicas(transport, model.flat, "after the last step")
+    if args.save and rank0:
         checkpoint.save(args.save, {"params": model.flat})
-        print(f"saved params to {args.save}", flush=True)
+        log(f"saved params to {args.save}")
     return {"config": cfg, "d": model.d, "history": history,
             "num_updates": trainer.scheme_state.num_updates,
             "trainer": trainer}
 
 
 def main(argv=None) -> None:
-    run(parse_args(argv))
+    try:
+        run(parse_args(argv))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """Adaptive quantized data-parallel train step (Algorithm 1, end to end)
-for M logical workers on one device.
+for M data-parallel workers: all M on one device over the stacked
+transport, or one a process over a ``ProcessGroupTransport``.
 
 Per step:
-  1. each worker runs forward and backward on its contiguous rows of the
-     global batch (and of its ``vision`` embeddings, where the batch has
-     them), and its gradient lands in its row of one (M, d) buffer of the
-     parameters' dtype (the model's parameters and gradients are flat
-     views, in the reference's ravel order); with ``microbatches=k`` the
-     rows run as k consecutive micro-batches whose gradients accumulate
-     in that row, in the parameters' dtype as in the reference;
+  1. each worker the process holds runs forward and backward on its
+     contiguous rows of the global batch (and of its ``vision``
+     embeddings, where the batch has them), and its gradient lands in its
+     row of one (L, d) buffer of the parameters' dtype, L the local
+     workers (the model's parameters and gradients are flat views, in the
+     reference's ravel order); with ``microbatches=k`` the rows run as k
+     consecutive micro-batches whose gradients accumulate in that row, in
+     the parameters' dtype as in the reference;
   2. on the update schedule: bucket statistics per worker, the merged
      mixture, and the ALQ/AMQ level update (lines 2-4);
   3. ENCODE -> collective -> DECODE -> average (lines 6-9) through
@@ -31,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.compress import make_algorithm
@@ -38,6 +41,7 @@ from repro_torch.core.codec import make_codec
 from repro_torch.core.schemes import QuantScheme, SchemeState
 from repro_torch.dist.sync import (
     compressed_allreduce, maybe_update_levels, quantized_allreduce)
+from repro_torch.dist.transport import StackedTransport
 from repro_torch.models.transformer import Model
 from repro_torch.timing import NO_CLOCK
 from .optim import OptimConfig, OptState, apply_updates, init_opt_state
@@ -79,6 +83,17 @@ def _make_algo(tcfg: TrainConfig):
     return make_algorithm(tcfg.compress, tcfg.scheme, codec=codec)
 
 
+# domain separation of the per-worker rounding seeds
+_FOLD_WORKER = 0x57A7
+
+
+def worker_seed(seed: int, w: int) -> int:
+    """The seed of worker w's rounding generator: (seed, w) -> a 63-bit
+    int, the counterpart of the reference's ``fold_in(key, rank)``."""
+    ss = np.random.SeedSequence([seed, _FOLD_WORKER, w])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 def is_update_step(tcfg: TrainConfig, step: int) -> bool:
     if step in tcfg.update_milestones:
         return True
@@ -86,20 +101,31 @@ def is_update_step(tcfg: TrainConfig, step: int) -> bool:
 
 
 class Trainer:
-    """Owns the training state of one model: the (M, d) gradient rows,
-    the optimizer moments, the scheme state, the compression state (the
-    (M, d) error-feedback residual of a stateful algorithm) and the step
-    counter.
+    """Owns the training state of one model for the workers its process
+    holds (``transport.local_workers()``; all ``tcfg.workers`` on the
+    default stacked transport): their (L, d) gradient rows, the optimizer
+    moments, the scheme state, the compression state (their (L, d)
+    error-feedback residual rows of a stateful algorithm), their rounding
+    generators and the step counter.
 
-    ``seed`` seeds the generator of the stochastic rounding on the
-    model's device.
+    Worker w's stochastic rounding draws from its own generator on the
+    model's device, seeded with ``worker_seed(seed, w)``, so a worker
+    draws the same uniforms whichever process holds it.
     """
 
-    def __init__(self, model: Model, tcfg: TrainConfig, *, seed: int = 0):
+    def __init__(self, model: Model, tcfg: TrainConfig, *, seed: int = 0,
+                 transport: StackedTransport | None = None):
         self.model = model
         self.tcfg = tcfg
+        if transport is None:
+            transport = StackedTransport(tcfg.workers)
+        if transport.size() != tcfg.workers:
+            raise ValueError(f"a transport of {transport.size()} workers "
+                             f"for {tcfg.workers}")
+        self.transport = transport
+        self.local = transport.local_workers()
         dev = model.flat.device
-        self.grads = torch.zeros((tcfg.workers, model.d),
+        self.grads = torch.zeros((len(self.local), model.d),
                                  dtype=model.flat.dtype, device=dev)
         # the wire decodes to float32; the plain mean keeps the rows' dtype
         self.plain_mean = (tcfg.sync_mode == "fp32"
@@ -111,10 +137,12 @@ class Trainer:
         self.algo = _make_algo(tcfg)
         self.compress_state = None
         if self.algo is not None and self.algo.stateful:
-            self.compress_state = self.algo.init_state(tcfg.workers, model.d,
-                                                       dev)
+            self.compress_state = self.algo.init_state(len(self.local),
+                                                       model.d, dev)
         self.step = 0
-        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.generators = [
+            torch.Generator(device=dev).manual_seed(worker_seed(seed, w))
+            for w in self.local]
 
     def train_step(self, batch: dict[str, torch.Tensor], *,
                    u: Sequence[torch.Tensor] | None = None,
@@ -123,9 +151,11 @@ class Trainer:
         """One step on a global batch (ids, labels of shape (B, S), and
         for a VLM optionally ``vision`` of shape (B, S_img, d_model)).
 
-        ``u`` and ``u2`` optionally give each worker's uniforms (see
-        ``quantized_allreduce``).  Returns the step's metrics; per-worker
-        wire metrics are worker 0's, the residual norm the workers' mean.
+        ``u`` and ``u2`` optionally give each local worker's uniforms
+        (see ``quantized_allreduce``).  Returns the step's metrics, the
+        same in every process: the loss is the mean of all M workers'
+        losses, per-worker wire metrics are worker 0's, the residual norm
+        the workers' mean.
         """
         tcfg, model = self.tcfg, self.model
         M = tcfg.workers
@@ -141,8 +171,8 @@ class Trainer:
         mb = rows // k
         vision = batch.get("vision")
         losses = []
-        for w in range(M):
-            g = self.grads[w]
+        for i, w in enumerate(self.local):
+            g = self.grads[i]
             g.zero_()
             model.attach_grads(g)
             loss = 0.0
@@ -161,23 +191,27 @@ class Trainer:
         rows = self.grads if self.plain_mean else self.grads.float()
         self.scheme_state = maybe_update_levels(
             rows, tcfg.scheme, self.scheme_state,
-            is_update_step(tcfg, self.step), clock=clock)
+            is_update_step(tcfg, self.step), transport=self.transport,
+            clock=clock)
         if self.algo is None:   # fp32 / super_sgd: the plain mean
             synced, m = quantized_allreduce(
                 rows, tcfg.scheme, self.scheme_state,
-                mode=tcfg.sync_mode, clock=clock)
+                mode=tcfg.sync_mode, transport=self.transport, clock=clock)
         else:
             synced, self.compress_state, m = compressed_allreduce(
                 rows, tcfg.scheme, self.scheme_state, self.algo,
-                self.compress_state, mode=tcfg.sync_mode, u=u, u2=u2,
-                generator=self.generator, clock=clock)
+                self.compress_state, mode=tcfg.sync_mode,
+                transport=self.transport, u=u, u2=u2,
+                generator=self.generators, clock=clock)
         grad_norm = torch.sqrt(torch.sum(synced * synced))
         self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
         del synced, rows
         clock.mark("optimizer")
         self.step += 1
+        # every worker's loss, in worker order, in every process
+        losses = self.transport.all_gather(losses)
         return {
-            "loss": torch.stack(losses).mean().item(),
+            "loss": losses.mean().item(),
             "grad_norm": grad_norm.item(),
             "comm_bits_per_coord": m.comm_bits_per_coord,
             "quant_error": m.quant_error[0].item(),
@@ -192,27 +226,44 @@ class Trainer:
 
     # ---- checkpointing ---------------------------------------------------
 
+    def _all_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The local workers' (L, ...) rows -> all M workers' (M, ...) on
+        ``local``'s device; a collective when other processes hold
+        workers."""
+        if len(self.local) == self.transport.size():
+            return local
+        dev = self.model.flat.device
+        return self.transport.all_gather(
+            [r.to(dev) for r in local]).to(local.device)
+
     def state_arrays(self) -> dict[str, torch.Tensor]:
         """The whole training state as named tensors: flat parameters,
-        optimizer moments and count, the scheme state, the step, the
-        rounding generator's state and the compression state."""
+        optimizer moments and count, the scheme state, the step, every
+        worker's rounding generator state (``worker_rng``, (M, state
+        bytes)) and the compression state (``compress.residual``, all M
+        workers' rows).  The same in every process, and the same as a
+        stacked trainer's of the same M: a collective when other
+        processes hold workers, so every process calls it."""
         out = {"params": self.model.flat.detach(),
                "opt.mu": self.opt.mu,
                "opt.count": torch.tensor(self.opt.count),
                "step": torch.tensor(self.step),
-               "rng": self.generator.get_state()}
+               "worker_rng": self._all_rows(torch.stack(
+                   [g.get_state() for g in self.generators]))}
         if self.opt.nu is not None:
             out["opt.nu"] = self.opt.nu
         for f in SchemeState._fields:
             out[f"scheme.{f}"] = torch.as_tensor(getattr(self.scheme_state,
                                                          f))
         if self.compress_state is not None:
-            out["compress.residual"] = self.compress_state.residual
+            out["compress.residual"] = self._all_rows(
+                self.compress_state.residual)
             out["compress.step"] = torch.tensor(self.compress_state.step)
         return out
 
     def load_state_arrays(self, arrays: dict[str, torch.Tensor]) -> None:
-        """Restore what ``state_arrays`` gave (shapes as this trainer's)."""
+        """Restore what ``state_arrays`` gave (shapes as this trainer's),
+        keeping the local workers' rows of the per-worker arrays."""
         with torch.no_grad():
             self.model.flat.copy_(arrays["params"])
             self.opt.mu.copy_(arrays["opt.mu"])
@@ -227,8 +278,13 @@ class Trainer:
             num_updates=int(arrays["scheme.num_updates"]),
             entropy_bits=arrays["scheme.entropy_bits"].to(dev))
         self.step = int(arrays["step"])
-        self.generator.set_state(arrays["rng"])
+        for i, w in enumerate(self.local):
+            # a state must own its storage: set_state reads a row view
+            # from the start of the stacked storage
+            self.generators[i].set_state(arrays["worker_rng"][w].clone())
+            if self.compress_state is not None:
+                self.compress_state.residual[i].copy_(
+                    arrays["compress.residual"][w])
         if self.compress_state is not None:
-            self.compress_state.residual.copy_(arrays["compress.residual"])
             self.compress_state = self.compress_state._replace(
                 step=int(arrays["compress.step"]))

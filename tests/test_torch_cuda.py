@@ -25,6 +25,11 @@ tokens give bit-equal gradients, as the entry points run and under
 ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts).  ``repro_torch.core``'s
 encode and decode launch the kernels on card tensors.
 
+Data parallelism across processes: qwen3-0.6b's SMOKE config through the
+launcher in 2 gloo ranks sharing the card (all_gather and two_phase) and
+in one NCCL rank, each bit-equal to the stacked workers of the same M on
+the card (losses and the final parameters' sha256).
+
 Serving: a SMOKE config's prefill and decode steps on the card against
 the CPU (logits and caches within 1e-5 of their largest entry, 5e-5 for
 jamba) and twice bit-equal; RWKV6 at the init's decays, card and CPU
@@ -32,6 +37,12 @@ against float64; a sliding window's ring overwritten by decode steps,
 against the card's own full forward.  These share ``chip_smoke.py``'s
 serving helpers.
 """
+import json
+import math
+import os
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -44,6 +55,7 @@ from repro_torch.kernels import cuda as kcuda
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bucket_stats import bucket_stats_cuda
 from repro_torch.kernels.quantize import quantize_cuda
+from repro_torch.launch import train
 
 # one thread: xdist workers that each take every core starve one another
 torch.set_num_threads(1)
@@ -737,3 +749,55 @@ def test_attention_decode_wraps_the_sliding_ring_on_card(dev):
         want = smoke._full_logits(model, ids[:, :t + 1], None)
         err = float((logits - want).abs().max())
         assert err <= 1e-5 * float(want.abs().max()), (t, err)
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# three steps of qwen3-0.6b's SMOKE config, a level update at step 1
+SMOKE_RUN = ["--arch", "qwen3-0.6b", "--smoke", "--batch", "4", "--seq",
+             "256", "--data", "uniform", "--update-at", "1", "--steps", "3"]
+
+
+def _ranks(tmp_path, nproc: int, argv: list[str]) -> list[dict]:
+    """The launcher in ``nproc`` processes under torchrun: each rank's
+    losses and final parameters' digest."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc),
+         os.path.join(ROOT, "tests", "torch_dist_worker.py"), "launch",
+         str(tmp_path), *argv], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    ranks = []
+    for r in range(nproc):
+        with open(tmp_path / f"launch_rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _stacked(argv: list[str], workers: int) -> tuple[list[float], str]:
+    res = train.run(train.parse_args(argv + ["--device", "cuda:0",
+                                             "--workers", str(workers)]))
+    return ([h["loss"] for h in res["history"]],
+            train.params_digest(res["trainer"].model.flat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["all_gather", "two_phase"])
+def test_gloo_ranks_sharing_the_card_equal_the_stacked_workers(dev, tmp_path,
+                                                               mode):
+    argv = SMOKE_RUN + ["--sync", mode]
+    ranks = _ranks(tmp_path, 2, argv + ["--device", "cuda:0", "--backend",
+                                        "gloo"])
+    loss, digest = _stacked(argv, 2)
+    assert all(math.isfinite(x) for x in loss)
+    for r in ranks:
+        assert r["loss"] == loss and r["digest"] == digest
+
+
+@pytest.mark.cuda
+def test_nccl_at_world_size_one_equals_one_stacked_worker(dev, tmp_path):
+    ranks = _ranks(tmp_path, 1, SMOKE_RUN + ["--backend", "nccl"])
+    loss, digest = _stacked(SMOKE_RUN, 1)
+    assert (ranks[0]["loss"], ranks[0]["digest"]) == (loss, digest)
