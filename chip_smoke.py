@@ -166,6 +166,29 @@ Phases, each of which must pass:
      steady step time (median, spread), the stage split with its
      ``collective`` stage, each rank's peak memory and launches, and every
      rank launched all three kernels;
+ 15e. phase N, rematerialization and the chunked loss at full width:
+     llama3.2-1b whole (16 layers, d = 1,498,482,688, V = 128,256), one
+     worker's forward and backward of 1 x 4096 tokens under ``remat``
+     "none" (twice), "dots" and "full" with the chunked loss and "full"
+     with the whole-sequence loss, then 2 x 4096 (train_4k's rows a
+     worker; "none" does not fit there) under "full" with either loss:
+     ms and peak memory of each; "dots" and "full" bit-equal to "none"
+     where two "none" passes are (else within their spread), the
+     whole-sequence loss's gradient within 2^-6 of the largest entry (a
+     few bfloat16 ulps: the chunks' LM-head gradients add in bfloat16);
+ 15f. phase O, FSDP, each run a subprocess (``--fsdp-run``): qwen3-0.6b
+     whole, 2 workers x 2 x 1024 uniform tokens, ALQ 3-bit, buckets of
+     8192, AdamW, a level update at step 1, 3 steps, through
+     ``Model(param_mode="fsdp")`` and ``Trainer``: 2 gloo ranks sharing
+     cuda:0 against the stacked M = 2 FSDP run (losses and every shard's
+     sha256 bit-equal; every rank launches all three kernels: the
+     reduce-scatter's quantize and dequantize, the level update's
+     bucket_stats), then the float32 FSDP run against the DP run
+     (losses rtol 1e-5, the first step's first moment within 1e-6 of its
+     largest entry); per run the steps, stages, peak memory and launches;
+     before them the FSDP rounds' kernel shapes ((240, 8192) a layer
+     slot's round, (2376, 8192) embed's and lm_head's) against the plain
+     versions, timed;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -174,8 +197,8 @@ Phases, each of which must pass:
      launches, the ops with the most device time).
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
-over phases B-I, the vision step, slice 8's ``--smoke`` runs and phase
-M's ranks), then as the last
+over phases B-I, the vision step, slice 8's ``--smoke`` runs, phase
+M's ranks and phase O's), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -2408,6 +2431,336 @@ def phase_m(smi: str) -> dict:
     return out
 
 
+def phase_n(configs, Model, layers, smi: str) -> dict:
+    """Phase N: rematerialization and the chunked loss at full width.
+    llama3.2-1b whole (16 layers, d = 1,498,482,688, V = 128,256), one
+    worker's forward and backward at train_4k's 4096 tokens a row.  At
+    one row (two rows under "none" exceed the card: the blockwise
+    attention keeps a float32 tile a head and block pair): ``remat``
+    "none" (twice: the spread of two identical passes), "dots" and
+    "full" with the chunked loss, and "full" with the whole-sequence
+    loss (one (B, 4096, V) float32 logits tensor); at two rows "full"
+    with the chunked and with the whole-sequence loss.  Each pass's ms
+    and peak memory (absolute, and added over the model and its gradient
+    row), each the second pass of its setting.  At one row the gradients
+    of "dots" and "full" must equal
+    "none"'s bit for bit where two "none" passes do, else within their
+    spread; the whole-sequence loss's within 2^-6 of the largest entry
+    (the chunked loss adds its chunks' bfloat16 LM-head gradients in
+    bfloat16: a few ulps)."""
+    import torch
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("llama3.2-1b")
+    check(cfg.num_layers == 16 and cfg.vocab_size == 128_256,
+          "phase N is not llama3.2-1b whole")
+    model = Model(cfg, device="cuda", seed=0, remat="none")
+    grad = torch.zeros_like(model.flat)
+    model.attach_grads(grad)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    S = 4096
+    ids = torch.randint(0, cfg.vocab_size, (2, S + 1), generator=g,
+                        device="cuda")
+    cd = model.compute_dtype
+
+    def one(remat, rows, whole=False, keep=True):
+        model.remat = remat
+        grad.zero_()
+        x_ids, labels = ids[:rows, :-1], ids[:rows, 1:]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if whole:
+            x, aux = model.forward(x_ids)
+            loss = layers.lm_head_loss(model.lm_head.to(cd), x, labels,
+                                       chunk=S) + aux / cfg.num_layers
+            del x
+        else:
+            loss = model.loss(x_ids, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        return {"rows": rows, "ms": ms, "peak_bytes": peak,
+                "added_bytes": peak - base, "loss": loss.item()}, \
+            grad.to("cpu", copy=True) if keep else None
+
+    runs = {}
+    ref_grad = spread = scale = None
+    for name, remat, rows, whole in (
+            ("none", "none", 1, False), ("none_again", "none", 1, False),
+            ("dots", "dots", 1, False), ("full", "full", 1, False),
+            ("full_whole_loss", "full", 1, True),
+            ("full_2_rows", "full", 2, False),
+            ("full_whole_loss_2_rows", "full", 2, True)):
+        if name != "none_again":
+            one(remat, rows, whole, keep=False)   # warm-up of the setting
+        r, got = one(remat, rows, whole)
+        runs[name] = r
+        check(math.isfinite(r["loss"]) and bool(torch.isfinite(got).all()),
+              f"phase N {name}: not finite")
+        if rows == 2:
+            del got
+            continue
+        if ref_grad is None:
+            ref_grad, scale = got, float(got.abs().max())
+            continue
+        diff = float((got - ref_grad).abs().max())
+        r["max_abs_diff"] = diff
+        if name == "none_again":
+            spread = diff
+            runs["none"]["spread"] = spread
+        elif name == "full_whole_loss":
+            # the chunks' bf16 LM-head gradients add up in bf16 (as the
+            # reference's scan adds them): a few bf16 ulps of the largest
+            check(diff <= 2**-6 * scale, f"phase N whole-sequence loss: "
+                  f"gradient {diff} off, beyond 2^-6 of {scale}")
+        elif spread == 0.0:
+            check(torch.equal(got, ref_grad)
+                  and r["loss"] == runs["none"]["loss"],
+                  f"phase N {name}: gradient not bit-equal to none's "
+                  f"(max diff {diff})")
+        else:
+            check(diff <= spread, f"phase N {name}: {diff} beyond two none "
+                  f"passes' spread {spread}")
+        del got
+    base_gib = (model.flat.numel() * 8) / 2**30
+    for name, r in runs.items():
+        print(f"phase N {name} ({r['rows']} x {S}): grad {r['ms']:.1f} ms, "
+              f"peak {r['peak_bytes'] / 2**30:.2f} GiB "
+              f"(+{r['added_bytes'] / 2**30:.2f} over parameters and "
+              f"gradient row, {base_gib:.2f} GiB), loss {r['loss']:.6f}"
+              + (f", max |g - g_none| {r['max_abs_diff']:.3g}"
+                 if "max_abs_diff" in r else ""), flush=True)
+    same = "bit-equal" if spread == 0.0 else f"within the spread {spread:.3g}"
+    print(f"phase N: llama3.2-1b whole, 1 x {S} tokens: two none passes "
+          f"differ by {spread:.3g}; dots and full {same} to none; "
+          f"largest gradient entry {scale:.4g}", flush=True)
+    del model, grad, ref_grad
+    torch.cuda.empty_cache()
+    return {"card": smi, "d": D_K, "runs": runs}
+
+
+def fsdp_run(argv: list[str]) -> None:
+    """Phase O's child (``chip_smoke.py --fsdp-run OUT MODE``, under
+    torchrun or alone): qwen3-0.6b whole, M = 2 workers (2 x 1024 uniform
+    tokens a worker), ALQ 3-bit, buckets of 8192, AdamW lr 1e-4, a level
+    update at step 1, 3 steps, through ``Model``/``Trainer`` with every
+    launch count set to 0 just before.  MODE: ``quantized`` (FSDP, the
+    quantized reduce-scatter), ``fp32`` (FSDP, the float32 mean) or
+    ``dp`` (the DP model, ``sync_mode="fp32"``).  Writes its losses, step
+    and stage times, each local worker's shard digest (FSDP) or the
+    parameters' digest (DP), the first step's first moment (in the DP
+    layout, for fp32 and dp), launches and peak memory to
+    OUT/rank<R>.json."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.schemes import QuantScheme
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh
+    from repro_torch.models.transformer import Model
+    from repro_torch.timing import StageClock
+    from repro_torch.train.data import DataConfig, Pipeline
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    from repro_torch import weights
+    out, mode = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.build()
+    transport = None
+    if mesh.world_size():
+        _, transport = mesh.init_process_group("gloo", "cuda:0")
+    dev = torch.device("cuda:0")
+    M = 2
+    cfg = configs.get_config("qwen3-0.6b")
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=BS_B)
+    try:
+        if mode == "dp":
+            model = Model(cfg, device=dev, seed=0)
+        else:
+            model = Model(cfg, device=dev, seed=0, param_mode="fsdp", dp=M,
+                          transport=transport, fsdp_scheme=scheme,
+                          fsdp_sync=mode)
+        tcfg = TrainConfig(
+            scheme=scheme, optim=OptimConfig(name="adamw", lr=1e-4,
+                                             weight_decay=0.0),
+            sync_mode="fp32" if mode == "dp" else "all_gather",
+            update_milestones=(1,), update_every=0, workers=M)
+        trainer = Trainer(model, tcfg, seed=0, transport=transport)
+        pipe = Pipeline(DataConfig(kind="uniform", vocab_size=cfg.vocab_size,
+                                   seq_len=1024, global_batch=2 * M, seed=0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        rec = {"mode": mode, "loss": [], "step_ms": [], "stage_ms": []}
+        for t in range(3):
+            batch = pipe.batch(t, dev)
+            clock = StageClock(dev)
+            t0 = time.perf_counter()
+            m = trainer.train_step(batch, clock=clock)
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["stage_ms"].append(clock.stage_ms())
+            rec["loss"].append(m["loss"])
+            if t == 0 and mode != "quantized":
+                mu = trainer.opt.mu
+                if mode == "fp32":
+                    mu = weights.fsdp_to_dp(model.global_flat(mu), cfg,
+                                            BS_B, M)
+                if transport is None or transport.rank() == 0:
+                    torch.save(mu.cpu(), os.path.join(out, "mu0.pt"))
+                del mu
+        rec["launches"] = dict(cuda.LAUNCHES)
+        rec["layouts"] = dict(cuda.LAYOUTS)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["d"] = model.d
+        flat = model.flat.detach()
+        workers = (model.local if mode != "dp" else [0])
+        rec["digests"] = {str(w): hashlib.sha256(
+            (model.local_rows(model.global_flat(flat), [w])
+             if mode != "dp" and transport is None else flat
+             ).cpu().view(torch.uint8).numpy()).hexdigest()
+            for w in workers}
+        rank = transport.rank() if transport is not None else "stacked"
+        rec["rank"] = rank
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _fsdp_runs(label: str, mode: str, nproc: int) -> list[dict]:
+    """``fsdp_run`` in ``nproc`` processes under torchrun (0: one plain
+    process, the stacked workers); every process's record."""
+    import glob
+    import shutil
+    out = os.path.join(ROOT, "build", "phase_o", label)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    sub = subprocess.run(cmd + [os.path.abspath(__file__), "--fsdp-run",
+                                out, mode], env=env, capture_output=True,
+                         text=True)
+    wall = time.perf_counter() - t0
+    check(sub.returncode == 0, f"phase O {label} failed (rc "
+          f"{sub.returncode}): {sub.stdout[-2000:]}\n{sub.stderr[-4000:]}")
+    recs = [json.load(open(f)) for f in sorted(glob.glob(
+        os.path.join(out, "rank*.json")))]
+    check(len(recs) == max(nproc, 1), f"phase O {label}: {len(recs)} "
+          "records")
+    for r in recs:
+        r["wall_s"] = wall
+        r["dir"] = out
+    return recs
+
+
+def phase_o(smi: str) -> dict:
+    """Phase O: FSDP, each run a subprocess while this process holds no
+    large tensor on the card.  O1: qwen3-0.6b whole in 2 gloo ranks on
+    cuda:0, the quantized reduce-scatter, against the stacked M = 2 FSDP
+    run: every rank's losses and shard digest bit-equal; every rank
+    launches all three kernels.  O2: the float32 FSDP run against the DP
+    run (``sync_mode="fp32"``): losses rtol 1e-5, the first step's first
+    moment (0.1 x the aggregate) within 1e-6 of its largest entry."""
+    import statistics
+    import torch
+    torch.cuda.empty_cache()
+    out = {"card": smi}
+    ranks = _fsdp_runs("O1-group", "quantized", 2)
+    stacked = _fsdp_runs("O1-stacked", "quantized", 0)[0]
+    for r in ranks:
+        check(r["loss"] == stacked["loss"], f"phase O rank {r['rank']} "
+              f"losses {r['loss']} against stacked {stacked['loss']}")
+        for w, dg in r["digests"].items():
+            check(dg == stacked["digests"][w], f"phase O rank {r['rank']} "
+                  f"shard {w} differs from the stacked run's")
+        check(all(r["launches"].get(k, 0) > 0 for k in (
+            "quantize", "dequantize", "bucket_stats")),
+            f"phase O rank {r['rank']} launches {r['launches']}")
+        check(all(math.isfinite(x) for x in r["loss"]), "phase O loss")
+    fp32 = _fsdp_runs("O2-fp32", "fp32", 0)[0]
+    dp = _fsdp_runs("O2-dp", "dp", 0)[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(fp32["loss"], dp["loss"]))
+    check(rel <= 1e-5, f"phase O fp32 FSDP losses {fp32['loss']} against DP "
+          f"{dp['loss']} (rel {rel})")
+    mu_f = torch.load(os.path.join(fp32["dir"], "mu0.pt"))
+    mu_d = torch.load(os.path.join(dp["dir"], "mu0.pt"))
+    scale = float(mu_d.abs().max())
+    diff = float((mu_f - mu_d).abs().max())
+    check(diff <= 1e-6 * scale, f"phase O fp32 FSDP aggregate {diff} off "
+          f"the DP mean's, beyond 1e-6 of {scale}")
+    del mu_f, mu_d
+    for r in ranks + [stacked, fp32, dp]:
+        steady = r["step_ms"][2]
+        split = "; ".join(", ".join(f"{k} {v:.1f}" for k, v in st.items())
+                          for st in r["stage_ms"])
+        who = (f"rank {r['rank']}" if r in ranks else
+               {"quantized": "stacked x2", "fp32": "fp32 FSDP stacked x2",
+                "dp": "DP fp32 stacked x2"}[r["mode"]])
+        print(f"phase O {who}: steps ms {[round(t, 1) for t in r['step_ms']]}"
+              f" (step 2: {steady:.1f}), stages ms by step [{split}], peak "
+              f"memory {r['peak_bytes'] / 2**30:.2f} GiB, launches "
+              f"{r['launches']}, process {r['wall_s']:.1f} s", flush=True)
+    print(f"phase O: 2 gloo ranks and the stacked FSDP run bit-equal: "
+          f"losses {stacked['loss']}; fp32 FSDP against DP: losses rel "
+          f"{rel:.3g}, first moment max diff {diff:.3g} (largest "
+          f"{scale:.4g})", flush=True)
+    out.update(ranks=ranks, stacked=stacked, fp32=fp32, dp=dp,
+               fp32_loss_rel=rel, fp32_mu_diff=diff, fp32_mu_scale=scale,
+               median_step_ms=statistics.median(
+                   [r["step_ms"][2] for r in ranks]))
+    return out
+
+
+def fsdp_shapes(ops, ref, lv, out):
+    """Each FSDP round's kernels at phase O's shapes (qwen3-0.6b, M = 2,
+    buckets of 8192: a layer slot's round encodes 240 buckets, embed's
+    and lm_head's 2376; a round decodes as many, the M received streams
+    of ppr buckets), against the plain versions, timed in 3 rounds."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    levels = lv.uniform_levels(3, device=dev)
+    L = levels.numel()
+    for nb, what in ((240, "a layer slot's round"),
+                     (2376, "embed's or lm_head's round")):
+        vb = torch.randn(nb, BS_B, generator=g, device=dev) * 1e-3
+        u = torch.rand(nb, BS_B, generator=g, device=dev)
+        codes, norms = ops.quantize_op(vb, u, levels)
+        c2, n2 = ref.quantize_ref(vb, u, levels, "l2")
+        check(bool(torch.allclose(norms, n2, rtol=1e-5, atol=0)),
+              f"quantize norms at FSDP's {nb} buckets beyond rtol 1e-5")
+        worst = float((norms - n2).abs().max())
+        mism = ref.code_mismatches(codes, c2, vb, u, n2, levels)
+        n = nb * BS_B
+        record_shape(out, "phase O shape", "quantize",
+                     f"({nb}, {BS_B}) f32 l2 3-bit",
+                     lambda: ops.quantize_op(vb, u, levels),
+                     lambda: ref.quantize_ref(vb, u, levels, "l2"),
+                     n * 9 + nb * 4, n * (20 + math.log2(L)), worst,
+                     f"FSDP encode of {what}, {mism} codes off by one at "
+                     "ties")
+        c32 = codes.to(torch.int32)
+        got = ops.dequantize_op(c32, norms, levels)
+        check(torch.equal(got, ref.dequantize_ref(c32, norms, levels)),
+              f"dequantize at FSDP's {nb} buckets not exact")
+        record_shape(out, "phase O shape", "dequantize",
+                     f"({nb}, {BS_B}) int32",
+                     lambda: ops.dequantize_op(c32, norms, levels),
+                     lambda: ref.dequantize_ref(c32, norms, levels),
+                     n * 8 + nb * 4, n * 5, 0.0,
+                     f"FSDP decode of {what}'s 2 received streams")
+        del vb, u, codes, norms, c2, n2, c32, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2426,7 +2779,7 @@ def main() -> None:
         from repro_torch.kernels.bucket_stats import bucket_stats_cuda
         from repro_torch.kernels.quantize import quantize_cuda
         from repro_torch.launch import train
-        from repro_torch.models import attention
+        from repro_torch.models import attention, layers
         from repro_torch.models.transformer import Model
         from repro_torch import sim
         from repro_torch.sim import __main__ as sim_main
@@ -2435,6 +2788,9 @@ def main() -> None:
         fail(f"the port is not importable from {ROOT}/src: {e}")
     if sys.argv[1:2] == ["--rank-run"]:
         rank_run(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--fsdp-run"]:
+        fsdp_run(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--grad-twice"]:
         # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
@@ -2473,6 +2829,7 @@ def main() -> None:
     sim_shapes(ops, ref, lv, cuda, shapes)
     phase_shapes(ops, ref, lv, shapes, "H", NB_H)
     phase_shapes(ops, ref, lv, shapes, "I", NB_I)
+    fsdp_shapes(ops, ref, lv, shapes)
     sync_check(sync, compress, QuantScheme, make_codec)
     entropy_words_check(ops, QuantScheme, make_codec)
     table_check(QuantScheme, make_codec, from_int32_bits)
@@ -2720,6 +3077,12 @@ def main() -> None:
     print(json.dumps({"phase_m": phase_mm}), flush=True)
     counts_m = [r["launches"] for cell in ("M1", "M2", "M3")
                 for r in phase_mm[cell]["ranks"]]
+    # ---- phase N: remat and the chunked loss; phase O: FSDP ----
+    phase_nn = phase_n(configs, Model, layers, smi)
+    print(json.dumps({"phase_n": phase_nn}), flush=True)
+    phase_oo = phase_o(smi)
+    print(json.dumps({"phase_o": phase_oo}), flush=True)
+    counts_o = [r["launches"] for r in phase_oo["ranks"]]
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
                       "grad_profile": grad_profile(
@@ -2734,7 +3097,7 @@ def main() -> None:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
             counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
             counts_h, counts_i, counts_v, *counts_smoke.values(),
-            *counts_m))
+            *counts_m, *counts_o))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -12,6 +12,7 @@ from . import (
     qwen3_0_6b,
     rwkv6_7b,
 )
+from .shapes import SHAPES, InputShape, input_specs
 
 _MODULES = {
     "rwkv6-7b": rwkv6_7b,

@@ -108,6 +108,13 @@ class StackedTransport:
         """fp32 mean-allreduce of per-worker local values (M, ...)."""
         return stacked.mean(0)
 
+    def reduce_scatter_mean(self, rows: torch.Tensor) -> torch.Tensor:
+        """The local workers' (L, n) rows -> (L, n/M): local worker i's
+        shard (the i-th of M equal slices) of the mean over all M
+        workers' rows, the reference's ``psum_scatter / M``."""
+        M = self._size
+        return rows.view(M, M, rows.shape[1] // M).mean(0)
+
 
 class MaskedTransport(StackedTransport):
     """Stacked workers with an injected per-worker weight vector, the
@@ -185,6 +192,15 @@ class ProcessGroupTransport(StackedTransport):
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
         return out[None]
+
+    def reduce_scatter_mean(self, rows: torch.Tensor) -> torch.Tensor:
+        """This process's (1, n) row -> (1, n/M), its shard of the mean:
+        an ``all_to_all_single`` of the M slices (gloo has no
+        reduce-scatter), then the mean of the M received slices."""
+        x = self._own(rows).view(self._size, -1)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out.mean(0)[None]
 
     def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
         """The reference's ``psum / size`` of this process's (1, ...)

@@ -1,2 +1,5 @@
-"""Decoder models of the port: the dense family, mixture-of-experts and
-RWKV6."""
+"""Decoder models of the port: the dense family, mixture-of-experts,
+RWKV6, the Mamba hybrid and the VLM's cross-attention, in DP or FSDP
+layout."""
+from .config import ModelConfig
+from .transformer import Model

@@ -16,6 +16,24 @@ flat gradient row ``g``, and a backward pass then accumulates the
 worker's gradient straight into ``g`` (autograd adds into a defined
 ``.grad`` in place).
 
+Activation rematerialization (``Model(remat=...)``, the reference's
+``"full"`` by default) acts on the training forward with grad enabled:
+each layer group runs under a non-reentrant checkpoint and, under
+``"full"`` with several slots a group, each slot under one more, so that
+a backward holds one group's (one slot's) activations at a time;
+``"dots"`` keeps the matmul outputs and recomputes the rest, ``"psum"``
+is one checkpoint a group (tensor parallelism has no collective to keep
+yet).
+
+``param_mode="fsdp"`` keeps the parameters in the reference's FSDP
+layout instead: each layer slot's leaves are one zero-padded flat vector
+a group (``fsdp_layout``), sharded over the M data-parallel workers, and
+``embed`` and ``lm_head`` each have their own padded flat; ``final_norm``
+is replicated.  ``Model.flat`` then holds the local workers' shards,
+(entry, local worker) after one another, and a layer's weights are views
+into the gathered vector of its slot (``dist.fsdp.make_gather``), which
+the checkpointed group body gathers again in the backward.
+
 Serving runs the same layers in another mode (``PREFILL``: the sequence
 forward that also returns each mixer's decode cache; ``DECODE``: one
 token a row against those caches), without autograd.  Caches keep the
@@ -24,11 +42,15 @@ of tensors stacked over the groups as (num_groups, B, ...).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from .attention import (attn_decode, attn_forward, cache_spec,
                         cross_attn_forward)
@@ -37,6 +59,11 @@ from .layers import lm_head_logits, lm_head_loss, rms_norm, swiglu
 from .mamba import A_LOG_INIT, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_ffn
 from .rwkv import rwkv_decode, rwkv_dims, rwkv_forward, rwkv_specs
+from repro_torch.core.codec import codec_for_scheme
+from repro_torch.core.schemes import QuantScheme
+from repro_torch.dist.fsdp import (
+    SeedKey, flatten_meta, make_gather, padded_flat_len, unflatten)
+from repro_torch.dist.transport import StackedTransport
 
 # init codes: -1 ones (norm weights), 0 zeros (biases and the cross gate),
 # A_LOG_INIT (-2) Mamba's log(1..d_state), > 0 normal * in_dim ** -0.5
@@ -46,6 +73,23 @@ _ZEROS = 0
 # what a layer runs: the training forward, serving's prefill (the same
 # forward, also returning the caches) or one decode step
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
+
+REMAT_MODES = ("full", "dots", "psum", "none")
+# "dots" keeps the outputs of these (the reference's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+# the key folds of the FSDP gathers: slot s folds s, embed and lm_head these
+EMBED_FOLD, LM_FOLD = 1001, 1002
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_dots_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
 
 def _slot_specs(cfg: ModelConfig, slot: int
                 ) -> dict[str, tuple[tuple, int]]:
@@ -120,6 +164,125 @@ def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
     return layout
 
 
+def slot_meta(cfg: ModelConfig, slot: int) -> list:
+    """The reference's ``flatten_meta(slot_param_specs(...))`` of layer
+    slot ``slot``: [(path tuple, per-layer shape, init code)]."""
+    nested: dict = {}
+    for path, shape, code in slot_layout(cfg, slot):
+        *head, leaf = path.split(".")
+        node = nested
+        for h in head:
+            node = node.setdefault(h, {})
+        node[leaf] = (shape, code)
+    return flatten_meta(nested)
+
+
+class FsdpEntry(NamedTuple):
+    """One flat of the FSDP layout: ``count`` padded vectors of ``Lp``
+    (a slot's: one a group), sharded over the workers, or the replicated
+    ``final_norm`` (``Lp`` = d, ``meta`` None)."""
+
+    name: str           # embed | final_norm | lm_head | slots.<s>
+    count: int
+    Lp: int
+    meta: list | None
+    fold: int | None    # the gather's key fold
+
+
+def fsdp_layout(cfg: ModelConfig, bucket_size: int, M: int
+                ) -> list[FsdpEntry]:
+    """The reference's FSDP parameter tree in its ravel order (``embed``,
+    ``final_norm``, ``lm_head``, ``slots``), each flat padded to
+    ``padded_flat_len(meta, bucket_size, M, M)``."""
+    d, V = cfg.d_model, cfg.vocab_size
+    emb = [(("embed",), (V, d), d)]
+    lm = [(("lm_head",), (d, V), d)]
+    out = [FsdpEntry("embed", 1, padded_flat_len(emb, bucket_size, M, M),
+                     emb, EMBED_FOLD),
+           FsdpEntry("final_norm", 1, d, None, None),
+           FsdpEntry("lm_head", 1, padded_flat_len(lm, bucket_size, M, M),
+                     lm, LM_FOLD)]
+    for s in range(cfg.group_size):
+        meta = slot_meta(cfg, s)
+        out.append(FsdpEntry(f"slots.{s}", cfg.num_groups,
+                             padded_flat_len(meta, bucket_size, M, M),
+                             meta, s))
+    return out
+
+
+def fsdp_views(buf: torch.Tensor, entries: list[FsdpEntry], M: int,
+               L: int) -> dict[str, torch.Tensor]:
+    """Views of a buffer holding L workers' shards of every entry: a
+    sharded entry (count, L, Lp/M), ``final_norm`` (d,).  With L = M the
+    buffer is the whole (global) layout, each entry (count, Lp)."""
+    out, off = {}, 0
+    for e in entries:
+        if e.meta is None:
+            out[e.name] = buf[off:off + e.Lp]
+            off += e.Lp
+            continue
+        n = e.count * L * (e.Lp // M)
+        out[e.name] = buf[off:off + n].view(e.count, L, e.Lp // M)
+        off += n
+    if off != buf.numel():
+        raise ValueError(f"buffer of {buf.numel()} for a layout of {off}")
+    return out
+
+
+def fsdp_size(entries: list[FsdpEntry], M: int, L: int) -> int:
+    return sum(e.Lp if e.meta is None else e.count * L * (e.Lp // M)
+               for e in entries)
+
+
+def dp_to_fsdp(flat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
+               M: int) -> torch.Tensor:
+    """A DP flat (``param_layout``'s ravel order) -> the global FSDP flat
+    of M workers and buckets of ``bucket_size`` (the reference's FSDP tree
+    in ravel order)."""
+    entries = fsdp_layout(cfg, bucket_size, M)
+    views, off = {}, 0
+    for name, shape, _ in param_layout(cfg):
+        n = math.prod(shape)
+        views[name] = flat[off:off + n].view(shape)
+        off += n
+    parts = []
+    for e in entries:
+        if e.meta is None:
+            parts.append(views[e.name].reshape(1, -1))
+            continue
+        if not e.name.startswith("slots."):
+            leaves = [views[e.name].reshape(1, -1)]
+        else:
+            leaves = [views[f"{e.name}.{'.'.join(path)}"].reshape(
+                e.count, -1) for path, _, _ in e.meta]
+        body = torch.cat(leaves, dim=1)
+        parts.append(F.pad(body, (0, e.Lp - body.shape[1])))
+    return torch.cat([p.reshape(-1) for p in parts])
+
+
+def fsdp_to_dp(gflat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
+               M: int) -> torch.Tensor:
+    """The inverse of ``dp_to_fsdp``: the global FSDP flat -> a DP flat
+    (the padding dropped)."""
+    entries = fsdp_layout(cfg, bucket_size, M)
+    views = fsdp_views(gflat, entries, M, M)
+    leaves = {}
+    for e in entries:
+        if e.meta is None:
+            leaves[e.name] = views[e.name]
+            continue
+        body = views[e.name].reshape(e.count, e.Lp)
+        off = 0
+        for path, shape, _ in e.meta:
+            n = math.prod(shape)
+            key = (f"{e.name}.{'.'.join(path)}"
+                   if e.name.startswith("slots.") else e.name)
+            leaves[key] = body[:, off:off + n]
+            off += n
+    return torch.cat([leaves[name].reshape(-1)
+                      for name, _, _ in param_layout(cfg)])
+
+
 def init_flat(layout, dtype: torch.dtype, device, seed: int
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """A flat buffer for ``layout`` ((name, shape, init code) triples)
@@ -168,14 +331,16 @@ class DecoderLayer(nn.Module):
     ``mixer.wq``, ``cross.gate``, ``ffn.w1``, ...) to views into the flat
     buffer."""
 
-    def __init__(self, cfg: ModelConfig, leaves: dict[str, torch.Tensor],
-                 slot: int):
+    def __init__(self, cfg: ModelConfig,
+                 leaves: dict[str, torch.Tensor] | None, slot: int):
         super().__init__()
         self.cfg = cfg
         self.kind = cfg.slot_kind(slot)
         self.attn_kind = cfg.slot_attn_kind(slot)
         self.is_moe = cfg.slot_is_moe(slot)
         self.has_cross = cfg.slot_has_cross(slot)
+        if leaves is None:      # FSDP: the weights come with each call
+            return
         self.norm1 = nn.Parameter(leaves["norm1"])
         self.norm2 = nn.Parameter(leaves["norm2"])
         if self.has_cross:
@@ -188,19 +353,35 @@ class DecoderLayer(nn.Module):
             if name:
                 getattr(self, group)[name] = nn.Parameter(view)
 
+    def _own_weights(self) -> dict:
+        out = {"norm1": self.norm1, "norm2": self.norm2,
+               "mixer": dict(self.mixer), "cross": dict(self.cross),
+               "ffn": dict(self.ffn)}
+        if self.has_cross:
+            out["cross_norm"] = self.cross_norm
+        return out
+
     def forward(self, x: torch.Tensor, vision: torch.Tensor | None = None,
                 mode: str = TRAIN, cache: tuple | None = None,
-                pos: torch.Tensor | None = None, max_len: int = 0
+                pos: torch.Tensor | None = None, max_len: int = 0,
+                weights: dict | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, tuple | None]:
         """x: (B, S, d) -> (x, the MoE aux loss or 0, the mixer's cache or
         None).  ``mode``: ``TRAIN``; ``PREFILL``, which also returns the
         decode cache (attention's of ``max_len`` slots at most); or
         ``DECODE``, one token a row (S = 1) at positions ``pos`` (B,)
         against ``cache``.  A cross slot runs its cross-attention block
-        only when ``vision`` is given."""
+        only when ``vision`` is given.  ``weights`` (the slot's leaves,
+        nested as ``dist.fsdp.unflatten`` gives them) replaces the layer's
+        own parameters (FSDP's gathered slot)."""
         cfg, cd = self.cfg, x.dtype
-        mixer = {k: v.to(cd) for k, v in self.mixer.items()}
-        h = rms_norm(x, self.norm1.to(cd), cfg.norm_eps)
+        w = self._own_weights() if weights is None else weights
+
+        def block(group):
+            return {k: v.to(cd) for k, v in w.get(group, {}).items()}
+
+        mixer = block("mixer")
+        h = rms_norm(x, w["norm1"].to(cd), cfg.norm_eps)
         prefill = mode == PREFILL
         if self.kind == RWKV:
             out = (rwkv_decode(cfg, mixer, h, cache) if mode == DECODE else
@@ -216,11 +397,11 @@ class DecoderLayer(nn.Module):
         mix, cache = (out, None) if mode == TRAIN else out
         x = x + mix.to(cd)
         if self.has_cross and vision is not None:
-            cross = {k: v.to(cd) for k, v in self.cross.items()}
-            h = rms_norm(x, self.cross_norm.to(cd), cfg.norm_eps)
+            cross = block("cross")
+            h = rms_norm(x, w["cross_norm"].to(cd), cfg.norm_eps)
             x = x + cross_attn_forward(cfg, cross, h, vision).to(cd)
-        ffn = {k: v.to(cd) for k, v in self.ffn.items()}
-        h = rms_norm(x, self.norm2.to(cd), cfg.norm_eps)
+        ffn = block("ffn")
+        h = rms_norm(x, w["norm2"].to(cd), cfg.norm_eps)
         if self.is_moe:
             y, aux = moe_ffn(cfg, ffn, h)
         else:
@@ -236,15 +417,39 @@ class Model(nn.Module):
     (normal * in_dim ** -0.5, norm weights 1, Mamba's A_log
     log(1..d_state)); ``load_flat`` replaces them, e.g. with weights
     carried over from the reference (``repro_torch.weights``).
+
+    ``remat``: ``"full"`` (the reference's default), ``"dots"``,
+    ``"psum"`` or ``"none"`` (see the module's docstring).
+
+    ``param_mode="fsdp"`` stores the parameters sharded over the workers
+    of ``transport`` (a ``StackedTransport`` of ``dp`` by default); the
+    gathers' backward reduce-scatters the gradient to the worker mean,
+    quantized with ``fsdp_codec`` (the scheme's uniform codec by default)
+    when ``fsdp_sync == "quantized"`` and ``fsdp_scheme`` quantizes, else
+    in float32.  The same ``seed`` draws the same weights in both modes.
     """
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
+                 remat: str = "full", param_mode: str = "dp", dp: int = 1,
+                 transport: StackedTransport | None = None,
+                 fsdp_scheme: QuantScheme | None = None,
+                 fsdp_sync: str = "quantized", fsdp_codec=None):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat {remat!r}; known: {REMAT_MODES}")
+        if param_mode not in ("dp", "fsdp"):
+            raise ValueError(f"param_mode {param_mode!r}")
         self.cfg = cfg
+        self.remat = remat
+        self.param_mode = param_mode
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
-        self.flat, lv = init_flat(param_layout(cfg),
-                                  getattr(torch, cfg.param_dtype), device,
-                                  seed)
+        flat, lv = init_flat(param_layout(cfg),
+                             getattr(torch, cfg.param_dtype), device, seed)
+        if param_mode == "fsdp":
+            self._init_fsdp(flat, dp, transport, fsdp_scheme, fsdp_sync,
+                            fsdp_codec)
+            return
+        self.flat = flat
         self.d = self.flat.numel()
         self.embed = nn.Parameter(lv["embed"][0])
         self.lm_head = nn.Parameter(lv["lm_head"][0])
@@ -260,8 +465,95 @@ class Model(nn.Module):
                 layers.append(DecoderLayer(cfg, leaves, slot))
         self.layers = nn.ModuleList(layers)
 
+    def _init_fsdp(self, flat, dp, transport, scheme, fsdp_sync, codec):
+        cfg = self.cfg
+        if transport is None:
+            transport = StackedTransport(dp)
+        elif dp not in (1, transport.size()):
+            raise ValueError(f"dp={dp} for a transport of "
+                             f"{transport.size()} workers")
+        self.transport = transport
+        self.local = transport.local_workers()
+        M, L = transport.size(), len(self.local)
+        scheme = scheme or QuantScheme(name="fp32")
+        self.fsdp_scheme = scheme
+        self.fsdp_sync = fsdp_sync
+        self.fsdp_quantized = fsdp_sync == "quantized" and scheme.quantized
+        # the codec that rides the backward wire (the metrics report it)
+        self.fsdp_codec = codec if codec is not None else codec_for_scheme(
+            scheme)
+        self._gather = make_gather(scheme, fsdp_sync, transport=transport,
+                                   codec=self.fsdp_codec)
+        self.fsdp_entries = fsdp_layout(cfg, scheme.bucket_size, M)
+        self._slot_meta = [e.meta for e in self.fsdp_entries
+                           if e.name.startswith("slots.")]
+        self.flat = self.local_rows(dp_to_fsdp(flat, cfg, scheme.bucket_size,
+                                               M))
+        del flat
+        self.d = self.flat.numel()
+        views = fsdp_views(self.flat, self.fsdp_entries, M, L)
+        self.embed_shard = nn.Parameter(views["embed"][0])
+        self.lm_shard = nn.Parameter(views["lm_head"][0])
+        self.final_norm = nn.Parameter(views["final_norm"])
+        G = cfg.group_size
+        self.slot_shards = nn.ParameterList(
+            nn.Parameter(views[f"slots.{s}"][g])
+            for g in range(cfg.num_groups) for s in range(G))
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, None, s)
+            for _ in range(cfg.num_groups) for s in range(G))
+        self._dummy_ctx = (scheme.init_state(self.flat.device).levels,
+                           SeedKey(0))
+
+    # ---- the FSDP layout ---------------------------------------------------
+
+    def local_rows(self, gflat: torch.Tensor,
+                   workers: list[int] | None = None) -> torch.Tensor:
+        """A global FSDP-layout tensor -> the buffer of ``workers``'
+        shards (this process's local workers by default)."""
+        M = self.transport.size()
+        workers = self.local if workers is None else workers
+        if list(workers) == list(range(M)):
+            return gflat.contiguous()
+        views = fsdp_views(gflat, self.fsdp_entries, M, M)
+        idx = torch.tensor(workers, device=gflat.device)
+        return torch.cat([
+            v.reshape(-1) if e.meta is None else
+            v.index_select(1, idx).reshape(-1)
+            for e, v in zip(self.fsdp_entries, views.values())])
+
+    def global_flat(self, local: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+        """The local workers' buffer (``self.flat`` by default) -> the
+        global FSDP layout: a collective when other processes hold
+        workers, so every process calls it."""
+        local = self.flat.detach() if local is None else local
+        M, L = self.transport.size(), len(self.local)
+        if L == M:
+            return local
+        rows = self.transport.all_gather([local])      # (M, local size)
+        out = []
+        for e in self.fsdp_entries:
+            n = e.Lp if e.meta is None else e.count * (e.Lp // M)
+            part, rows = rows[:, :n], rows[:, n:]
+            out.append(part[0] if e.meta is None else part.view(
+                M, e.count, e.Lp // M).transpose(0, 1).reshape(-1))
+        return torch.cat(out)
+
+    # ---- weights ---------------------------------------------------------
+
     def load_flat(self, flat: torch.Tensor) -> None:
-        """Copy a flat (ravel-ordered) parameter vector into the buffer."""
+        """Copy a flat parameter vector into the buffer: the ravel-ordered
+        DP flat, or under FSDP the global FSDP flat (whose local shards
+        are kept)."""
+        if self.param_mode == "fsdp":
+            size = fsdp_size(self.fsdp_entries, self.transport.size(),
+                             self.transport.size())
+            if flat.numel() != size:
+                raise ValueError(f"FSDP params {tuple(flat.shape)} != "
+                                 f"({size},)")
+            self.flat.copy_(self.local_rows(flat.to(self.flat.device)))
+            return
         if flat.shape != self.flat.shape:
             raise ValueError(f"flat params {tuple(flat.shape)} != "
                              f"({self.d},)")
@@ -272,26 +564,96 @@ class Model(nn.Module):
         ``grad_flat`` (d,), which the next backward accumulates into."""
         attach_grads(self, self.flat, grad_flat)
 
-    def forward(self, ids: torch.Tensor, vision: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+    def _ctx(self, sync_ctx):
+        return self._dummy_ctx if sync_ctx is None else sync_ctx
+
+    def _embed_weights(self, sync_ctx) -> torch.Tensor:
+        cd = self.compute_dtype
+        if self.param_mode != "fsdp":
+            return self.embed.to(cd)
+        levels, key = self._ctx(sync_ctx)
+        full = self._gather(self.embed_shard, levels, key.fold(EMBED_FOLD))
+        V, d = self.cfg.vocab_size, self.cfg.d_model
+        return full[:V * d].view(V, d).to(cd)
+
+    def _lm_weights(self, sync_ctx) -> torch.Tensor:
+        cd = self.compute_dtype
+        if self.param_mode != "fsdp":
+            return self.lm_head.to(cd)
+        levels, key = self._ctx(sync_ctx)
+        full = self._gather(self.lm_shard, levels, key.fold(LM_FOLD))
+        V, d = self.cfg.vocab_size, self.cfg.d_model
+        return full[:V * d].view(d, V).to(cd)
+
+    def _slot_weights(self, i: int, sync_ctx) -> dict | None:
+        """Layer i's weights: None (its own parameters) in DP mode, else
+        its slot's gathered flat as leaf views in the compute dtype."""
+        if self.param_mode != "fsdp":
+            return None
+        s = i % self.cfg.group_size
+        levels, key = self._ctx(sync_ctx)
+        full = self._gather(self.slot_shards[i], levels, key.fold(s))
+        return unflatten(full, self._slot_meta[s], self.compute_dtype)
+
+    # ---- the training forward ---------------------------------------------
+
+    def _run_stack(self, x, vision, sync_ctx):
+        """The layers over their groups, with the rematerialization of
+        ``self.remat`` when grad is enabled: (x, the aux losses summed)."""
+        cfg, G = self.cfg, self.cfg.group_size
+        remat = self.remat if torch.is_grad_enabled() else "none"
+        nested = remat == "full" and G > 1
+
+        def slot_fn(i):
+            def run(x):
+                x, a, _ = self.layers[i](
+                    x, vision, weights=self._slot_weights(i, sync_ctx))
+                return x, a
+            return run
+
+        def body(g):
+            def run(x, aux):
+                for i in range(g * G, (g + 1) * G):
+                    f = slot_fn(i)
+                    # bound the group's backward to one slot at a time
+                    x, a = (checkpoint(f, x, use_reentrant=False) if nested
+                            else f(x))
+                    aux = aux + a
+                return x, aux
+            return run
+
+        aux = 0.0
+        for g in range(cfg.num_groups):
+            f = body(g)
+            if remat == "none":
+                x, aux = f(x, aux)
+            elif remat == "dots":
+                x, aux = checkpoint(f, x, aux, use_reentrant=False,
+                                    context_fn=_dots_context)
+            else:
+                x, aux = checkpoint(f, x, aux, use_reentrant=False)
+        return x, aux
+
+    def forward(self, ids: torch.Tensor, vision: torch.Tensor | None = None,
+                sync_ctx=None) -> tuple[torch.Tensor, torch.Tensor]:
         """The training forward of a (B, S) batch: (the hidden states after
         the final norm (B, S, d), the MoE layers' aux losses summed).
         ``vision``: (B, S_img, d_model) image embeddings for the VLM's
-        cross slots (without them those blocks are skipped)."""
+        cross slots (without them those blocks are skipped).
+        ``sync_ctx`` = (levels, key) routes FSDP's reduce-scatters."""
         cd = self.compute_dtype
-        x = F.embedding(ids, self.embed.to(cd))
-        aux = 0.0
-        for layer in self.layers:
-            x, a, _ = layer(x, vision)
-            aux = aux + a
+        x = F.embedding(ids, self._embed_weights(sync_ctx))
+        x, aux = self._run_stack(x, vision, sync_ctx)
         return rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps), aux
 
     def loss(self, ids: torch.Tensor, labels: torch.Tensor,
-             vision: torch.Tensor | None = None) -> torch.Tensor:
-        """Mean next-token cross-entropy of a (B, S) batch, plus the MoE
-        layers' aux losses summed in layer order over ``num_layers``."""
-        x, aux = self.forward(ids, vision)
-        ce = lm_head_loss(self.lm_head.to(self.compute_dtype), x, labels)
+             vision: torch.Tensor | None = None,
+             sync_ctx=None) -> torch.Tensor:
+        """Mean next-token cross-entropy of a (B, S) batch (the chunked
+        ``lm_head_loss``), plus the MoE layers' aux losses summed in layer
+        order over ``num_layers``."""
+        x, aux = self.forward(ids, vision, sync_ctx)
+        ce = lm_head_loss(self._lm_weights(sync_ctx), x, labels)
         return ce + aux / max(self.cfg.num_layers, 1)
 
     @torch.inference_mode()
@@ -301,15 +663,16 @@ class Model(nn.Module):
         float32 logits (B, V), the caches for decode steps up to position
         ``max_len`` - 1), the caches laid out as ``init_cache``'s."""
         cd, G = self.compute_dtype, self.cfg.group_size
-        x = F.embedding(ids, self.embed.to(cd))
+        x = F.embedding(ids, self._embed_weights(None))
         per_layer = []
-        for layer in self.layers:
-            x, _, c = layer(x, vision, PREFILL, max_len=max_len)
+        for i, layer in enumerate(self.layers):
+            x, _, c = layer(x, vision, PREFILL, max_len=max_len,
+                            weights=self._slot_weights(i, None))
             per_layer.append(c)
         x = rms_norm(x[:, -1], self.final_norm.to(cd), self.cfg.norm_eps)
         caches = [tuple(torch.stack([c[i] for c in per_layer[s::G]])
                         for i in range(2)) for s in range(G)]
-        return lm_head_logits(self.lm_head.to(cd), x), caches
+        return lm_head_logits(self._lm_weights(None), x), caches
 
     @torch.inference_mode()
     def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list,
@@ -320,16 +683,17 @@ class Model(nn.Module):
         layout), which are updated in place.  Returns (float32 logits
         (B, V), the caches)."""
         cd, G = self.compute_dtype, self.cfg.group_size
-        x = F.embedding(token[:, None], self.embed.to(cd))
+        x = F.embedding(token[:, None], self._embed_weights(None))
         for i, layer in enumerate(self.layers):
             g, s = divmod(i, G)
             views = tuple(t[g] for t in caches[s])
-            x, _, new = layer(x, vision, DECODE, views, pos)
+            x, _, new = layer(x, vision, DECODE, views, pos,
+                              weights=self._slot_weights(i, None))
             for view, t in zip(views, new):
                 if t is not view:
                     view.copy_(t)
         x = rms_norm(x[:, 0], self.final_norm.to(cd), self.cfg.norm_eps)
-        return lm_head_logits(self.lm_head.to(cd), x), caches
+        return lm_head_logits(self._lm_weights(None), x), caches
 
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype | None = None) -> list:

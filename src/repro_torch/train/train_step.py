@@ -25,8 +25,18 @@ Per step:
      aggregate, with moments in the aggregate's dtype (as the reference's
      are after its first step) and parameters rounded back to theirs.
 
+With an FSDP model (``Model(param_mode="fsdp")``) the step is the
+reference's FSDP branch: each worker's forward gathers the slots it runs,
+and the gathers' backward reduce-scatters the gradient to the worker
+mean (quantized with the current levels and the worker's key for the
+step, ``fold(fold(key, step), w)``); with M > 1 workers stacked in one
+process that reduce-scatter runs over their stacked rows once every
+worker's backward has run (stage ``reduce_scatter``), a micro-batch at a
+time.  ``final_norm`` takes the plain mean, the levels adapt from slot
+0's shard of the gradient, and the optimizer updates the local shards.
+
 ``Trainer.state_arrays`` / ``load_state_arrays`` give its whole state as
-named tensors for ``train.checkpoint``.
+named tensors for ``train.checkpoint`` (under FSDP in the global layout).
 """
 from __future__ import annotations
 
@@ -39,10 +49,11 @@ import torch
 from repro_torch.compress import make_algorithm
 from repro_torch.core.codec import make_codec
 from repro_torch.core.schemes import QuantScheme, SchemeState
+from repro_torch.dist.fsdp import SeedKey, reduce_scatter
 from repro_torch.dist.sync import (
     compressed_allreduce, maybe_update_levels, quantized_allreduce)
 from repro_torch.dist.transport import StackedTransport
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, fsdp_views
 from repro_torch.timing import NO_CLOCK
 from .optim import OptimConfig, OptState, apply_updates, init_opt_state
 
@@ -110,13 +121,28 @@ class Trainer:
 
     Worker w's stochastic rounding draws from its own generator on the
     model's device, seeded with ``worker_seed(seed, w)``, so a worker
-    draws the same uniforms whichever process holds it.
+    draws the same uniforms whichever process holds it.  Under FSDP it
+    draws from ``key`` (``dist.fsdp.SeedKey(seed)`` by default) folded
+    with the step and the worker, as the reference's ``base_key``.
     """
 
     def __init__(self, model: Model, tcfg: TrainConfig, *, seed: int = 0,
-                 transport: StackedTransport | None = None):
+                 transport: StackedTransport | None = None, key=None):
         self.model = model
         self.tcfg = tcfg
+        self.fsdp = model.param_mode == "fsdp"
+        if self.fsdp:
+            if transport is not None and transport is not model.transport:
+                raise ValueError("an FSDP model trains over its own "
+                                 "transport")
+            transport = model.transport
+            algo = _make_algo(tcfg)
+            if algo is not None and algo.stateful:
+                raise NotImplementedError(
+                    "stateful compression on the FSDP path is wired at "
+                    "the gather level (dist.fsdp.make_gather("
+                    "algorithm=...)), not through TrainConfig.compress")
+        self.key = SeedKey(seed) if key is None else key
         if transport is None:
             transport = StackedTransport(tcfg.workers)
         if transport.size() != tcfg.workers:
@@ -128,13 +154,14 @@ class Trainer:
         self.grads = torch.zeros((len(self.local), model.d),
                                  dtype=model.flat.dtype, device=dev)
         # the wire decodes to float32; the plain mean keeps the rows' dtype
-        self.plain_mean = (tcfg.sync_mode == "fp32"
+        # (FSDP's aggregates take the parameters')
+        self.plain_mean = (self.fsdp or tcfg.sync_mode == "fp32"
                            or not tcfg.scheme.quantized)
         self.opt = init_opt_state(
             tcfg.optim, model.flat,
             model.flat.dtype if self.plain_mean else torch.float32)
         self.scheme_state = tcfg.scheme.init_state(dev)
-        self.algo = _make_algo(tcfg)
+        self.algo = None if self.fsdp else _make_algo(tcfg)
         self.compress_state = None
         if self.algo is not None and self.algo.stateful:
             self.compress_state = self.algo.init_state(len(self.local),
@@ -158,17 +185,9 @@ class Trainer:
         the workers' mean.
         """
         tcfg, model = self.tcfg, self.model
-        M = tcfg.workers
-        B = batch["ids"].shape[0]
-        if B % M:
-            raise ValueError(f"global batch {B} does not split over {M} "
-                             "workers")
-        rows = B // M
-        k = tcfg.microbatches
-        if rows % k:
-            raise ValueError(f"{rows} rows a worker do not split into {k} "
-                             "micro-batches")
-        mb = rows // k
+        rows, k, mb = self._split(batch)
+        if self.fsdp:
+            return self._fsdp_step(batch, rows, k, mb, clock)
         vision = batch.get("vision")
         losses = []
         for i, w in enumerate(self.local):
@@ -224,6 +243,119 @@ class Trainer:
             "excluded_workers": m.excluded_workers[0].item(),
         }
 
+    def _split(self, batch) -> tuple[int, int, int]:
+        """(rows a worker, micro-batches, rows a micro-batch)."""
+        M, k = self.tcfg.workers, self.tcfg.microbatches
+        B = batch["ids"].shape[0]
+        if B % M:
+            raise ValueError(f"global batch {B} does not split over {M} "
+                             "workers")
+        rows = B // M
+        if rows % k:
+            raise ValueError(f"{rows} rows a worker do not split into {k} "
+                             "micro-batches")
+        return rows, k, rows // k
+
+    # ---- FSDP ------------------------------------------------------------
+
+    def _fsdp_views(self, buf: torch.Tensor) -> dict[str, torch.Tensor]:
+        return fsdp_views(buf, self.model.fsdp_entries,
+                          self.transport.size(), len(self.local))
+
+    def _reduce_deposits(self, levels, keys, synced) -> None:
+        """The stacked workers' reduce-scatter: every sharded entry's M
+        cotangent rows (left in ``self.grads`` by the backwards) -> their
+        mean, added into ``synced``; the rows' entries are zeroed."""
+        model = self.model
+        views = self._fsdp_views(synced)       # an entry: (count, M, Lp/M)
+        off = 0
+        for e in model.fsdp_entries:
+            if e.meta is None:
+                off += e.Lp
+                continue
+            out = views[e.name]
+            for g in range(e.count):
+                r = self.grads[:, off + g * e.Lp:off + (g + 1) * e.Lp]
+                mean = reduce_scatter(
+                    r, levels, [key.fold(e.fold) for key in keys],
+                    transport=self.transport, codec=model.fsdp_codec,
+                    quantized=model.fsdp_quantized)
+                out[g] += mean.to(out.dtype)
+                r.zero_()
+            off += e.count * e.Lp
+
+    def _fsdp_step(self, batch, rows, k, mb, clock) -> dict[str, float]:
+        tcfg, model = self.tcfg, self.model
+        levels = self.scheme_state.levels
+        # the reference's base_key: fold(fold(rng, step), data rank)
+        keys = [self.key.fold(self.step).fold(w) for w in self.local]
+        deposit = len(self.local) > 1
+        vision = batch.get("vision")
+        self.grads.zero_()
+        synced = (torch.zeros_like(self.grads[0]) if deposit
+                  else self.grads[0])
+        losses = [0.0] * len(self.local)
+        for j in range(k):
+            for i, w in enumerate(self.local):
+                model.attach_grads(self.grads[i])
+                lo = w * rows + j * mb
+                part = model.loss(
+                    batch["ids"][lo:lo + mb], batch["labels"][lo:lo + mb],
+                    None if vision is None else vision[lo:lo + mb],
+                    sync_ctx=(levels, keys[i]))
+                part.backward()
+                losses[i] = losses[i] + part.detach()
+            if deposit:
+                clock.mark("grad")
+                self._reduce_deposits(levels, keys, synced)
+                clock.mark("reduce_scatter")
+        clock.mark("grad")
+        # the local final_norm gradients, then their plain mean
+        fn = torch.stack([self._fsdp_views(g)["final_norm"]
+                          for g in self.grads])
+        if k > 1:
+            synced.div_(k)
+            fn = fn / k
+            losses = [x / k for x in losses]
+        sv = self._fsdp_views(synced)
+        # the reference's grad_norm: worker 0's local gradient leaves
+        sq = torch.stack([sum(torch.sum(
+            (fn[i] if e.meta is None else sv[e.name][:, i]).float() ** 2)
+            for e in model.fsdp_entries) for i in range(len(self.local))])
+        # gathered, then one mean: the same additions in every form
+        sv["final_norm"].copy_(self.transport.all_gather(list(fn)).mean(0))
+        slot0 = torch.stack([sv["slots.0"][:, i].reshape(-1)
+                             for i in range(len(self.local))])
+        self.scheme_state = maybe_update_levels(
+            slot0.float(), tcfg.scheme, self.scheme_state,
+            is_update_step(tcfg, self.step), transport=self.transport,
+            clock=clock)
+        del slot0
+        self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
+        del synced, sv
+        clock.mark("optimizer")
+        self.step += 1
+        losses = self.transport.all_gather(losses)
+        grad_norm = torch.sqrt(self.transport.all_gather(list(sq))[0])
+        # the wire the model's gathers ship, as the reference reports it
+        quantized = tcfg.scheme.quantized
+        wire = (model.fsdp_codec.nominal_bits_per_coord if quantized
+                else 32.0)
+        return {
+            "loss": losses.mean().item(),
+            "grad_norm": grad_norm.item(),
+            "comm_bits_per_coord": 2.0 * wire if quantized else 32.0,
+            "quant_error": 0.0,
+            "reduce_bits_per_coord": wire,
+            "broadcast_bits_per_coord": wire if quantized else 0.0,
+            "entropy_bits_per_coord": float(
+                self.scheme_state.entropy_bits),
+            "residual_norm": 0.0,
+            "kept_fraction": 1.0,
+            "corrupt_fraction": 0.0,
+            "excluded_workers": 0.0,
+        }
+
     # ---- checkpointing ---------------------------------------------------
 
     def _all_rows(self, local: torch.Tensor) -> torch.Tensor:
@@ -244,14 +376,16 @@ class Trainer:
         workers' rows).  The same in every process, and the same as a
         stacked trainer's of the same M: a collective when other
         processes hold workers, so every process calls it."""
-        out = {"params": self.model.flat.detach(),
-               "opt.mu": self.opt.mu,
+        glob = (self.model.global_flat if self.fsdp
+                else lambda t: t)     # FSDP: the global layout
+        out = {"params": glob(self.model.flat.detach()),
+               "opt.mu": glob(self.opt.mu),
                "opt.count": torch.tensor(self.opt.count),
                "step": torch.tensor(self.step),
                "worker_rng": self._all_rows(torch.stack(
                    [g.get_state() for g in self.generators]))}
         if self.opt.nu is not None:
-            out["opt.nu"] = self.opt.nu
+            out["opt.nu"] = glob(self.opt.nu)
         for f in SchemeState._fields:
             out[f"scheme.{f}"] = torch.as_tensor(getattr(self.scheme_state,
                                                          f))
@@ -264,11 +398,12 @@ class Trainer:
     def load_state_arrays(self, arrays: dict[str, torch.Tensor]) -> None:
         """Restore what ``state_arrays`` gave (shapes as this trainer's),
         keeping the local workers' rows of the per-worker arrays."""
+        local = (self.model.local_rows if self.fsdp else lambda t: t)
         with torch.no_grad():
-            self.model.flat.copy_(arrays["params"])
-            self.opt.mu.copy_(arrays["opt.mu"])
+            self.model.flat.copy_(local(arrays["params"]))
+            self.opt.mu.copy_(local(arrays["opt.mu"]))
             if self.opt.nu is not None:
-                self.opt.nu.copy_(arrays["opt.nu"])
+                self.opt.nu.copy_(local(arrays["opt.nu"]))
         self.opt = OptState(self.opt.mu, self.opt.nu,
                             int(arrays["opt.count"]))
         dev = self.model.flat.device

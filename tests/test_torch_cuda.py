@@ -30,6 +30,11 @@ launcher in 2 gloo ranks sharing the card (all_gather and two_phase) and
 in one NCCL rank, each bit-equal to the stacked workers of the same M on
 the card (losses and the final parameters' sha256).
 
+Rematerialization: every ``remat`` mode's gradients equal ``"none"``'s
+bit for bit on the card.  FSDP: the quantized reduce-scatter on the card
+against the CPU (every codec, with error feedback), launching the CUDA
+kernels, and a stacked FSDP trainer's steps on the card against the CPU.
+
 Serving: a SMOKE config's prefill and decode steps on the card against
 the CPU (logits and caches within 1e-5 of their largest entry, 5e-5 for
 jamba) and twice bit-equal; RWKV6 at the init's decays, card and CPU
@@ -43,6 +48,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -801,3 +807,122 @@ def test_nccl_at_world_size_one_equals_one_stacked_worker(dev, tmp_path):
     ranks = _ranks(tmp_path, 1, SMOKE_RUN + ["--backend", "nccl"])
     loss, digest = _stacked(SMOKE_RUN, 1)
     assert (ranks[0]["loss"], ranks[0]["digest"]) == (loss, digest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mixtral-8x7b",
+                                  "jamba-1.5-large-398b"])
+def test_remat_gradients_bit_equal_on_card(dev, arch):
+    """A SMOKE config's loss and flat gradient on the card under every
+    ``remat`` equal ``"none"``'s bit for bit (the hybrid's 8-slot groups
+    checkpoint each slot too)."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import REMAT_MODES, Model
+    cfg = configs.get_smoke_config(arch)
+    g = torch.Generator(device=dev).manual_seed(5)
+    ids = torch.randint(0, cfg.vocab_size, (2, 129), generator=g,
+                        device=dev)
+    out = {}
+    for remat in REMAT_MODES:
+        model = Model(cfg, device=dev, seed=1, remat=remat)
+        grad = torch.zeros_like(model.flat)
+        model.attach_grads(grad)
+        loss = model.loss(ids[:, :-1], ids[:, 1:])
+        loss.backward()
+        out[remat] = (loss.detach(), grad)
+    assert torch.isfinite(out["none"][1]).all()
+    for remat in REMAT_MODES[:-1]:
+        assert torch.equal(out[remat][0], out["none"][0]), remat
+        assert torch.equal(out[remat][1], out["none"][1]), remat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "entropy", "mixed_width"])
+def test_fsdp_reduce_scatter_on_card_matches_cpu(dev, kind):
+    """``_quantized_reduce_scatter`` of 4 stacked workers (buckets of 1024,
+    with error feedback) on the card against the CPU with the same keys:
+    shard means and residuals within 1e-6 of the terms' magnitude, and
+    the card's encodes launch the CUDA quantize, its decodes dequantize."""
+    from repro_torch.dist import fsdp
+    from repro_torch.dist.transport import StackedTransport
+    M, bs = 4, 1024
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=bs)
+    codec = make_codec(scheme, kind)
+    _, nb = fsdp.chunk_plan(40 * bs, bs, M)
+    g = torch.Generator().manual_seed(8)
+    rows = torch.randn((M, nb * bs), generator=g) * 1e-2
+    res = torch.randn((M, nb * bs), generator=g) * 1e-3
+    k = fsdp._rounds_for(nb // M) if codec.chunkable else 1
+    # the same uniforms on both sides (a generator's stream depends on
+    # its device)
+    u = [[torch.rand(codec.rounding_shape(nb // k), generator=g)
+          for _ in range(k)] for _ in range(M)]
+
+    def run(d):
+        return fsdp._quantized_reduce_scatter(
+            rows.to(d), scheme.init_levels(d), None,
+            transport=StackedTransport(M), codec=codec, residual=res.to(d),
+            u=[[x.to(d) for x in w] for w in u])
+
+    before = dict(kcuda.LAUNCHES)
+    on_card = run(dev)
+    torch.cuda.synchronize()
+    launched = {k: kcuda.LAUNCHES[k] - before.get(k, 0) for k in kcuda.KERNELS}
+    # one encode a worker and round (mixed widths: one quantize a group)
+    assert launched["quantize"] >= M * k
+    assert launched["dequantize"] >= M * k
+    on_cpu = run("cpu")
+    scale = float(rows.abs().max() + res.abs().max())
+    for a, b in zip(on_card, on_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.cuda
+def test_fsdp_trainer_launches_the_kernels_on_card(dev):
+    """Two stacked workers of qwen3-0.6b's SMOKE config in FSDP, two steps
+    with a level update at step 1, on the card against the CPU: losses
+    within rtol 1e-5; every encode of the reduce-scatter launches the CUDA
+    quantize (the plain version never runs on card tensors), the level
+    update bucket_stats."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.data import DataConfig, Pipeline
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    from repro_torch.dist.fsdp import SeedKey
+
+    class HostKey(SeedKey):
+        """Draws on the CPU and moves the uniforms, so that both devices
+        round with the same ones."""
+
+        def fold(self, i):
+            return HostKey(super().fold(i).seed)
+
+        def uniform(self, shape, device):
+            return super().uniform(shape, "cpu").to(device)
+
+    cfg = configs.get_smoke_config("qwen3-0.6b")
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=256)
+    pipe = Pipeline(DataConfig(kind="uniform", vocab_size=cfg.vocab_size,
+                               seq_len=32, global_batch=4))
+    weights = Model(cfg, device="cpu", seed=0, param_mode="fsdp", dp=2,
+                    fsdp_scheme=scheme).flat
+    losses = {}
+    for d in (dev, torch.device("cpu")):
+        model = Model(cfg, device=d, seed=0, param_mode="fsdp", dp=2,
+                      fsdp_scheme=scheme)
+        model.load_flat(weights)
+        trainer = Trainer(model, TrainConfig(
+            scheme=scheme, optim=OptimConfig(name="adamw", lr=1e-3),
+            update_milestones=(1,), update_every=0, workers=2), seed=0,
+            key=HostKey(0))
+        kcuda.reset_launches()
+        losses[d.type] = [trainer.train_step(pipe.batch(t, d))["loss"]
+                          for t in range(2)]
+        if d.type == "cuda":
+            launched = dict(kcuda.LAUNCHES)
+            assert launched["quantize"] > 0 and launched["dequantize"] > 0
+            assert launched["bucket_stats"] > 0
+        else:
+            assert sum(kcuda.LAUNCHES.values()) == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
