@@ -189,6 +189,26 @@ Phases, each of which must pass:
      before them the FSDP rounds' kernel shapes ((240, 8192) a layer
      slot's round, (2376, 8192) embed's and lm_head's) against the plain
      versions, timed;
+ 15g. phase P, tensor parallelism, each run a subprocess: P1,
+     qwen3-0.6b whole through the launcher's ``--tp 2`` on 4 gloo ranks
+     sharing cuda:0 (2 data x 2 model; d = 405,209,088 a rank), phase H's
+     setting at 2 data workers, 3 steps (``--rank-run``, each step's
+     parameters fingerprinted on the card): the model ranks of each data
+     rank report bit-equal losses, each model rank's two data ranks hold
+     bit-equal parameters after every step, the losses are finite and
+     every rank launches all three kernels; per rank the steps, stages,
+     the model group's all-reduces (calls, bytes, ms), peak memory and
+     launches; the kernels at P1's shapes against their plain versions
+     before it; P1f (``--tp-check f32``), qwen3-0.6b whole at float32
+     compute, one forward and backward at tp = 2 on 2 ranks against tp =
+     1 with the same weights: the loss within rtol 1e-5, every sharded
+     leaf's gradient and every replicated leaf's rank sum at 2x the tp =
+     1 gradient within 1e-4 of the leaf's largest entry (the reference's
+     transpose of psum, ROADMAP §3); P2 (``--tp-check p2``): one train
+     step at tp = 2 of the mixtral, llama4-scout, rwkv6, jamba,
+     llama-vision (with image embeddings) and granite SMOKE configs on 2
+     ranks, card against CPU within the earlier card bands, every kernel
+     launched;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -198,7 +218,7 @@ Phases, each of which must pass:
 
 Output: per-phase lines, then the kernels' JSON line (launches summed
 over phases B-I, the vision step, slice 8's ``--smoke`` runs, phase
-M's ranks and phase O's), then as the last
+M's ranks, phase O's and phase P's), then as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no such last
 line, when a phase fails or no CUDA device is present.
 """
@@ -228,6 +248,14 @@ JAMBA, VLM = "jamba-1.5-large-398b", "llama-3.2-vision-11b"
 MAMBA_SLOT = "mamba-slot"     # grad_twice's case of jamba's slot 0 alone
 D_I, NB_I = 1_058_099_200, 129_163  # phase I: rwkv6-7b, 2 layers
 D_K, D_L = 1_498_482_688, 8_876_462_080  # phases K, L: whole models
+# phase P: a model rank of qwen3-0.6b at tp = 2, and its buckets of 8192
+D_P, NB_P = 405_209_088, 49_464
+# phase P2's SMOKE configs, each one step at tp = 2, card against CPU, and
+# the earlier card bands of each (loss rtol, gradient of its largest entry)
+P2_BANDS = {"mixtral-8x7b": (1e-6, 1e-5), "llama4-scout-17b-a16e": (1e-6, 1e-5),
+            "rwkv6-7b": (1e-6, 1e-5), "jamba-1.5-large-398b": (1e-6, 5e-5),
+            "llama-3.2-vision-11b": (1e-6, 1e-5),
+            "granite-3-2b": (1e-5, 1e-4)}
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -1256,13 +1284,14 @@ def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
     return res, counts, layouts, peak
 
 
-def phase_shapes(ops, ref, lv, out, phase, nb):
+def phase_shapes(ops, ref, lv, out, phase, nb, m=M_B):
     """Each kernel at the shapes a full-width phase gives it (``nb``
-    buckets of 8192 a worker, 4 workers: phase H's qwen3-0.6b, d =
+    buckets of 8192 a worker, ``m`` workers: phase H's qwen3-0.6b, d =
     751,632,384 in 91,752 buckets; phase I's rwkv6-7b at 2 layers, d =
-    1,058,099,200 in 129,163), against its plain version, timed in 3
-    rounds beside the plain version and the bound (records appended to
-    ``out``)."""
+    1,058,099,200 in 129,163; phase P's model rank of qwen3-0.6b at tp =
+    2, d = 405,209,088 in 49,464, 2 data workers), against its plain
+    version, timed in 3 rounds beside the plain version and the bound
+    (records appended to ``out``)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
@@ -1305,23 +1334,23 @@ def phase_shapes(ops, ref, lv, out, phase, nb):
                           for i in parts],
                  n * 4 + nb * 12, n * 8, worst, "stats of one worker")
     del vb, u
-    c32 = torch.randint(-(L - 1), L, (M_B * nb, BS_B), generator=g,
+    c32 = torch.randint(-(L - 1), L, (m * nb, BS_B), generator=g,
                         device=dev, dtype=torch.int32)
-    n4 = torch.rand(M_B * nb, generator=g, device=dev) + 0.1
+    n4 = torch.rand(m * nb, generator=g, device=dev) + 0.1
     got = ops.dequantize_op(c32, n4, levels)
-    parts, rows = chunks(M_B * nb, 32)
+    parts, rows = chunks(m * nb, 32)
     for i in parts:
         check(torch.equal(got[i:i + rows], ref.dequantize_ref(
             c32[i:i + rows], n4[i:i + rows], levels)),
             f"dequantize at phase {phase}'s shape not exact")
     del got
     record_shape(out, f"phase {phase} shape", "dequantize",
-                 f"({M_B * nb}, {BS_B}) int32",
+                 f"({m * nb}, {BS_B}) int32",
                  lambda: ops.dequantize_op(c32, n4, levels),
                  lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
                                              levels) for i in parts],
-                 M_B * n * 8 + M_B * nb * 4, M_B * n * 5, 0.0,
-                 "decode of the 4 gathered streams")
+                 m * n * 8 + m * nb * 4, m * n * 5, 0.0,
+                 f"decode of the {m} gathered streams")
     del c32, n4
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1755,8 +1784,8 @@ def moe_width_check(configs, Model):
     from repro_torch.models import moe, transformer
     stats = []
 
-    def spy(cfg, p, x):
-        y, aux = moe.moe_ffn(cfg, p, x)
+    def spy(cfg, p, x, *tp_ctx):
+        y, aux = moe.moe_ffn(cfg, p, x, *tp_ctx)
         with torch.no_grad():
             xt = x.reshape(-1, x.shape[-1])
             probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
@@ -2278,6 +2307,16 @@ def rank_run(argv: list[str]) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda.build()
+    prints = []
+    if "--tp" in argv:      # phase P1: each step's parameters, fingerprinted
+        from repro_torch.train.train_step import Trainer
+        step = Trainer.train_step
+
+        def fingerprinted(self, *args, **kwargs):
+            m = step(self, *args, **kwargs)
+            prints.append(fingerprint(self.model.flat))
+            return m
+        Trainer.train_step = fingerprinted
     torch.cuda.reset_peak_memory_stats()
     cuda.reset_launches()
     try:
@@ -2293,7 +2332,10 @@ def rank_run(argv: list[str]) -> None:
                "stage_ms": [h["stage_ms"] for h in res["history"]],
                "corrupt": [h["corrupt_fraction"] for h in res["history"]],
                "digest": train.params_digest(res["trainer"].model.flat),
-               "launches": counts, "layouts": layouts, "peak_bytes": peak}
+               "launches": counts, "layouts": layouts, "peak_bytes": peak,
+               "model_rank": res["trainer"].model.ctx.rank,
+               "fingerprints": prints,
+               "tp": [h.get("tp_all_reduce") for h in res["history"]]}
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -2301,36 +2343,31 @@ def rank_run(argv: list[str]) -> None:
             dist.destroy_process_group()
 
 
-def _rank_runs(label: str, argv: list[str], nproc: int,
-               deterministic: bool) -> list[dict]:
-    """``rank_run`` in ``nproc`` processes under torchrun (0: one plain
-    process, the stacked workers); every process's record."""
-    import glob
-    import shutil
-    out = os.path.join(ROOT, "build", "phase_m", label)
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    me = [os.path.abspath(__file__), "--rank-run", out]
-    if deterministic:
-        me.append("--deterministic")
-    cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
-            "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    if deterministic:
-        env["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    t0 = time.perf_counter()
-    sub = subprocess.run(cmd + me + argv, env=env, capture_output=True,
-                         text=True)
-    wall = time.perf_counter() - t0
-    check(sub.returncode == 0, f"phase M {label} failed (rc "
-          f"{sub.returncode}): {sub.stdout[-2000:]}\n{sub.stderr[-4000:]}")
-    recs = [json.load(open(f)) for f in sorted(glob.glob(
-        os.path.join(out, "rank*.json")))]
-    check(len(recs) == max(nproc, 1), f"phase M {label}: {len(recs)} "
-          "records")
-    for r in recs:
-        r["wall_s"] = wall
-    return recs
+def fingerprint(flat) -> list[int]:
+    """Three int64 sums of the flat's 32-bit words on the card (plain,
+    weighted by the position in a row of 4096, and the row sums weighted
+    by the row): equal flats give equal sums, and two flats that differ
+    almost surely do not; a few ms, against seconds for a sha256 on the
+    host."""
+    import torch
+    w = flat.detach().reshape(-1).view(torch.int32)
+    c = 4096
+    pos = torch.arange(1, c + 1, device=w.device, dtype=torch.int64)
+    a = b = r = 0
+    rows = 0
+    step = c * 16384
+    for lo in range(0, w.numel(), step):
+        part = w[lo:lo + step].to(torch.int64)
+        part = torch.nn.functional.pad(part, (0, -part.numel() % c))
+        part = part.view(-1, c)
+        rs = part.sum(1)
+        ridx = torch.arange(rows + 1, rows + 1 + rs.numel(),
+                            device=w.device, dtype=torch.int64)
+        a += int(rs.sum())
+        b += int((part * pos).sum())
+        r += int((rs * ridx).sum())
+        rows += rs.numel()
+    return [a, b, r]
 
 
 def _steady(rec: dict, update_at: int) -> tuple[float, float, int]:
@@ -2352,8 +2389,13 @@ def phase_m_run(name: str, argv: list[str], ranks: int, backend: str,
     stacked = argv + ["--device", "cuda:0", "--workers", str(ranks)]
     deterministic = False
     while True:
-        recs = _rank_runs(f"{name}-group", group, ranks, deterministic)
-        base = _rank_runs(f"{name}-stacked", stacked, 0, deterministic)[0]
+        flags = ["--deterministic"] if deterministic else []
+        env = ({"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if deterministic
+               else None)
+        recs = _child_runs("M", "--rank-run", f"{name}-group",
+                           flags + group, ranks, env)
+        base = _child_runs("M", "--rank-run", f"{name}-stacked",
+                           flags + stacked, 0, env)[0]
         same = all(r["loss"] == base["loss"] and r["digest"] == base["digest"]
                    for r in recs)
         if same or deterministic:
@@ -2542,17 +2584,19 @@ def phase_n(configs, Model, layers, smi: str) -> dict:
 
 
 def fsdp_run(argv: list[str]) -> None:
-    """Phase O's child (``chip_smoke.py --fsdp-run OUT MODE``, under
-    torchrun or alone): qwen3-0.6b whole, M = 2 workers (2 x 1024 uniform
-    tokens a worker), ALQ 3-bit, buckets of 8192, AdamW lr 1e-4, a level
-    update at step 1, 3 steps, through ``Model``/``Trainer`` with every
-    launch count set to 0 just before.  MODE: ``quantized`` (FSDP, the
-    quantized reduce-scatter), ``fp32`` (FSDP, the float32 mean) or
-    ``dp`` (the DP model, ``sync_mode="fp32"``).  Writes its losses, step
-    and stage times, each local worker's shard digest (FSDP) or the
-    parameters' digest (DP), the first step's first moment (in the DP
-    layout, for fp32 and dp), launches and peak memory to
-    OUT/rank<R>.json."""
+    """Phase O's child (``chip_smoke.py --fsdp-run OUT MODE...``, under
+    torchrun or alone): for each MODE in turn, in this one process,
+    qwen3-0.6b whole, M = 2 workers (2 x 1024 uniform tokens a worker),
+    ALQ 3-bit, buckets of 8192, AdamW lr 1e-4, a level update at step 1,
+    3 steps, through ``Model``/``Trainer`` with every launch count set to
+    0 just before.  MODE: ``quantized`` (FSDP, the quantized
+    reduce-scatter), ``fp32`` (FSDP, the float32 mean) or ``dp`` (the DP
+    model, ``sync_mode="fp32"``).  Writes each mode's losses, step and
+    stage times, each local worker's shard digest (FSDP) or the
+    parameters' digest (DP), launches and peak memory to
+    OUT/rank<R>.json (a record of each mode under ``runs``, or the one
+    mode's record), and the first step's first moment (in the DP layout,
+    for fp32 and dp) to OUT/mu0-<MODE>.pt."""
     import hashlib
     import torch
     import torch.distributed as dist
@@ -2566,65 +2610,75 @@ def fsdp_run(argv: list[str]) -> None:
     from repro_torch.train.optim import OptimConfig
     from repro_torch.train.train_step import TrainConfig, Trainer
     from repro_torch import weights
-    out, mode = argv
+    out, *modes = argv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cuda.build()
     transport = None
     if mesh.world_size():
         _, transport = mesh.init_process_group("gloo", "cuda:0")
+    rank = transport.rank() if transport is not None else "stacked"
     dev = torch.device("cuda:0")
     M = 2
     cfg = configs.get_config("qwen3-0.6b")
     scheme = QuantScheme(name="alq", bits=3, bucket_size=BS_B)
+    runs = {}
     try:
-        if mode == "dp":
-            model = Model(cfg, device=dev, seed=0)
-        else:
-            model = Model(cfg, device=dev, seed=0, param_mode="fsdp", dp=M,
-                          transport=transport, fsdp_scheme=scheme,
-                          fsdp_sync=mode)
-        tcfg = TrainConfig(
-            scheme=scheme, optim=OptimConfig(name="adamw", lr=1e-4,
-                                             weight_decay=0.0),
-            sync_mode="fp32" if mode == "dp" else "all_gather",
-            update_milestones=(1,), update_every=0, workers=M)
-        trainer = Trainer(model, tcfg, seed=0, transport=transport)
-        pipe = Pipeline(DataConfig(kind="uniform", vocab_size=cfg.vocab_size,
-                                   seq_len=1024, global_batch=2 * M, seed=0))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launches()
-        rec = {"mode": mode, "loss": [], "step_ms": [], "stage_ms": []}
-        for t in range(3):
-            batch = pipe.batch(t, dev)
-            clock = StageClock(dev)
-            t0 = time.perf_counter()
-            m = trainer.train_step(batch, clock=clock)
-            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
-            rec["stage_ms"].append(clock.stage_ms())
-            rec["loss"].append(m["loss"])
-            if t == 0 and mode != "quantized":
-                mu = trainer.opt.mu
-                if mode == "fp32":
-                    mu = weights.fsdp_to_dp(model.global_flat(mu), cfg,
-                                            BS_B, M)
-                if transport is None or transport.rank() == 0:
-                    torch.save(mu.cpu(), os.path.join(out, "mu0.pt"))
-                del mu
-        rec["launches"] = dict(cuda.LAUNCHES)
-        rec["layouts"] = dict(cuda.LAYOUTS)
-        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
-        rec["d"] = model.d
-        flat = model.flat.detach()
-        workers = (model.local if mode != "dp" else [0])
-        rec["digests"] = {str(w): hashlib.sha256(
-            (model.local_rows(model.global_flat(flat), [w])
-             if mode != "dp" and transport is None else flat
-             ).cpu().view(torch.uint8).numpy()).hexdigest()
-            for w in workers}
-        rank = transport.rank() if transport is not None else "stacked"
-        rec["rank"] = rank
+        for mode in modes:
+            if mode == "dp":
+                model = Model(cfg, device=dev, seed=0)
+            else:
+                model = Model(cfg, device=dev, seed=0, param_mode="fsdp",
+                              dp=M, transport=transport, fsdp_scheme=scheme,
+                              fsdp_sync=mode)
+            tcfg = TrainConfig(
+                scheme=scheme, optim=OptimConfig(name="adamw", lr=1e-4,
+                                                 weight_decay=0.0),
+                sync_mode="fp32" if mode == "dp" else "all_gather",
+                update_milestones=(1,), update_every=0, workers=M)
+            trainer = Trainer(model, tcfg, seed=0, transport=transport)
+            pipe = Pipeline(DataConfig(kind="uniform",
+                                       vocab_size=cfg.vocab_size,
+                                       seq_len=1024, global_batch=2 * M,
+                                       seed=0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            rec = {"mode": mode, "rank": rank, "loss": [], "step_ms": [],
+                   "stage_ms": []}
+            for t in range(3):
+                batch = pipe.batch(t, dev)
+                clock = StageClock(dev)
+                t0 = time.perf_counter()
+                m = trainer.train_step(batch, clock=clock)
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["stage_ms"].append(clock.stage_ms())
+                rec["loss"].append(m["loss"])
+                if t == 0 and mode != "quantized":
+                    mu = trainer.opt.mu
+                    if mode == "fp32":
+                        mu = weights.fsdp_to_dp(model.global_flat(mu), cfg,
+                                                BS_B, M)
+                    if transport is None or transport.rank() == 0:
+                        torch.save(mu.cpu(),
+                                   os.path.join(out, f"mu0-{mode}.pt"))
+                    del mu
+            rec["launches"] = dict(cuda.LAUNCHES)
+            rec["layouts"] = dict(cuda.LAYOUTS)
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            rec["d"] = model.d
+            flat = model.flat.detach()
+            workers = (model.local if mode != "dp" else [0])
+            rec["digests"] = {str(w): hashlib.sha256(
+                (model.local_rows(model.global_flat(flat), [w])
+                 if mode != "dp" and transport is None else flat
+                 ).cpu().view(torch.uint8).numpy()).hexdigest()
+                for w in workers}
+            runs[mode] = rec
+            del model, trainer, flat
+            torch.cuda.empty_cache()
+        rec = runs[modes[0]] if len(modes) == 1 else {"rank": rank,
+                                                      "runs": runs}
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -2632,28 +2686,30 @@ def fsdp_run(argv: list[str]) -> None:
             dist.destroy_process_group()
 
 
-def _fsdp_runs(label: str, mode: str, nproc: int) -> list[dict]:
-    """``fsdp_run`` in ``nproc`` processes under torchrun (0: one plain
-    process, the stacked workers); every process's record."""
+def _child_runs(phase: str, flag: str, label: str, args: list[str],
+                nproc: int, env: dict | None = None) -> list[dict]:
+    """``chip_smoke.py FLAG OUT ARGS...`` in ``nproc`` processes under
+    torchrun (0: one plain process), OUT = build/phase_<phase>/LABEL,
+    with ``env`` added to the environment; every process's record (its
+    rank<R>.json)."""
     import glob
     import shutil
-    out = os.path.join(ROOT, "build", "phase_o", label)
+    out = os.path.join(ROOT, "build", f"phase_{phase.lower()}", label)
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", str(nproc)] if nproc else [sys.executable])
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env = dict(os.environ, OMP_NUM_THREADS="1", **(env or {}))
     t0 = time.perf_counter()
-    sub = subprocess.run(cmd + [os.path.abspath(__file__), "--fsdp-run",
-                                out, mode], env=env, capture_output=True,
-                         text=True)
+    sub = subprocess.run(cmd + [os.path.abspath(__file__), flag, out, *args],
+                         env=env, capture_output=True, text=True)
     wall = time.perf_counter() - t0
-    check(sub.returncode == 0, f"phase O {label} failed (rc "
+    check(sub.returncode == 0, f"phase {phase} {label} failed (rc "
           f"{sub.returncode}): {sub.stdout[-2000:]}\n{sub.stderr[-4000:]}")
     recs = [json.load(open(f)) for f in sorted(glob.glob(
         os.path.join(out, "rank*.json")))]
-    check(len(recs) == max(nproc, 1), f"phase O {label}: {len(recs)} "
-          "records")
+    check(len(recs) == max(nproc, 1), f"phase {phase} {label}: "
+          f"{len(recs)} records")
     for r in recs:
         r["wall_s"] = wall
         r["dir"] = out
@@ -2666,14 +2722,16 @@ def phase_o(smi: str) -> dict:
     cuda:0, the quantized reduce-scatter, against the stacked M = 2 FSDP
     run: every rank's losses and shard digest bit-equal; every rank
     launches all three kernels.  O2: the float32 FSDP run against the DP
-    run (``sync_mode="fp32"``): losses rtol 1e-5, the first step's first
-    moment (0.1 x the aggregate) within 1e-6 of its largest entry."""
+    run (``sync_mode="fp32"``), one after the other in one process:
+    losses rtol 1e-5, the first step's first moment (0.1 x the
+    aggregate) within 1e-6 of its largest entry."""
     import statistics
     import torch
     torch.cuda.empty_cache()
     out = {"card": smi}
-    ranks = _fsdp_runs("O1-group", "quantized", 2)
-    stacked = _fsdp_runs("O1-stacked", "quantized", 0)[0]
+    ranks = _child_runs("O", "--fsdp-run", "O1-group", ["quantized"], 2)
+    stacked = _child_runs("O", "--fsdp-run", "O1-stacked", ["quantized"],
+                          0)[0]
     for r in ranks:
         check(r["loss"] == stacked["loss"], f"phase O rank {r['rank']} "
               f"losses {r['loss']} against stacked {stacked['loss']}")
@@ -2684,13 +2742,14 @@ def phase_o(smi: str) -> dict:
             "quantize", "dequantize", "bucket_stats")),
             f"phase O rank {r['rank']} launches {r['launches']}")
         check(all(math.isfinite(x) for x in r["loss"]), "phase O loss")
-    fp32 = _fsdp_runs("O2-fp32", "fp32", 0)[0]
-    dp = _fsdp_runs("O2-dp", "dp", 0)[0]
+    o2 = _child_runs("O", "--fsdp-run", "O2", ["fp32", "dp"], 0)[0]
+    fp32, dp = (dict(o2["runs"][k], wall_s=o2["wall_s"])
+                for k in ("fp32", "dp"))
     rel = max(abs(a - b) / abs(b) for a, b in zip(fp32["loss"], dp["loss"]))
     check(rel <= 1e-5, f"phase O fp32 FSDP losses {fp32['loss']} against DP "
           f"{dp['loss']} (rel {rel})")
-    mu_f = torch.load(os.path.join(fp32["dir"], "mu0.pt"))
-    mu_d = torch.load(os.path.join(dp["dir"], "mu0.pt"))
+    mu_f = torch.load(os.path.join(o2["dir"], "mu0-fp32.pt"))
+    mu_d = torch.load(os.path.join(o2["dir"], "mu0-dp.pt"))
     scale = float(mu_d.abs().max())
     diff = float((mu_f - mu_d).abs().max())
     check(diff <= 1e-6 * scale, f"phase O fp32 FSDP aggregate {diff} off "
@@ -2761,6 +2820,281 @@ def fsdp_shapes(ops, ref, lv, out):
     torch.cuda.empty_cache()
 
 
+def split_tp1(flat1, cfg, tp: int, rank: int):
+    """A dense config's tp = 1 flat -> model rank ``rank``'s flat at
+    ``tp`` holding the same weights: the vocabulary of embed and lm_head,
+    wq's and the FFN's columns and wo's and w2's rows cut in tp, the
+    other leaves whole."""
+    import torch
+    from repro_torch.models.transformer import param_layout
+    views, off = {}, 0
+    for name, shape, _ in param_layout(cfg, 1):
+        n = math.prod(shape)
+        views[name] = flat1[off:off + n].view(shape)
+        off += n
+    parts = []
+    for name, shape, _ in param_layout(cfg, tp):
+        v = views[name]
+        ax = {"embed": 1, "lm_head": 2}.get(name)
+        if name.endswith((".wq", ".bq", ".w1", ".w3")):
+            ax = v.dim() - 1
+        elif name.endswith((".wo", ".w2")):
+            ax = 2
+        if ax is not None:
+            v = torch.chunk(v, tp, dim=ax)[rank]
+        check(tuple(v.shape) == tuple(shape), f"split {name} {v.shape}")
+        parts.append(v.reshape(-1))
+    return torch.cat(parts)
+
+
+def _sharded(name: str) -> bool:
+    return name in ("embed", "lm_head") or name.endswith(
+        (".wq", ".bq", ".w1", ".w3", ".wo", ".w2"))
+
+
+def tp_check(argv: list[str]) -> None:
+    """Phase P's children (``chip_smoke.py --tp-check OUT MODE...``, under
+    torchrun, 2 gloo ranks sharing cuda:0, one model group of 2; each
+    MODE in turn).
+    ``f32``, P1f: qwen3-0.6b whole at float32 compute, one forward and
+    backward of 2 x 1024 tokens at tp = 1 (seed 0) and at tp = 2 with the
+    same weights cut in two (``split_tp1``): the losses, and every leaf's
+    gradient against 2x the tp = 1 gradient (a sharded leaf's shard, a
+    replicated leaf's sum over the two ranks).  ``p2``: each of
+    ``P2_BANDS``'s SMOKE configs, one train step at tp = 2 (2 x 256
+    tokens, ALQ 3-bit, buckets of 1024, a level update, one data worker)
+    on the CPU and on the card from the same weights (``trained_like``)
+    and uniforms: the losses and gradient rows, and the card's launches.
+    Writes OUT/rank<R>.json."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.codec import codec_for_scheme
+    from repro_torch.core.schemes import QuantScheme
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh
+    from repro_torch.models.layers import TPStats
+    from repro_torch.models.transformer import Model, param_layout
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    out, *modes = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda.build()
+    grid = mesh.init_grid(2, "gloo", "cuda:0")
+    dev, ctx, rank = grid.device, grid.tp_ctx, dist.get_rank()
+    rec = {"rank": rank, "modes": modes}
+
+    def grad_of(model, ids, vision=None):
+        row = torch.zeros_like(model.flat)
+        model.attach_grads(row)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss(ids[:, :-1], ids[:, 1:], vision)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), row, (time.perf_counter() - t0) * 1e3
+
+    try:
+        for mode in modes:
+            if mode == "f32":
+                cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                                          compute_dtype="float32")
+                ids = torch.from_numpy(np.random.default_rng(15).integers(
+                    0, cfg.vocab_size, (2, 1025))).to(dev)
+                one = Model(cfg, device=dev, seed=0)
+                l1, g1, ms1 = grad_of(one, ids)
+                mine = split_tp1(one.flat, cfg, 2, ctx.rank)
+                g1 = split_tp1(g1, cfg, 2, ctx.rank)
+                del one
+                torch.cuda.empty_cache()
+                two = Model(cfg, device=dev, seed=0, tp_ctx=ctx)
+                two.load_flat(mine)
+                del mine
+                torch.cuda.reset_peak_memory_stats()
+                TPStats.reset()
+                l2, g2, ms2 = grad_of(two, ids)
+                rec.update(loss1=l1, loss2=l2, ms1=ms1, ms2=ms2,
+                           tp_calls=TPStats.calls, tp_bytes=TPStats.bytes,
+                           peak_bytes=torch.cuda.max_memory_allocated())
+                worst = {"sharded": 0.0, "replicated": 0.0}
+                off = 0
+                for name, shape, _ in param_layout(cfg, 2):
+                    n = math.prod(shape)
+                    got, want = g2[off:off + n], 2 * g1[off:off + n]
+                    kind = "sharded" if _sharded(name) else "replicated"
+                    if kind == "replicated":
+                        got = got.clone()
+                        dist.all_reduce(got, group=ctx.process_group)
+                    scale = float(want.abs().max())
+                    if scale > 0:
+                        err = float((got - want).abs().max()) / scale
+                        worst[kind] = max(worst[kind], err)
+                    off += n
+                rec["worst"] = worst
+                del two, g1, g2
+                torch.cuda.empty_cache()
+            else:
+                scheme = QuantScheme(name="alq", bits=3, bucket_size=1024)
+                rec["configs"] = {}
+                for arch in P2_BANDS:
+                    cfg = configs.get_smoke_config(arch)
+                    on_cpu = Model(cfg, device="cpu", seed=0, tp_ctx=ctx)
+                    gen = torch.Generator().manual_seed(14)
+                    trained_like(on_cpu, gen)
+                    ids = torch.from_numpy(np.random.default_rng(14).integers(
+                        0, cfg.vocab_size, (2, 257)))
+                    batch = {"ids": ids[:, :-1], "labels": ids[:, 1:]}
+                    if cfg.cross_attn_every:
+                        batch["vision"] = torch.randn(
+                            2, cfg.num_image_tokens, cfg.d_model,
+                            generator=gen)
+                    plan = codec_for_scheme(scheme).plan(on_cpu.d)
+                    u = torch.rand(plan.nb, plan.bucket_size, generator=gen)
+                    flat0 = on_cpu.flat.clone()     # the step updates on_cpu
+                    res = []
+                    for d in ("cpu", dev):
+                        model = on_cpu
+                        if d != "cpu":
+                            model = Model(cfg, device=d, seed=0, tp_ctx=ctx)
+                            model.load_flat(flat0.to(d))
+                        trainer = Trainer(model, TrainConfig(
+                            scheme=scheme, optim=OptimConfig(name="adamw",
+                                                             lr=1e-3),
+                            update_milestones=(0,), update_every=0, workers=1),
+                            seed=0, transport=grid.transport)
+                        cuda.reset_launches()
+                        TPStats.reset()
+                        t0 = time.perf_counter()
+                        m = trainer.train_step(
+                            {k: v.to(d) for k, v in batch.items()},
+                            u=[u.to(d)])
+                        res.append({"loss": m["loss"],
+                                    "grad": trainer.grads[0].float().cpu(),
+                                    "ms": (time.perf_counter() - t0) * 1e3,
+                                    "launches": dict(cuda.LAUNCHES),
+                                    "tp_calls": TPStats.calls})
+                    cpu_r, card_r = res
+                    rel = (abs(card_r["loss"] - cpu_r["loss"])
+                           / abs(cpu_r["loss"]))
+                    gerr = float((card_r["grad"] - cpu_r["grad"]).abs().max()
+                                 / cpu_r["grad"].abs().max())
+                    rec["configs"][arch] = {
+                        "d": on_cpu.d, "loss_cpu": cpu_r["loss"],
+                        "loss_card": card_r["loss"], "loss_rel": rel,
+                        "grad_err": gerr, "ms_cpu": cpu_r["ms"],
+                        "ms_card": card_r["ms"],
+                        "launches": card_r["launches"],
+                        "tp_calls": card_r["tp_calls"]}
+                    del on_cpu, model, trainer, res, flat0
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
+    """Phase P: tensor parallelism, each run a subprocess while this
+    process holds no large tensor on the card.  P1: qwen3-0.6b whole
+    through ``--tp 2`` on 4 gloo ranks sharing cuda:0 (2 data x 2 model),
+    phase H's setting at 2 data workers (2 x 1024 uniform tokens a
+    worker, ALQ 3-bit, buckets of 8192, AdamW, a level update at step 1,
+    3 steps): the model ranks of a data rank report bit-equal losses,
+    the data ranks of a model rank hold bit-equal parameters after every
+    step (their fingerprints), finite losses, every rank launches all
+    three kernels, d = D_P a rank; per rank the steps, stages, the model
+    group's all-reduces (calls, bytes, ms), peak memory and launches;
+    before it the kernels at P1's shapes against their plain versions.
+    P1f: the float32 tp = 2 pass against tp = 1 (``tp_check f32``,
+    whose child then runs P2's ``p2`` in the same two processes): the
+    loss within rtol 1e-5, the sharded leaves' gradients and the
+    replicated leaves' rank sums at 2x tp = 1's within 1e-4 of each
+    leaf's largest entry.  P2: one step of each of ``P2_BANDS``'s SMOKE
+    configs at tp = 2, card against CPU within the earlier card bands,
+    every kernel launched on the card."""
+    import torch
+    torch.cuda.empty_cache()
+    out = {"card": smi}
+    phase_shapes(ops, ref, lv, shapes, "P", NB_P, m=2)
+    argv = ["--arch", "qwen3-0.6b", "--tp", "2", "--batch", "4", "--seq",
+            "1024", "--data", "uniform", "--scheme", "alq", "--bits", "3",
+            "--bucket", str(BS_B), "--optim", "adamw", "--lr", "1e-4",
+            "--update-at", "1", "--time-stages", "--steps", "3",
+            "--device", "cuda:0", "--backend", "gloo"]
+    recs = _child_runs("P", "--rank-run", "P1", argv, 4)
+    for r in recs:
+        check(r["d"] == D_P and r["layers"] == 28,
+              f"phase P1 rank {r['rank']}: d {r['d']}, {r['layers']} layers")
+        check(r["model_rank"] == r["rank"] % 2, "phase P1 grid layout")
+        check(all(math.isfinite(x) for x in r["loss"]),
+              f"phase P1 losses {r['loss']}")
+        check(all(r["launches"].get(k, 0) > 0 for k in (
+            "quantize", "dequantize", "bucket_stats")),
+            f"phase P1 rank {r['rank']} launches {r['launches']}")
+        check(len(r["fingerprints"]) == 3, "phase P1 fingerprints")
+    for d in range(2):
+        a, b = recs[2 * d], recs[2 * d + 1]
+        check(a["loss"] == b["loss"], f"phase P1 data rank {d}: model "
+              f"ranks' losses {a['loss']} and {b['loss']}")
+    for m in range(2):
+        a, b = recs[m], recs[2 + m]
+        check(a["fingerprints"] == b["fingerprints"], f"phase P1 model "
+              f"rank {m}: the data ranks' parameters differ")
+        check(a["digest"] == b["digest"], f"phase P1 model rank {m} sha256")
+    check(recs[0]["fingerprints"] != recs[1]["fingerprints"],
+          "phase P1: the model ranks hold the same parameters")
+    for r in recs:
+        split = "; ".join(", ".join(f"{k} {v:.1f}" for k, v in st.items())
+                          for st in r["stage_ms"])
+        tp = "; ".join(f"{t['calls']} calls, {t['bytes'] / 2**20:.1f} MiB, "
+                       f"{t['ms']:.1f} ms" for t in r["tp"])
+        print(f"phase P1 rank {r['rank']} (data {r['rank'] // 2}, model "
+              f"{r['model_rank']}): d={r['d']}, steps ms "
+              f"{[round(t, 1) for t in r['step_ms']]}, stages ms by step "
+              f"[{split}], TP all-reduces by step [{tp}], peak memory "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB, launches {r['launches']}"
+              f", process {r['wall_s']:.1f} s", flush=True)
+    print(f"phase P1: 4 gloo ranks, losses {recs[0]['loss']} on every "
+          f"rank; each model rank's data ranks bit-equal after every step",
+          flush=True)
+    out["P1"] = recs
+    f32 = p2 = _child_runs("P", "--tp-check", "f32-p2", ["f32", "p2"], 2)
+    for r in f32:
+        rel = abs(r["loss2"] - r["loss1"]) / abs(r["loss1"])
+        check(rel <= 1e-5, f"phase P1f rank {r['rank']}: loss tp=2 "
+              f"{r['loss2']} tp=1 {r['loss1']}")
+        check(max(r["worst"].values()) <= 1e-4, f"phase P1f rank "
+              f"{r['rank']}: gradients off 2x tp=1's by {r['worst']}")
+        print(f"phase P1f rank {r['rank']}: float32 loss tp=2 "
+              f"{r['loss2']:.7f} tp=1 {r['loss1']:.7f} (rel {rel:.2g}); "
+              f"against 2x the tp=1 gradient, sharded leaves within "
+              f"{r['worst']['sharded']:.2g}, replicated leaves' rank sums "
+              f"within {r['worst']['replicated']:.2g} of the largest entry; "
+              f"grad ms tp=1 {r['ms1']:.1f}, tp=2 {r['ms2']:.1f} "
+              f"({r['tp_calls']} all-reduces, {r['tp_bytes'] / 2**20:.1f} "
+              f"MiB), peak {r['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    out["P1f"] = f32
+    for arch, (loss_rtol, grad_rtol) in P2_BANDS.items():
+        for r in p2:
+            c = r["configs"][arch]
+            check(c["loss_rel"] <= loss_rtol and c["grad_err"] <= grad_rtol,
+                  f"phase P2 {arch} rank {r['rank']}: loss rel "
+                  f"{c['loss_rel']}, gradient {c['grad_err']}")
+            check(all(c["launches"].get(k, 0) > 0 for k in (
+                "quantize", "dequantize", "bucket_stats")),
+                f"phase P2 {arch} launches {c['launches']}")
+            print(f"phase P2 {arch} rank {r['rank']}: d={c['d']}, loss card "
+                  f"{c['loss_card']:.6f} CPU {c['loss_cpu']:.6f} (rel "
+                  f"{c['loss_rel']:.2g}), gradient within "
+                  f"{c['grad_err']:.2g}, step ms card {c['ms_card']:.1f} "
+                  f"CPU {c['ms_cpu']:.1f}, {c['tp_calls']} all-reduces, "
+                  f"launches {c['launches']}", flush=True)
+    out["P2"] = p2
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2792,6 +3126,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--fsdp-run"]:
         fsdp_run(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--tp-check"]:
+        tp_check(sys.argv[2:])
+        return
     if sys.argv[1:2] == ["--grad-twice"]:
         # determinism_check's subprocess (CUBLAS_WORKSPACE_CONFIG is set)
         torch.use_deterministic_algorithms(True)
@@ -2812,6 +3149,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    def lap(what: str) -> None:
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}",
+              flush=True)
+
     t0 = time.perf_counter()
     built = cuda.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
@@ -2829,6 +3170,7 @@ def main() -> None:
     sim_shapes(ops, ref, lv, cuda, shapes)
     phase_shapes(ops, ref, lv, shapes, "H", NB_H)
     phase_shapes(ops, ref, lv, shapes, "I", NB_I)
+    lap("the build and the kernels")
     fsdp_shapes(ops, ref, lv, shapes)
     sync_check(sync, compress, QuantScheme, make_codec)
     entropy_words_check(ops, QuantScheme, make_codec)
@@ -2844,6 +3186,7 @@ def main() -> None:
     determinism_check(configs, Model, "llama3.2-1b")
     moe_width = moe_width_check(configs, Model)
     rwkv_twice = determinism_check(configs, Model, "rwkv6-7b")
+    lap("the checks")
 
     # ---- phase A ----
     cuda.reset_launches()
@@ -2852,6 +3195,7 @@ def main() -> None:
         "--bits", "3", "--bucket", "1024", "--update-at", "2,10",
         "--steps", "16", "--lr", "2e-3", "--data", "markov"]))
     counts_a = dict(cuda.LAUNCHES)
+    lap("phase A")
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     check(all(math.isfinite(x) for x in losses), "phase A loss not finite")
@@ -2980,6 +3324,7 @@ def main() -> None:
           f"{uniform_reduce:.4f}) + broadcast {bcast:.4f}, as planned, "
           f"launches {counts_f}, layouts {layouts_f}", flush=True)
     phases["F"] = (res, counts_f, layouts_f, peak)
+    lap("phases B-F")
 
     print(json.dumps({"phases": {k: {
         "card": smi, "d": r["d"], "peak_bytes": pk, "launches": c,
@@ -3000,6 +3345,7 @@ def main() -> None:
             "agg_err", "quant_error")} for s in cell["steps"]]}
         for t, (cell, c, ly, pk) in sim_g.items()}}), flush=True)
     counts_g = [c for _, c, _, _ in sim_g.values()]
+    lap("phase G")
     del sim_g
 
     # ---- phase H: qwen3-0.6b at full width and full depth ----
@@ -3051,9 +3397,11 @@ def main() -> None:
     cfg_i = res["config"]
     del res
 
+    lap("phases H, I")
     scenario_check(sim_main, cuda)
     resume_check(train)
     micro_check(train)
+    lap("the scenario, resume and micro checks")
     # ---- phase J and the Mamba width check: one worker at full width ----
     torch.cuda.empty_cache()
     phase_j = determinism_check(
@@ -3064,6 +3412,7 @@ def main() -> None:
         "slot 0, 2 x 1024 hidden states")
     print(json.dumps({"phase_j": phase_j, "mamba_width": mamba_width,
                       "card": smi}), flush=True)
+    lap("phase J")
     # ---- serving: the SMOKE configs, then phases K and L at full width ----
     serve_check(configs, Model, cuda)
     phase_k = serve_phase(configs, Model, cuda, "K", "llama3.2-1b", 8, 1024,
@@ -3072,17 +3421,28 @@ def main() -> None:
                           D_L, 480, 32, every=False, band=3e-4)
     print(json.dumps({"phase_k": phase_k, "phase_l": phase_l, "card": smi}),
           flush=True)
+    lap("serving")
     # ---- phase M: one worker a process, in subprocesses ----
     phase_mm = phase_m(smi)
     print(json.dumps({"phase_m": phase_mm}), flush=True)
     counts_m = [r["launches"] for cell in ("M1", "M2", "M3")
                 for r in phase_mm[cell]["ranks"]]
+    lap("phase M")
     # ---- phase N: remat and the chunked loss; phase O: FSDP ----
     phase_nn = phase_n(configs, Model, layers, smi)
     print(json.dumps({"phase_n": phase_nn}), flush=True)
+    lap("phase N")
     phase_oo = phase_o(smi)
     print(json.dumps({"phase_o": phase_oo}), flush=True)
     counts_o = [r["launches"] for r in phase_oo["ranks"]]
+    lap("phase O")
+    # ---- phase P: tensor parallelism, in subprocesses ----
+    phase_pp = phase_p(smi, ops, ref, lv, shapes)
+    print(json.dumps({"phase_p": phase_pp}), flush=True)
+    lap("phase P")
+    counts_p = [r["launches"] for r in phase_pp["P1"]] + [
+        c["launches"] for r in phase_pp["P2"]
+        for c in r["configs"].values()]
     # last: the profiler runs after every timed phase
     print(json.dumps({"attention": attention_timing(attention),
                       "grad_profile": grad_profile(
@@ -3097,7 +3457,7 @@ def main() -> None:
         k["launches"] = sum(c.get(k["name"], 0) for c in (
             counts_b, counts_c, counts_d, counts_e, counts_f, *counts_g,
             counts_h, counts_i, counts_v, *counts_smoke.values(),
-            *counts_m, *counts_o))
+            *counts_m, *counts_o, *counts_p))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

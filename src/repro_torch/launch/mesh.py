@@ -1,7 +1,7 @@
-"""The data-parallel process group: one worker a process.
+"""The process groups: one data-parallel worker a process, and with
+tensor parallelism a (data x model) grid of them.
 
-The counterpart of the reference's ``launch/mesh.py`` along its data axis
-only.  ``init_process_group`` reads what ``torch.distributed.run``
+The counterpart of the reference's ``launch/mesh.py``.  ``init_process_group`` reads what ``torch.distributed.run``
 (torchrun) puts in the environment, ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK`` and ``MASTER_ADDR``/``MASTER_PORT``, or takes an explicit
 ``init_method`` (a ``file://`` store, as the tests use), and returns the
@@ -12,15 +12,23 @@ named.  NCCL on the CPU is refused, and a group whose first collective
 fails raises: nothing falls back to another backend.  NCCL refuses two
 ranks on one card, so on a one-card machine several ranks share it
 through gloo (``--device cuda:0 --backend gloo``).
+
+``init_grid`` lays the world out as the reference's ``make_local_mesh``
+lays its devices out on ``jax.make_mesh((dp, tp), ("data", "model"))``:
+rank r is at (data r // tp, model r % tp).  It returns the model group
+(a ``TPCtx`` for the model's collectives) and a transport over the data
+group (for the quantized wire).
 """
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.dist.transport import ProcessGroupTransport
+from repro_torch.models.layers import TPCtx
 
 BACKENDS = ("nccl", "gloo")
 
@@ -63,3 +71,49 @@ def init_process_group(backend: str | None = None, device="cuda", *,
         raise RuntimeError(f"the {backend} group summed {probe.item()} "
                            f"over {dist.get_world_size()} ranks")
     return device, ProcessGroupTransport()
+
+
+class Grid(NamedTuple):
+    device: torch.device
+    transport: ProcessGroupTransport   # over this rank's data group
+    tp_ctx: TPCtx                      # over this rank's model group
+    dp: int
+
+
+def _probe(group, device, size: int, what: str) -> None:
+    probe = torch.ones(1, device=device)
+    dist.all_reduce(probe, group=group)
+    if int(probe.item()) != size:
+        raise RuntimeError(f"the {what} group summed {probe.item()} over "
+                           f"{size} ranks")
+
+
+def init_grid(tp: int, backend: str | None = None, device="cuda", *,
+              init_method: str = "env://") -> Grid:
+    """Join the world of ``WORLD_SIZE`` = dp * tp processes as ``RANK``
+    and form its groups: tp = min(tp, world), which must divide the
+    world; rank r is data rank r // tp and model rank r % tp.  Every rank
+    creates every model group and every data group, in the same order,
+    as ``torch.distributed.new_group`` requires; each group's first
+    collective runs here, so a group that cannot form raises now."""
+    world = int(os.environ["WORLD_SIZE"])
+    tp = min(tp, world)
+    if tp < 1 or world % tp:
+        raise ValueError(f"tp={tp} does not divide the world of {world} "
+                         "ranks")
+    dp = world // tp
+    device, _ = init_process_group(backend, device, init_method=init_method)
+    rank = dist.get_rank()
+    model_group = data_group = None
+    for d in range(dp):
+        g = dist.new_group([d * tp + m for m in range(tp)])
+        if d == rank // tp:
+            model_group = g
+    for m in range(tp):
+        g = dist.new_group([d * tp + m for d in range(dp)])
+        if m == rank % tp:
+            data_group = g
+    _probe(model_group, device, tp, "model")
+    _probe(data_group, device, dp, "data")
+    return Grid(device, ProcessGroupTransport(data_group),
+                TPCtx.over(model_group), dp)

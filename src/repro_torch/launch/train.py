@@ -10,7 +10,9 @@ a process.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
-milliseconds of each step) so that scripts can drive it too.
+milliseconds of each step; at ``--tp`` > 1 the model group's all-reduces
+of each step, ``tp_all_reduce``: calls, bytes and, with
+``--time-stages``, milliseconds) so that scripts can drive it too.
 
 Started by ``torch.distributed.run`` (``WORLD_SIZE`` in the environment)
 it runs one worker a process over a ``ProcessGroupTransport``
@@ -21,6 +23,18 @@ it runs one worker a process over a ``ProcessGroupTransport``
 parameters equal rank 0's after initialisation and after the last step,
 and ``run`` returns the same metrics on every rank, equal to a stacked
 run's of the same M.
+
+``--tp N`` (under torchrun, ``WORLD_SIZE`` = dp * N) lays the ranks out
+as a (data x model) grid (``mesh.init_grid``): each model group of N
+ranks runs one tensor-parallel model, and each data group of dp ranks
+the quantized wire between the replicas of one model rank.  ``--workers``
+is then 1 or dp; rank 0 (data 0, model 0) logs and saves, and the log
+lines carry its metrics, as the reference's replicated out-specs give
+device 0's.  The replica check runs over each data group.  On the CPU:
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --arch qwen3-0.6b --smoke --tp 2 --steps 4
 
 ``--smoke`` takes the arch's reduced config.  ``--codec
 entropy|mixed_width`` (with ``--widths``) picks the wire codec
@@ -44,7 +58,8 @@ import torch.distributed as dist
 from repro_torch import configs
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.launch import mesh
-from repro_torch.models.transformer import Model
+from repro_torch.models.layers import TPStats, tp_all_gather
+from repro_torch.models.transformer import Model, to_global
 from repro_torch.timing import NO_CLOCK, StageClock
 from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.train import checkpoint
@@ -70,6 +85,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["fp32", "all_gather", "two_phase"])
     ap.add_argument("--workers", type=int, default=1,
                     help="M logical data-parallel workers on the device")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: the ranks of a model "
+                         "group under torchrun (WORLD_SIZE = dp * tp)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch (split over the workers)")
@@ -150,20 +168,29 @@ def check_replicas(transport, flat: torch.Tensor, when: str) -> None:
 
 
 def _group(args: argparse.Namespace):
-    """(device, transport, workers): a process group's under torchrun,
-    else the stacked workers' on ``--device``."""
+    """(device, transport, workers, TPCtx or None): a process group's
+    under torchrun (with ``--tp`` > 1 the data group's transport and the
+    model group's context), else the stacked workers' on ``--device``."""
     world = mesh.world_size()
     if not world:
-        if args.backend:
-            raise ValueError("--backend needs a process group: start the "
-                             "launcher with torch.distributed.run")
-        return torch.device(args.device), None, args.workers
-    if args.workers not in (1, world):
-        raise ValueError(f"--workers {args.workers} under {world} ranks: a "
-                         f"rank holds one worker, so --workers is 1 or "
-                         f"{world}")
-    device, transport = mesh.init_process_group(args.backend, args.device)
-    return device, transport, world
+        for flag, given in (("--backend", args.backend),
+                            ("--tp", args.tp > 1)):
+            if given:
+                raise ValueError(f"{flag} needs a process group: start "
+                                 "the launcher with torch.distributed.run")
+        return torch.device(args.device), None, args.workers, None
+    if args.tp == 1:
+        device, transport = mesh.init_process_group(args.backend,
+                                                    args.device)
+        dp, tp_ctx = world, None
+    else:
+        device, transport, tp_ctx, dp = mesh.init_grid(
+            args.tp, args.backend, args.device)
+    if args.workers not in (1, dp):
+        ranks = "ranks" if tp_ctx is None else "data ranks"
+        raise ValueError(f"--workers {args.workers} under {dp} {ranks}: a "
+                         f"rank holds one worker, so --workers is 1 or {dp}")
+    return device, transport, dp, tp_ctx
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -171,14 +198,14 @@ def run(args: argparse.Namespace) -> dict:
            else configs.get_config(args.arch))
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    device, transport, workers = _group(args)
-    rank0 = transport is None or transport.rank() == 0
+    device, transport, workers, tp_ctx = _group(args)
+    rank0 = transport is None or dist.get_rank() == 0
 
     def log(msg: str) -> None:
         if rank0:
             print(msg, flush=True)
 
-    model = Model(cfg, device=device, seed=SEED)
+    model = Model(cfg, device=device, seed=SEED, tp_ctx=tp_ctx)
     if transport is not None:
         check_replicas(transport, model.flat, "after initialisation")
     scheme = QuantScheme(name=args.scheme, bits=args.bits,
@@ -204,9 +231,15 @@ def run(args: argparse.Namespace) -> dict:
     for t in range(start, args.steps):
         batch = pipe.batch(t, device)
         clock = StageClock(device) if args.time_stages else NO_CLOCK
+        TPStats.reset()
+        TPStats.timed = args.time_stages and model.tp > 1
         t_step = time.perf_counter()
         metrics = trainer.train_step(batch, clock=clock)
         metrics["step_ms"] = (time.perf_counter() - t_step) * 1e3
+        if model.tp > 1:    # the model group's all-reduces of the step
+            metrics["tp_all_reduce"] = {"calls": TPStats.calls,
+                                        "bytes": TPStats.bytes,
+                                        "ms": TPStats.ms}
         metrics["levels"] = trainer.scheme_state.levels.tolist()
         if args.time_stages:
             metrics["stage_ms"] = clock.stage_ms()
@@ -239,9 +272,13 @@ def run(args: argparse.Namespace) -> dict:
         f"({dt / max(ran, 1) * 1e3:.0f} ms/step)")
     if transport is not None:
         check_replicas(transport, model.flat, "after the last step")
-    if args.save and rank0:
-        checkpoint.save(args.save, {"params": model.flat})
-        log(f"saved params to {args.save}")
+    if args.save:
+        flat = model.flat.detach()
+        if model.tp > 1:    # every rank gathers: the reference's layout
+            flat = to_global(tp_all_gather(model.ctx, flat), cfg)
+        if rank0:
+            checkpoint.save(args.save, {"params": flat})
+            log(f"saved params to {args.save}")
     return {"config": cfg, "d": model.d, "history": history,
             "num_updates": trainer.scheme_state.num_updates,
             "trainer": trainer}

@@ -11,13 +11,22 @@ float32 with a running max and sum.  Every operation in it (matmuls,
 elementwise, reductions along one axis, and the sum that is the
 backward of the GQA ``expand``) is deterministic on the card, so two
 backward passes on the same inputs give the same bits.
+
+At tp > 1 (``ctx``) the query heads are padded to a multiple of tp and
+sharded over the model group, the small kv projection is replicated, and
+each local q head reads the kv head of its *global* index; the padding
+heads' outputs are masked to zero, and the row-parallel output
+projection is psum'd.  Serving's caches at tp > 1 are sequence-sharded in
+the reference, which the port does not run yet.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
 from .config import CHUNKED, SLIDING, ModelConfig
-from .layers import rms_norm, rope
+from .layers import TP1, TPCtx, head_mask, make_dims, rms_norm, rope
 
 NEG_INF = -1e30
 MAX_Q_BLOCKS = 32
@@ -98,22 +107,54 @@ def _expand_kv(t: torch.Tensor, num_heads: int) -> torch.Tensor:
         B, S, num_heads, hd)
 
 
+def _expand_kv_local(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx
+                     ) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, heads_local, hd) at tp > 1: local q head
+    h reads kv head min(g // (H // KV), KV - 1), g = rank * heads_local +
+    h its global index (the reference's ``_expand_kv``).  Consecutive
+    heads share a kv head, so the copy is a concatenation of expanded
+    runs, whose backward sums each run (no scatter)."""
+    dims = make_dims(cfg, ctx.tp)
+    ratio = max(1, cfg.num_heads // cfg.num_kv_heads)
+    idx = [min((ctx.tp_rank() * dims.heads_local + h) // ratio,
+               dims.n_kv_heads - 1) for h in range(dims.heads_local)]
+    B, S, _, hd = t.shape
+    return torch.cat([t[:, :, j:j + 1].expand(B, S, len(list(run)), hd)
+                      for j, run in itertools.groupby(idx)], dim=2)
+
+
+def _expand(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx) -> torch.Tensor:
+    return (_expand_kv(t, cfg.num_heads) if ctx.tp == 1
+            else _expand_kv_local(t, cfg, ctx))
+
+
+def _combine_heads(cfg: ModelConfig, p: dict[str, torch.Tensor],
+                   out: torch.Tensor, ctx: TPCtx) -> torch.Tensor:
+    """(B, S, heads, hd) attention output -> (B, S, d): at tp > 1 the
+    padding heads masked, then the row-parallel ``wo`` psum'd."""
+    B, S = out.shape[:2]
+    if ctx.tp > 1:
+        mask = head_mask(ctx, cfg, make_dims(cfg, ctx.tp), out.device)
+        out = out * mask[None, None, :, None].to(out.dtype)
+    return ctx.psum_tp(out.reshape(B, S, -1) @ p["wo"])
+
+
 def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, xkv: torch.Tensor,
                  positions: torch.Tensor | None
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d), xkv: (B, Skv, d) -> q (B, S, H, hd), k and v (B, Skv,
-    KV, hd): the projections, the qkv bias and qk-norm where ``p`` has
+    """x: (B, S, d), xkv: (B, Skv, d) -> q (B, S, H, hd) (H the heads of
+    ``wq``: this rank's at tp > 1), k and v (B, Skv, KV, hd): the projections, the qkv bias and qk-norm where ``p`` has
     them, then RoPE at ``positions`` ((..., S); None: no RoPE).  K and V
     are computed in xkv's dtype."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    KV, hd = cfg.num_kv_heads, cfg.head_dim_
     q = x @ p["wq"]
     k = xkv @ p["wk"].to(xkv.dtype)
     v = xkv @ p["wv"].to(xkv.dtype)
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
+    q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, -1, KV, hd)
     v = v.reshape(B, -1, KV, hd)
     if "q_norm" in p:
@@ -138,7 +179,8 @@ def cache_spec(cfg: ModelConfig, kind: str, max_len: int) -> int:
 
 def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, kind: str, *, return_cache: bool = False,
-                 max_len: int = 0, q_block: int = 512, kv_block: int = 512):
+                 max_len: int = 0, q_block: int = 512, kv_block: int = 512,
+                 ctx: TPCtx = TP1):
     """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's attention
     leaves in x's dtype (``wq``, ``wk``, ``wv``, ``wo``, and ``bq``,
     ``bk``, ``bv`` with qkv bias, ``q_norm``, ``k_norm`` with qk-norm);
@@ -147,11 +189,13 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     With ``return_cache`` it returns (y, (k, v)): the decode cache of
     ``cache_spec(cfg, kind, max_len or S)`` slots, (B, C, KV, hd) in k's
     dtype, holding the last min(C, S) tokens' k (after RoPE) and v at
-    slot t % C, the others zero: ``attn_decode``'s ring addressing."""
+    slot t % C, the others zero: ``attn_decode``'s ring addressing.
+    ``ctx`` at tp > 1 shards the q heads."""
     B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     q, k, v = _project_qkv(cfg, p, x, x, torch.arange(S, device=x.device))
-    ke, ve = _expand_kv(k, H), _expand_kv(v, H)
+    H = q.shape[2]
+    ke, ve = _expand(k, cfg, ctx), _expand(v, cfg, ctx)
     blocks = dict(q_block=q_block, kv_block=kv_block)
 
     if kind == CHUNKED and S > cfg.chunk:
@@ -171,7 +215,7 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     else:
         window = cfg.window if kind == SLIDING else 0
         out = _flash(q, ke, ve, causal=True, window=window, **blocks)
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    y = _combine_heads(cfg, p, out, ctx)
     if not return_cache:
         return y
     C = cache_spec(cfg, kind, max_len or S)
@@ -243,8 +287,8 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
 
 
 def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                       x: torch.Tensor, vision: torch.Tensor
-                       ) -> torch.Tensor:
+                       x: torch.Tensor, vision: torch.Tensor,
+                       ctx: TPCtx = TP1) -> torch.Tensor:
     """Gated cross-attention: x (B, S, d) attends to ``vision`` (B, S_img,
     d) image embeddings, without RoPE, qk-norm or a causal mask; returns
     tanh(gate) * y.  ``p`` holds ``wq``, ``wk``, ``wv``, ``wo`` and
@@ -252,11 +296,8 @@ def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     the embeddings and the weights, as the reference's jnp promotes a
     float32 stub against bf16 weights; the attention returns q's dtype.
     A decode step runs it on its one token."""
-    B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim_
     kv_dtype = torch.promote_types(vision.dtype, x.dtype)
     q, k, v = _project_qkv(cfg, p, x, vision.to(kv_dtype), None)
-    out = _flash(q, _expand_kv(k, H), _expand_kv(v, H), causal=False,
-                 window=0, q_block=512, kv_block=512)
-    y = out.reshape(B, S, H * hd) @ p["wo"]
-    return torch.tanh(p["gate"]) * y
+    out = _flash(q, _expand(k, cfg, ctx), _expand(v, cfg, ctx),
+                 causal=False, window=0, q_block=512, kv_block=512)
+    return torch.tanh(p["gate"]) * _combine_heads(cfg, p, out, ctx)

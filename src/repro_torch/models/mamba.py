@@ -1,5 +1,5 @@
-"""Mamba selective-SSM layer (Jamba's sequence mixer) at tp = 1: the
-sequence forward of training and prefill, and serving's one-token step.
+"""Mamba selective-SSM layer (Jamba's sequence mixer): the sequence
+forward of training and prefill, and serving's one-token step.
 
 Diagonal selective state space, per channel and state entry:
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t * x_t
@@ -20,6 +20,11 @@ reference's order of additions (not ``conv1d``, whose depthwise
 backward on the card is not guaranteed deterministic).  Serving's cache
 is the last state and the conv's last width - 1 inputs; a decode step is
 the forward on one token from it (the reference's ``mamba_decode``).
+
+At tp > 1 the d_inner channels are sharded over the model group (every
+leaf but the out-projection's output side is this rank's channels'), the
+out-projection is row-parallel and psum'd.  As in the reference, dt, B
+and C come from this rank's channels alone (``x_proj`` is not psum'd).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .layers import TP1, TPCtx
 
 MAMBA_CHUNK = 64
 
@@ -34,27 +40,31 @@ MAMBA_CHUNK = 64
 A_LOG_INIT = -2
 
 
-def mamba_dims(cfg: ModelConfig) -> int:
-    """d_inner: the channels of the scan."""
-    return cfg.mamba_expand * cfg.d_model
+def mamba_dims(cfg: ModelConfig, tp: int = 1) -> int:
+    """d_inner of one rank: the channels of its scan."""
+    di = cfg.mamba_expand * cfg.d_model
+    if di % tp:
+        raise ValueError(f"{cfg.name}: d_inner {di} over tp={tp}")
+    return di // tp
 
 
-def mamba_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int]]:
-    """mixer leaf -> (per-layer shape, init code: 0 zeros, -1 ones, -2
-    ``A_LOG_INIT``, > 0 normal * code ** -0.5), the reference's
+def mamba_specs(cfg: ModelConfig, tp: int = 1
+                ) -> dict[str, tuple[tuple, int]]:
+    """mixer leaf -> (one rank's per-layer shape, init code: 0 zeros, -1
+    ones, -2 ``A_LOG_INIT``, > 0 normal * code ** -0.5), the reference's
     ``mamba_param_specs``."""
-    d, di = cfg.d_model, mamba_dims(cfg)
+    d, di, dil = cfg.d_model, mamba_dims(cfg), mamba_dims(cfg, tp)
     st, rk, cw = cfg.mamba_d_state, cfg.dt_rank, cfg.mamba_conv
     return {
-        "in_proj": ((d, 2 * di), d),
-        "conv_w": ((cw, di), 0),
-        "conv_b": ((di,), 0),
-        "x_proj": ((di, rk + 2 * st), di),
-        "dt_proj": ((rk, di), rk),
-        "dt_bias": ((di,), 0),
-        "A_log": ((di, st), A_LOG_INIT),
-        "D": ((di,), -1),
-        "out_proj": ((di, d), di),
+        "in_proj": ((d, 2 * dil), d),
+        "conv_w": ((cw, dil), 0),
+        "conv_b": ((dil,), 0),
+        "x_proj": ((dil, rk + 2 * st), dil),
+        "dt_proj": ((rk, dil), rk),
+        "dt_bias": ((dil,), 0),
+        "A_log": ((dil, st), A_LOG_INIT),
+        "D": ((dil,), -1),
+        "out_proj": ((dil, d), di),
     }
 
 
@@ -127,15 +137,16 @@ def _ssm_scan(decay: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor
 def mamba_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                   x: torch.Tensor, *,
                   cache: tuple[torch.Tensor, torch.Tensor] | None = None,
-                  return_state: bool = False):
+                  return_state: bool = False, ctx: TPCtx = TP1):
     """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's Mamba leaves in
     x's dtype; from the conv on the layer computes in float32, and the
     output projection in x's dtype, as the reference.  ``cache`` = (h
     (B, di, d_state) float32, conv_state (B, width - 1, di)) starts the
     scan and the conv where an earlier call left them (None: zeros); with
-    ``return_state`` it returns (y, (the last h, the next conv_state))."""
+    ``return_state`` it returns (y, (the last h, the next conv_state)).
+    ``ctx`` at tp > 1 shards the channels."""
     B = x.shape[0]
-    di = mamba_dims(cfg)
+    di = mamba_dims(cfg, ctx.tp)
     st, rk = cfg.mamba_d_state, cfg.dt_rank
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)      # (B, S, di) each
     xc, conv_state = _causal_conv(xin, p["conv_w"], p["conv_b"],
@@ -153,5 +164,5 @@ def mamba_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     y = torch.einsum("bsdn,bsn->bsd", hs, Cs)
     y = y + p["D"].float() * xc
     y = y * F.silu(z.float())
-    out = y.to(x.dtype) @ p["out_proj"]
+    out = ctx.psum_tp(y.to(x.dtype) @ p["out_proj"])
     return (out, (h, conv_state)) if return_state else out

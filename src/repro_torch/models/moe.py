@@ -1,4 +1,4 @@
-"""Mixture-of-experts FFN with capacity-based top-k routing (tp = 1).
+"""Mixture-of-experts FFN with capacity-based top-k routing.
 
 The reference computes it in plain jnp (``moe_ffn``), and so does the
 port, with the same numerics: router logits from the compute-dtype
@@ -15,6 +15,14 @@ token; dropped pairs go to a spare row that is cut off), and the combine
 gathers each pair's output and sums a token's k slots ((T, k, d) ->
 (T, d)).  These are the values of the reference's scatter-adds, and two
 backward passes on the card give the same bits.
+
+At tp > 1 the model group is factored as tp = ep * fp, ep = gcd(E, tp)
+(``moe_factor``): rank r holds expert block r // fp (E / ep experts) and
+FFN shard r % fp of each (``ceil(d_ff / fp)`` columns, a ceiling, not a
+padded global width).  Routing is replicated (the router is a replicated
+leaf), each rank runs only the pairs routed to its block, and one psum
+over the group adds the expert blocks and the FFN shards together, with
+the shared expert's row-parallel partial sum.
 """
 from __future__ import annotations
 
@@ -24,6 +32,13 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .layers import TP1, TPCtx
+
+
+def moe_factor(cfg: ModelConfig, tp: int) -> tuple[int, int]:
+    """(ep, fp): expert blocks and FFN shards of a group of tp ranks."""
+    ep = math.gcd(cfg.num_experts, tp)
+    return ep, tp // ep
 
 
 def capacity(cfg: ModelConfig, num_tokens: int) -> int:
@@ -59,12 +74,13 @@ def dispatch_positions(expert: torch.Tensor, num_experts: int, C: int
     return pos, pos < C, onehot.sum(0)
 
 
-def moe_ffn(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor,
+            ctx: TPCtx = TP1) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> ((B, S, d) in x's dtype, aux loss float32 scalar).
     ``p`` holds the layer's FFN leaves in x's dtype: ``router`` (d, E),
     ``w1``, ``w3`` (E, d, ff), ``w2`` (E, ff, d), and ``sw1``, ``sw3``
-    (d, ff), ``sw2`` (ff, d) with a shared expert."""
+    (d, ff), ``sw2`` (ff, d) with a shared expert; at tp > 1 this rank's
+    shards of them (``ctx``)."""
     B, S, d = x.shape
     T = B * S
     E, k = cfg.num_experts, cfg.top_k
@@ -80,16 +96,22 @@ def moe_ffn(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor
     ce = counts.float() / (T * k)
     aux = E * torch.sum(probs.mean(0) * ce) * cfg.router_aux_coef
 
-    # ---- dispatch: kept pair i -> row expert_i * C + pos_i ----
+    # ---- dispatch: kept pair i -> row expert_i * C + pos_i of this
+    # rank's expert block ----
     flat_e = expert.reshape(-1)
-    row = torch.where(keep, flat_e * C + pos, E * C)   # E * C: the spare row
+    ep, fp = moe_factor(cfg, ctx.tp)
+    El = E // ep
+    if ctx.tp > 1:
+        flat_e = flat_e - (ctx.tp_rank() // fp) * El
+        keep = keep & (flat_e >= 0) & (flat_e < El)
+    row = torch.where(keep, flat_e * C + pos, El * C)   # the spare row
     pairs = xt[:, None].expand(T, k, d).reshape(T * k, d)
-    expert_in = x.new_zeros(E * C + 1, d).index_put((row,), pairs)
-    expert_in = expert_in[:E * C].view(E, C, d)
+    expert_in = x.new_zeros(El * C + 1, d).index_put((row,), pairs)
+    expert_in = expert_in[:El * C].view(El, C, d)
 
     # ---- experts: batched SwiGLU ----
     h = F.silu(torch.bmm(expert_in, p["w1"])) * torch.bmm(expert_in, p["w3"])
-    expert_out = torch.bmm(h, p["w2"]).reshape(E * C, d)
+    expert_out = torch.bmm(h, p["w2"]).reshape(El * C, d)
 
     # ---- combine: each pair's output (0 when dropped) times its gate,
     # summed over the token's k slots ----
@@ -98,4 +120,4 @@ def moe_ffn(cfg: ModelConfig, p: dict[str, torch.Tensor], x: torch.Tensor
     y = (contrib * gate.to(contrib.dtype)[..., None]).sum(1)
     if cfg.shared_expert:
         y = y + (F.silu(xt @ p["sw1"]) * (xt @ p["sw3"])) @ p["sw2"]
-    return y.reshape(B, S, d).to(x.dtype), aux
+    return ctx.psum_tp(y).reshape(B, S, d).to(x.dtype), aux

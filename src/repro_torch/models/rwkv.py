@@ -1,5 +1,5 @@
 """RWKV6 ("Finch") time-mix layer: attention-free, with a data-dependent
-decay (tp = 1).
+decay.
 
 Recurrence per head (state S in R^{hd x hd}):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t          w_t = exp(-exp(.)) in (0,1)
@@ -17,6 +17,11 @@ decay path mixes the token-shifted input through a LoRA; r, k, v and g
 use a learned static token-shift interpolation.  Serving's prefill
 returns the state after the last chunk, and ``rwkv_decode`` runs the
 recurrence itself, one token at a time.
+
+At tp > 1 the heads are sharded over the model group: r, k, v, g and
+their projections, the bonus ``u`` and the group norm are this rank's
+heads', the decay LoRA (a replicated leaf) is computed over all d
+channels and sliced to them, and the row-parallel ``wo`` is psum'd.
 """
 from __future__ import annotations
 
@@ -24,32 +29,40 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .layers import TP1, TPCtx
 
 LORA_DIM = 64
 RWKV_CHUNK = 32
 
 
-def rwkv_dims(cfg: ModelConfig) -> tuple[int, int]:
-    """(heads, head_dim) of the time-mix."""
+def rwkv_dims(cfg: ModelConfig, tp: int = 1) -> tuple[int, int]:
+    """(heads of one rank, head_dim) of the time-mix."""
     hd = cfg.rwkv_head_dim
-    return cfg.d_model // hd, hd
+    H = cfg.d_model // hd
+    if H % tp:
+        raise ValueError(f"{cfg.name}: {H} RWKV heads over tp={tp}")
+    return H // tp, hd
 
 
-def rwkv_specs(cfg: ModelConfig) -> dict[str, tuple[tuple, int]]:
-    """mixer leaf -> (per-layer shape, init code: 0 zeros, -1 ones, > 0
-    normal * code ** -0.5), the reference's ``rwkv_param_specs``."""
+def rwkv_specs(cfg: ModelConfig, tp: int = 1
+               ) -> dict[str, tuple[tuple, int]]:
+    """mixer leaf -> (one rank's per-layer shape, init code: 0 zeros, -1
+    ones, > 0 normal * code ** -0.5), the reference's
+    ``rwkv_param_specs``."""
     d = cfg.d_model
+    H, hd = rwkv_dims(cfg, tp)
+    dl = H * hd
     return {
         "mu_r": ((d,), 0), "mu_k": ((d,), 0), "mu_v": ((d,), 0),
         "mu_g": ((d,), 0), "mu_w": ((d,), 0),
         "w0": ((d,), 0),
         "w_lora_a": ((d, LORA_DIM), d),
         "w_lora_b": ((LORA_DIM, d), LORA_DIM),
-        "proj_r": ((d, d), d), "proj_k": ((d, d), d), "proj_v": ((d, d), d),
-        "proj_g": ((d, d), d),
-        "u": ((d,), 0),
-        "ln_x": ((d,), -1),
-        "wo": ((d, d), d),
+        "proj_r": ((d, dl), d), "proj_k": ((d, dl), d),
+        "proj_v": ((d, dl), d), "proj_g": ((d, dl), d),
+        "u": ((dl,), 0),
+        "ln_x": ((dl,), -1),
+        "wo": ((dl, d), d),
     }
 
 
@@ -62,10 +75,15 @@ def _mix(x: torch.Tensor, xs: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
     return x + (xs - x) * mu
 
 
-def _decay_log(p: dict[str, torch.Tensor], xw: torch.Tensor) -> torch.Tensor:
-    """Data-dependent per-channel log decay in (-inf, 0), float32."""
+def _decay_log(p: dict[str, torch.Tensor], xw: torch.Tensor,
+               ctx: TPCtx = TP1, dl: int = 0) -> torch.Tensor:
+    """Data-dependent per-channel log decay in (-inf, 0), float32; at
+    tp > 1 this rank's ``dl`` channels of it."""
     lora = torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    return -torch.exp(torch.clamp((p["w0"] + lora).float(), -8.0, 8.0))
+    full = -torch.exp(torch.clamp((p["w0"] + lora).float(), -8.0, 8.0))
+    if ctx.tp == 1:
+        return full
+    return full[..., ctx.tp_rank() * dl:(ctx.tp_rank() + 1) * dl]
 
 
 def _group_rms(x: torch.Tensor, weight: torch.Tensor, eps: float
@@ -99,21 +117,24 @@ def _chunk(S0, rc, kc, vc, wc, u, tri):
 
 
 def rwkv_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
-                 x: torch.Tensor, *, return_state: bool = False):
+                 x: torch.Tensor, *, return_state: bool = False,
+                 ctx: TPCtx = TP1):
     """x: (B, S, d) -> (B, S, d) float32 (the reference's output dtype:
     its float32 state meets ``wo`` in float32).  ``p`` holds the layer's
     mixer leaves (``rwkv_specs``) in x's dtype.  With ``return_state``
     it returns (y, (state, x[:, -1:])): the float32 (B, H, hd, hd) state
     after the last token and the token that the next one shifts in, the
-    cache ``rwkv_decode`` continues from."""
+    cache ``rwkv_decode`` continues from.  ``ctx`` at tp > 1 shards the
+    heads."""
     B, S, d = x.shape
-    H, hd = rwkv_dims(cfg)
+    H, hd = rwkv_dims(cfg, ctx.tp)
     xs = _token_shift(x)
     r = (_mix(x, xs, p["mu_r"]) @ p["proj_r"]).reshape(B, S, H, hd)
     k = (_mix(x, xs, p["mu_k"]) @ p["proj_k"]).reshape(B, S, H, hd)
     v = (_mix(x, xs, p["mu_v"]) @ p["proj_v"]).reshape(B, S, H, hd)
     g = _mix(x, xs, p["mu_g"]) @ p["proj_g"]
-    logw = _decay_log(p, _mix(x, xs, p["mu_w"])).reshape(B, S, H, hd)
+    logw = _decay_log(p, _mix(x, xs, p["mu_w"]), ctx, H * hd).reshape(
+        B, S, H, hd)
     u = p["u"].reshape(H, hd).float()
     r32, k32, v32 = r.float(), k.float(), v.float()
 
@@ -132,7 +153,7 @@ def rwkv_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
 
     out = _group_rms(out, p["ln_x"], cfg.norm_eps)
     out = out * F.silu(g.float()).to(out.dtype)
-    y = out @ p["wo"].to(out.dtype)
+    y = ctx.psum_tp(out @ p["wo"].to(out.dtype))
     return (y, (state, x[:, -1:])) if return_state else y
 
 

@@ -22,8 +22,25 @@ each layer group runs under a non-reentrant checkpoint and, under
 ``"full"`` with several slots a group, each slot under one more, so that
 a backward holds one group's (one slot's) activations at a time;
 ``"dots"`` keeps the matmul outputs and recomputes the rest, ``"psum"``
-is one checkpoint a group (tensor parallelism has no collective to keep
-yet).
+keeps the outputs of the model group's all-reduces (``psum_tp``) and
+recomputes the rest, so that a recomputation replays no collective (at
+tp = 1, where there is none, it is one plain checkpoint a group).
+
+Tensor parallelism (``Model(tp_ctx=...)``, tp > 1) keeps the layout a
+rank of the reference's (data, model) mesh sees: each rank's flat holds
+its own shards, ``param_layout(cfg, tp)`` (heads, FFN columns, experts,
+RWKV heads and Mamba channels sharded, the vocabulary of ``embed`` and
+``lm_head`` sharded, the kv projections, norms, router and RWKV's decay
+LoRA and mixing factors replicated), with the mesh axis of extent 1 that
+``ravel_pytree`` sees inside ``shard_map``, so that every bucket on the
+wire holds what it holds in the reference.  ``to_global`` and
+``from_global`` convert the ranks' flats to and from the reference's
+global layout, where every sharded leaf is stacked over the tp axis.
+The replicated leaves are drawn rank-invariantly (``REPLICATED_LEAVES``);
+they train on rank-local gradients, as in the reference (see
+``layers``), and may drift apart across the model group.  A
+checkpoint's recomputation replays the forward's collectives, in the same
+order on every rank.
 
 ``param_mode="fsdp"`` keeps the parameters in the reference's FSDP
 layout instead: each layer slot's leaves are one zero-padded flat vector
@@ -52,12 +69,15 @@ from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
+import numpy as np
+
 from .attention import (attn_decode, attn_forward, cache_spec,
                         cross_attn_forward)
 from .config import MAMBA, RWKV, ModelConfig
-from .layers import lm_head_logits, lm_head_loss, rms_norm, swiglu
+from .layers import (TP1, TPCtx, embed_lookup, lm_head_logits, lm_head_loss,
+                     make_dims, rms_norm, swiglu, tp_all_reduce)
 from .mamba import A_LOG_INIT, mamba_dims, mamba_forward, mamba_specs
-from .moe import moe_ffn
+from .moe import moe_factor, moe_ffn
 from .rwkv import rwkv_decode, rwkv_dims, rwkv_forward, rwkv_specs
 from repro_torch.core.codec import codec_for_scheme
 from repro_torch.core.schemes import QuantScheme
@@ -91,23 +111,44 @@ _dots_context = functools.partial(create_selective_checkpoint_contexts,
                                   _dots_policy)
 
 
-def _slot_specs(cfg: ModelConfig, slot: int
+def _psum_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.tp_all_reduce.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_psum_context = functools.partial(create_selective_checkpoint_contexts,
+                                  _psum_policy)
+
+# leaves every rank of the model group holds whole; they are drawn the same
+# on every rank (the reference's REPLICATED_LEAVES)
+REPLICATED_LEAVES = {"wk", "wv", "bk", "bv", "router", "w_lora_a",
+                     "w_lora_b", "w0", "mu_r", "mu_k", "mu_v", "mu_g",
+                     "mu_w"}
+
+
+def _slot_specs(cfg: ModelConfig, slot: int, tp: int = 1
                 ) -> dict[str, tuple[tuple, int]]:
-    """leaf path within layer slot ``slot`` -> (per-layer shape, init
-    code), the reference's ``slot_param_specs``: the norms, the mixer
-    (attention, the RWKV6 time-mix or Mamba), the cross-attention block
-    on a VLM's cross slots, and the FFN (SwiGLU or MoE)."""
+    """leaf path within layer slot ``slot`` -> (one rank's per-layer
+    shape, init code), the reference's ``slot_param_specs``: the norms,
+    the mixer (attention, the RWKV6 time-mix or Mamba), the
+    cross-attention block on a VLM's cross slots, and the FFN (SwiGLU or
+    MoE)."""
+    dims = make_dims(cfg, tp)
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
-    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    nq, nkv = dims.heads_local * hd, cfg.num_kv_heads * hd
+    wo_in = dims.n_heads * hd
     specs = {"norm1": ((d,), _ONES), "norm2": ((d,), _ONES)}
     kind = cfg.slot_kind(slot)
     if kind == RWKV:
-        specs.update({f"mixer.{k}": v for k, v in rwkv_specs(cfg).items()})
+        specs.update({f"mixer.{k}": v
+                      for k, v in rwkv_specs(cfg, tp).items()})
     elif kind == MAMBA:
-        specs.update({f"mixer.{k}": v for k, v in mamba_specs(cfg).items()})
+        specs.update({f"mixer.{k}": v
+                      for k, v in mamba_specs(cfg, tp).items()})
     else:
         specs.update({"mixer.wk": ((d, nkv), d),
-                      "mixer.wo": ((nq, d), nq),
+                      "mixer.wo": ((nq, d), wo_in),
                       "mixer.wq": ((d, nq), d),
                       "mixer.wv": ((d, nkv), d)})
         if cfg.qkv_bias:
@@ -121,54 +162,151 @@ def _slot_specs(cfg: ModelConfig, slot: int
         specs.update({"cross_norm": ((d,), _ONES),
                       "cross.gate": ((1,), _ZEROS),
                       "cross.wk": ((d, nkv), d),
-                      "cross.wo": ((nq, d), nq),
+                      "cross.wo": ((nq, d), wo_in),
                       "cross.wq": ((d, nq), d),
                       "cross.wv": ((d, nkv), d)})
     if cfg.slot_is_moe(slot):
         E = cfg.num_experts
+        ep, fp = moe_factor(cfg, tp)
+        El, ffl = E // ep, -(-ff // fp)
         specs.update({"ffn.router": ((d, E), d),
-                      "ffn.w1": ((E, d, ff), d),
-                      "ffn.w2": ((E, ff, d), ff),
-                      "ffn.w3": ((E, d, ff), d)})
+                      "ffn.w1": ((El, d, ffl), d),
+                      "ffn.w2": ((El, ffl, d), ff),
+                      "ffn.w3": ((El, d, ffl), d)})
         if cfg.shared_expert:
-            specs.update({"ffn.sw1": ((d, ff), d),
-                          "ffn.sw2": ((ff, d), ff),
-                          "ffn.sw3": ((d, ff), d)})
+            fl = dims.ff_local
+            specs.update({"ffn.sw1": ((d, fl), d),
+                          "ffn.sw2": ((fl, d), ff),
+                          "ffn.sw3": ((d, fl), d)})
     else:
-        specs.update({"ffn.w1": ((d, ff), d),
-                      "ffn.w2": ((ff, d), ff),
-                      "ffn.w3": ((d, ff), d)})
+        fl = dims.ff_local
+        specs.update({"ffn.w1": ((d, fl), d),
+                      "ffn.w2": ((fl, d), dims.d_ff),
+                      "ffn.w3": ((d, fl), d)})
     return specs
 
 
-def slot_layout(cfg: ModelConfig, slot: int
+def slot_layout(cfg: ModelConfig, slot: int, tp: int = 1
                 ) -> list[tuple[str, tuple, int]]:
-    """(leaf path, per-layer shape, init code) of layer slot ``slot``, in
-    the order of sorted nested keys (a block's leaves together)."""
-    specs = _slot_specs(cfg, slot)
+    """(leaf path, one rank's per-layer shape, init code) of layer slot
+    ``slot``, in the order of sorted nested keys (a block's leaves
+    together)."""
+    specs = _slot_specs(cfg, slot, tp)
     return [(path, *specs[path])
             for path in sorted(specs, key=lambda p: p.split("."))]
 
 
-def param_layout(cfg: ModelConfig) -> list[tuple[str, tuple, int]]:
-    """(name, shape, init code) of every leaf, in flat (ravel) order:
-    ``embed``, ``final_norm``, ``lm_head``, then ``slots``, a list of
-    ``group_size`` dicts whose leaves are stacked as (num_groups, 1,
-    ...), each with its keys sorted."""
-    d, V, G = cfg.d_model, cfg.vocab_size, cfg.num_groups
+def param_layout(cfg: ModelConfig, tp: int = 1
+                 ) -> list[tuple[str, tuple, int]]:
+    """(name, shape, init code) of every leaf of one rank of a model
+    group of ``tp``, in flat (ravel) order: ``embed`` (1, vocab_local,
+    d), ``final_norm``, ``lm_head`` (1, d, vocab_local), then ``slots``,
+    a list of ``group_size`` dicts whose leaves are stacked as
+    (num_groups, 1, ...), each with its keys sorted.  The axes of extent
+    1 are the reference's tp axis (``tp_axis``)."""
+    d, G = cfg.d_model, cfg.num_groups
+    V = make_dims(cfg, tp).vocab_local
     layout = [("embed", (1, V, d), d), ("final_norm", (d,), _ONES),
               ("lm_head", (1, d, V), d)]
     for slot in range(cfg.group_size):
         layout += [(f"slots.{slot}.{path}", (G, 1, *shape), code)
-                   for path, shape, code in slot_layout(cfg, slot)]
+                   for path, shape, code in slot_layout(cfg, slot, tp)]
     return layout
 
 
-def slot_meta(cfg: ModelConfig, slot: int) -> list:
+def tp_axis(name: str) -> int | None:
+    """The axis of leaf (or FSDP flat) ``name`` that the reference stacks
+    its ranks' shards along: 0 for ``embed`` and ``lm_head``, 1 for a
+    slot's (after the groups'), None for the replicated ``final_norm``."""
+    if name == "final_norm":
+        return None
+    return 1 if name.startswith("slots.") else 0
+
+
+def _pieces(cfg: ModelConfig, tp: int, fsdp: tuple[int, int] | None
+            ) -> list[tuple[str, tuple]]:
+    """(name, one rank's shape with the tp axis of extent 1) of every
+    leaf of the DP layout, or with ``fsdp`` = (bucket_size, M) of every
+    flat of the global FSDP layout, in order."""
+    if fsdp is None:
+        return [(name, shape) for name, shape, _ in param_layout(cfg, tp)]
+    return [(e.name, (e.Lp,) if e.meta is None else
+             (e.count, 1, e.Lp) if e.name.startswith("slots.") else
+             (1, e.Lp)) for e in fsdp_layout(cfg, *fsdp, tp)]
+
+
+def to_global(flats: torch.Tensor, cfg: ModelConfig, *,
+              fsdp: tuple[int, int] | None = None) -> torch.Tensor:
+    """The tp ranks' flats (tp, n), each in ``param_layout(cfg, tp)``'s
+    order (or with ``fsdp`` = (bucket_size, M) the global FSDP layout's)
+    -> the reference's global flat: every leaf with its ranks' shards
+    stacked along its tp axis, ``final_norm`` rank 0's (the reference's
+    replicated out-spec gives device 0's)."""
+    tp = flats.shape[0]
+    out, off = [], 0
+    for name, shape in _pieces(cfg, tp, fsdp):
+        n = math.prod(shape)
+        views = [f[off:off + n].view(shape) for f in flats]
+        ax = tp_axis(name)
+        out.append((views[0] if ax is None
+                    else torch.cat(views, dim=ax)).reshape(-1))
+        off += n
+    if off != flats.shape[1]:
+        raise ValueError(f"flats of {flats.shape[1]} for a layout of {off}")
+    return torch.cat(out)
+
+
+def final_norm_slice(cfg: ModelConfig, tp: int, *,
+                     fsdp: tuple[int, int] | None = None) -> slice:
+    """Where ``final_norm`` lies in one rank's flat (``to_global``'s
+    layouts)."""
+    off = 0
+    for name, shape in _pieces(cfg, tp, fsdp):
+        if name == "final_norm":
+            return slice(off, off + shape[0])
+        off += math.prod(shape)
+    raise KeyError("final_norm")
+
+
+def global_pieces(cfg: ModelConfig, tp: int,
+                  fsdp: tuple[int, int] | None = None
+                  ) -> list[tuple[str, tuple, int | None]]:
+    """(name, global shape, tp axis) of every piece of ``to_global``'s
+    layout, in order: the tp axis of extent ``tp``, None where the leaf
+    is replicated."""
+    out = []
+    for name, shape in _pieces(cfg, tp, fsdp):
+        ax = tp_axis(name)
+        full = list(shape)
+        if ax is not None:
+            full[ax] = tp
+        out.append((name, tuple(full), ax))
+    return out
+
+
+def from_global(gflat: torch.Tensor, cfg: ModelConfig, tp: int, rank: int,
+                *, fsdp: tuple[int, int] | None = None) -> torch.Tensor:
+    """The inverse of ``to_global`` for rank ``rank`` of ``tp``."""
+    out, off = [], 0
+    for name, full, ax in global_pieces(cfg, tp, fsdp):
+        n = math.prod(full)
+        view = gflat[off:off + n].view(full)
+        if ax is not None:
+            view = view.narrow(ax, rank, 1)
+        out.append(view.reshape(-1))
+        off += n
+    if off != gflat.numel():
+        raise ValueError(f"a global flat of {gflat.numel()} for a layout "
+                         f"of {off}")
+    return torch.cat(out)
+
+
+def slot_meta(cfg: ModelConfig, slot: int, tp: int = 1) -> list:
     """The reference's ``flatten_meta(slot_param_specs(...))`` of layer
-    slot ``slot``: [(path tuple, per-layer shape, init code)]."""
+    slot ``slot`` on one rank of ``tp``: [(path tuple, per-layer shape,
+    init code)]."""
     nested: dict = {}
-    for path, shape, code in slot_layout(cfg, slot):
+    for path, shape, code in slot_layout(cfg, slot, tp):
         *head, leaf = path.split(".")
         node = nested
         for h in head:
@@ -189,12 +327,13 @@ class FsdpEntry(NamedTuple):
     fold: int | None    # the gather's key fold
 
 
-def fsdp_layout(cfg: ModelConfig, bucket_size: int, M: int
+def fsdp_layout(cfg: ModelConfig, bucket_size: int, M: int, tp: int = 1
                 ) -> list[FsdpEntry]:
-    """The reference's FSDP parameter tree in its ravel order (``embed``,
-    ``final_norm``, ``lm_head``, ``slots``), each flat padded to
-    ``padded_flat_len(meta, bucket_size, M, M)``."""
-    d, V = cfg.d_model, cfg.vocab_size
+    """The reference's FSDP parameter tree of one rank of a model group
+    of ``tp`` in its ravel order (``embed``, ``final_norm``, ``lm_head``,
+    ``slots``), each flat padded to ``padded_flat_len(meta, bucket_size,
+    M, M)``."""
+    d, V = cfg.d_model, make_dims(cfg, tp).vocab_local
     emb = [(("embed",), (V, d), d)]
     lm = [(("lm_head",), (d, V), d)]
     out = [FsdpEntry("embed", 1, padded_flat_len(emb, bucket_size, M, M),
@@ -203,7 +342,7 @@ def fsdp_layout(cfg: ModelConfig, bucket_size: int, M: int
            FsdpEntry("lm_head", 1, padded_flat_len(lm, bucket_size, M, M),
                      lm, LM_FOLD)]
     for s in range(cfg.group_size):
-        meta = slot_meta(cfg, s)
+        meta = slot_meta(cfg, s, tp)
         out.append(FsdpEntry(f"slots.{s}", cfg.num_groups,
                              padded_flat_len(meta, bucket_size, M, M),
                              meta, s))
@@ -235,13 +374,13 @@ def fsdp_size(entries: list[FsdpEntry], M: int, L: int) -> int:
 
 
 def dp_to_fsdp(flat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
-               M: int) -> torch.Tensor:
+               M: int, tp: int = 1) -> torch.Tensor:
     """A DP flat (``param_layout``'s ravel order) -> the global FSDP flat
     of M workers and buckets of ``bucket_size`` (the reference's FSDP tree
-    in ravel order)."""
-    entries = fsdp_layout(cfg, bucket_size, M)
+    in ravel order), both of one rank of a model group of ``tp``."""
+    entries = fsdp_layout(cfg, bucket_size, M, tp)
     views, off = {}, 0
-    for name, shape, _ in param_layout(cfg):
+    for name, shape, _ in param_layout(cfg, tp):
         n = math.prod(shape)
         views[name] = flat[off:off + n].view(shape)
         off += n
@@ -261,10 +400,10 @@ def dp_to_fsdp(flat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
 
 
 def fsdp_to_dp(gflat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
-               M: int) -> torch.Tensor:
+               M: int, tp: int = 1) -> torch.Tensor:
     """The inverse of ``dp_to_fsdp``: the global FSDP flat -> a DP flat
     (the padding dropped)."""
-    entries = fsdp_layout(cfg, bucket_size, M)
+    entries = fsdp_layout(cfg, bucket_size, M, tp)
     views = fsdp_views(gflat, entries, M, M)
     leaves = {}
     for e in entries:
@@ -280,17 +419,29 @@ def fsdp_to_dp(gflat: torch.Tensor, cfg: ModelConfig, bucket_size: int,
             leaves[key] = body[:, off:off + n]
             off += n
     return torch.cat([leaves[name].reshape(-1)
-                      for name, _, _ in param_layout(cfg)])
+                      for name, _, _ in param_layout(cfg, tp)])
 
 
-def init_flat(layout, dtype: torch.dtype, device, seed: int
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of model rank ``rank``'s sharded leaves."""
+    ss = np.random.SeedSequence([seed, 0x7E50, rank])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def init_flat(layout, dtype: torch.dtype, device, seed: int,
+              rank: int | None = None
               ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """A flat buffer for ``layout`` ((name, shape, init code) triples)
     and a view of it per name, drawn by init code with a
-    ``torch.Generator`` on ``device`` seeded ``seed``."""
+    ``torch.Generator`` on ``device`` seeded ``seed``.  With ``rank``
+    (a rank of a model group) the replicated leaves come from that
+    generator in order, the same on every rank, and the others from one
+    seeded ``rank_seed(seed, rank)``."""
     flat = torch.empty(sum(math.prod(shape) for _, shape, _ in layout),
                        dtype=dtype, device=device)
     gen = torch.Generator(device=flat.device).manual_seed(seed)
+    own = gen if rank is None else torch.Generator(
+        device=flat.device).manual_seed(rank_seed(seed, rank))
     views, off = {}, 0
     for name, shape, code in layout:
         n = math.prod(shape)
@@ -303,7 +454,9 @@ def init_flat(layout, dtype: torch.dtype, device, seed: int
         elif code == _ZEROS:
             view.zero_()
         else:
-            view.normal_(generator=gen).mul_(code ** -0.5)
+            leaf = name.rsplit(".", 1)[-1]
+            view.normal_(generator=gen if leaf in REPLICATED_LEAVES
+                         else own).mul_(code ** -0.5)
         views[name] = view
         off += n
     return flat, views
@@ -332,9 +485,11 @@ class DecoderLayer(nn.Module):
     buffer."""
 
     def __init__(self, cfg: ModelConfig,
-                 leaves: dict[str, torch.Tensor] | None, slot: int):
+                 leaves: dict[str, torch.Tensor] | None, slot: int,
+                 ctx: TPCtx = TP1):
         super().__init__()
         self.cfg = cfg
+        self.ctx = ctx
         self.kind = cfg.slot_kind(slot)
         self.attn_kind = cfg.slot_attn_kind(slot)
         self.is_moe = cfg.slot_is_moe(slot)
@@ -374,7 +529,7 @@ class DecoderLayer(nn.Module):
         only when ``vision`` is given.  ``weights`` (the slot's leaves,
         nested as ``dist.fsdp.unflatten`` gives them) replaces the layer's
         own parameters (FSDP's gathered slot)."""
-        cfg, cd = self.cfg, x.dtype
+        cfg, cd, ctx = self.cfg, x.dtype, self.ctx
         w = self._own_weights() if weights is None else weights
 
         def block(group):
@@ -385,27 +540,29 @@ class DecoderLayer(nn.Module):
         prefill = mode == PREFILL
         if self.kind == RWKV:
             out = (rwkv_decode(cfg, mixer, h, cache) if mode == DECODE else
-                   rwkv_forward(cfg, mixer, h, return_state=prefill))
+                   rwkv_forward(cfg, mixer, h, return_state=prefill,
+                                ctx=ctx))
         elif self.kind == MAMBA:        # decode: the forward on one token
             out = mamba_forward(cfg, mixer, h, cache=cache,
-                                return_state=mode != TRAIN)
+                                return_state=mode != TRAIN, ctx=ctx)
         elif mode == DECODE:
             out = attn_decode(cfg, mixer, h, pos, cache, self.attn_kind)
         else:
             out = attn_forward(cfg, mixer, h, self.attn_kind,
-                               return_cache=prefill, max_len=max_len)
+                               return_cache=prefill, max_len=max_len,
+                               ctx=ctx)
         mix, cache = (out, None) if mode == TRAIN else out
         x = x + mix.to(cd)
         if self.has_cross and vision is not None:
             cross = block("cross")
             h = rms_norm(x, w["cross_norm"].to(cd), cfg.norm_eps)
-            x = x + cross_attn_forward(cfg, cross, h, vision).to(cd)
+            x = x + cross_attn_forward(cfg, cross, h, vision, ctx).to(cd)
         ffn = block("ffn")
         h = rms_norm(x, w["norm2"].to(cd), cfg.norm_eps)
         if self.is_moe:
-            y, aux = moe_ffn(cfg, ffn, h)
+            y, aux = moe_ffn(cfg, ffn, h, ctx)
         else:
-            y, aux = swiglu(h, ffn["w1"], ffn["w3"], ffn["w2"]), 0.0
+            y, aux = swiglu(h, ffn["w1"], ffn["w3"], ffn["w2"], ctx), 0.0
         return x + y, aux, cache
 
 
@@ -427,24 +584,38 @@ class Model(nn.Module):
     quantized with ``fsdp_codec`` (the scheme's uniform codec by default)
     when ``fsdp_sync == "quantized"`` and ``fsdp_scheme`` quantizes, else
     in float32.  The same ``seed`` draws the same weights in both modes.
+
+    ``tp_ctx`` (a ``TPCtx`` over a model group, ``layers.TPCtx.over``)
+    makes this the model's rank ``tp_ctx.rank`` of ``tp`` (tp > 1): its
+    flat holds that rank's shards (``param_layout(cfg, tp)``), drawn per
+    rank but for the replicated leaves, and the forward issues the
+    group's collectives.  Under FSDP each model rank shards its own flat
+    over the data-parallel ``transport``.  Serving at tp > 1 is not
+    ported (its caches are sequence-sharded in the reference).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
                  remat: str = "full", param_mode: str = "dp", dp: int = 1,
                  transport: StackedTransport | None = None,
                  fsdp_scheme: QuantScheme | None = None,
-                 fsdp_sync: str = "quantized", fsdp_codec=None):
+                 fsdp_sync: str = "quantized", fsdp_codec=None,
+                 tp_ctx: TPCtx | None = None):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r}; known: {REMAT_MODES}")
         if param_mode not in ("dp", "fsdp"):
             raise ValueError(f"param_mode {param_mode!r}")
+        tp_ctx = TP1 if tp_ctx is None else tp_ctx
         self.cfg = cfg
         self.remat = remat
         self.param_mode = param_mode
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
-        flat, lv = init_flat(param_layout(cfg),
-                             getattr(torch, cfg.param_dtype), device, seed)
+        self.ctx = tp_ctx._replace(compute_dtype=self.compute_dtype)
+        self.tp = self.ctx.tp
+        self.dims = make_dims(cfg, self.tp)
+        flat, lv = init_flat(param_layout(cfg, self.tp),
+                             getattr(torch, cfg.param_dtype), device, seed,
+                             None if self.tp == 1 else self.ctx.rank)
         if param_mode == "fsdp":
             self._init_fsdp(flat, dp, transport, fsdp_scheme, fsdp_sync,
                             fsdp_codec)
@@ -462,7 +633,7 @@ class Model(nn.Module):
                 leaves = {name[len(pre):]: view[g, 0]
                           for name, view in lv.items()
                           if name.startswith(pre)}
-                layers.append(DecoderLayer(cfg, leaves, slot))
+                layers.append(DecoderLayer(cfg, leaves, slot, self.ctx))
         self.layers = nn.ModuleList(layers)
 
     def _init_fsdp(self, flat, dp, transport, scheme, fsdp_sync, codec):
@@ -484,11 +655,11 @@ class Model(nn.Module):
             scheme)
         self._gather = make_gather(scheme, fsdp_sync, transport=transport,
                                    codec=self.fsdp_codec)
-        self.fsdp_entries = fsdp_layout(cfg, scheme.bucket_size, M)
+        self.fsdp_entries = fsdp_layout(cfg, scheme.bucket_size, M, self.tp)
         self._slot_meta = [e.meta for e in self.fsdp_entries
                            if e.name.startswith("slots.")]
         self.flat = self.local_rows(dp_to_fsdp(flat, cfg, scheme.bucket_size,
-                                               M))
+                                               M, self.tp))
         del flat
         self.d = self.flat.numel()
         views = fsdp_views(self.flat, self.fsdp_entries, M, L)
@@ -500,7 +671,7 @@ class Model(nn.Module):
             nn.Parameter(views[f"slots.{s}"][g])
             for g in range(cfg.num_groups) for s in range(G))
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, None, s)
+            DecoderLayer(cfg, None, s, self.ctx)
             for _ in range(cfg.num_groups) for s in range(G))
         self._dummy_ctx = (scheme.init_state(self.flat.device).levels,
                            SeedKey(0))
@@ -573,7 +744,7 @@ class Model(nn.Module):
             return self.embed.to(cd)
         levels, key = self._ctx(sync_ctx)
         full = self._gather(self.embed_shard, levels, key.fold(EMBED_FOLD))
-        V, d = self.cfg.vocab_size, self.cfg.d_model
+        V, d = self.dims.vocab_local, self.cfg.d_model
         return full[:V * d].view(V, d).to(cd)
 
     def _lm_weights(self, sync_ctx) -> torch.Tensor:
@@ -582,7 +753,7 @@ class Model(nn.Module):
             return self.lm_head.to(cd)
         levels, key = self._ctx(sync_ctx)
         full = self._gather(self.lm_shard, levels, key.fold(LM_FOLD))
-        V, d = self.cfg.vocab_size, self.cfg.d_model
+        V, d = self.dims.vocab_local, self.cfg.d_model
         return full[:V * d].view(d, V).to(cd)
 
     def _slot_weights(self, i: int, sync_ctx) -> dict | None:
@@ -611,6 +782,8 @@ class Model(nn.Module):
                 return x, a
             return run
 
+        psum_mode = remat == "psum" and self.tp > 1
+
         def body(g):
             def run(x, aux):
                 for i in range(g * G, (g + 1) * G):
@@ -630,6 +803,9 @@ class Model(nn.Module):
             elif remat == "dots":
                 x, aux = checkpoint(f, x, aux, use_reentrant=False,
                                     context_fn=_dots_context)
+            elif psum_mode:
+                x, aux = checkpoint(f, x, aux, use_reentrant=False,
+                                    context_fn=_psum_context)
             else:
                 x, aux = checkpoint(f, x, aux, use_reentrant=False)
         return x, aux
@@ -642,7 +818,7 @@ class Model(nn.Module):
         cross slots (without them those blocks are skipped).
         ``sync_ctx`` = (levels, key) routes FSDP's reduce-scatters."""
         cd = self.compute_dtype
-        x = F.embedding(ids, self._embed_weights(sync_ctx))
+        x = embed_lookup(self.ctx, self._embed_weights(sync_ctx), ids)
         x, aux = self._run_stack(x, vision, sync_ctx)
         return rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps), aux
 
@@ -653,8 +829,15 @@ class Model(nn.Module):
         ``lm_head_loss``), plus the MoE layers' aux losses summed in layer
         order over ``num_layers``."""
         x, aux = self.forward(ids, vision, sync_ctx)
-        ce = lm_head_loss(self._lm_weights(sync_ctx), x, labels)
+        ce = lm_head_loss(self._lm_weights(sync_ctx), x, labels,
+                          ctx=self.ctx, vocab=self.cfg.vocab_size)
         return ce + aux / max(self.cfg.num_layers, 1)
+
+    def _serving(self) -> None:
+        if self.tp > 1:
+            raise NotImplementedError(
+                "serving at tp > 1 needs sequence-sharded caches, which "
+                "the port does not run yet")
 
     @torch.inference_mode()
     def prefill(self, ids: torch.Tensor, vision: torch.Tensor | None = None,
@@ -662,6 +845,7 @@ class Model(nn.Module):
         """Serving's prefill of a (B, S) prompt: (the last position's
         float32 logits (B, V), the caches for decode steps up to position
         ``max_len`` - 1), the caches laid out as ``init_cache``'s."""
+        self._serving()
         cd, G = self.compute_dtype, self.cfg.group_size
         x = F.embedding(ids, self._embed_weights(None))
         per_layer = []
@@ -682,6 +866,7 @@ class Model(nn.Module):
         ``pos`` (B,) against ``caches`` (``prefill``'s or ``init_cache``'s
         layout), which are updated in place.  Returns (float32 logits
         (B, V), the caches)."""
+        self._serving()
         cd, G = self.compute_dtype, self.cfg.group_size
         x = F.embedding(token[:, None], self._embed_weights(None))
         for i, layer in enumerate(self.layers):

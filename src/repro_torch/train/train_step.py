@@ -35,8 +35,21 @@ worker's backward has run (stage ``reduce_scatter``), a micro-batch at a
 time.  ``final_norm`` takes the plain mean, the levels adapt from slot
 0's shard of the gradient, and the optimizer updates the local shards.
 
+With a tensor-parallel model (``Model(tp_ctx=...)``) this process is one
+rank of a (data x model) grid: the trainer's transport is its data group,
+so the wire, the level fit and the FSDP collectives run over the data
+group, each model rank on its own flat, with its own levels (the
+reference merges the level statistics over the data axes only).  Every
+worker's rounding is seeded by its data rank alone (``worker_seed``, as
+the reference folds only the data rank into the step's key), so the
+model ranks of a data rank draw the same uniforms.  The metrics are this
+rank's: the launcher reports model rank 0's, as the reference's
+replicated out-specs give device 0's.
+
 ``Trainer.state_arrays`` / ``load_state_arrays`` give its whole state as
-named tensors for ``train.checkpoint`` (under FSDP in the global layout).
+named tensors for ``train.checkpoint`` (under FSDP in the global layout;
+at tp > 1 the parameters and moments in the reference's global layout,
+gathered over the model group, see ``state_arrays``).
 """
 from __future__ import annotations
 
@@ -53,7 +66,9 @@ from repro_torch.dist.fsdp import SeedKey, reduce_scatter
 from repro_torch.dist.sync import (
     compressed_allreduce, maybe_update_levels, quantized_allreduce)
 from repro_torch.dist.transport import StackedTransport
-from repro_torch.models.transformer import Model, fsdp_views
+from repro_torch.models.layers import tp_all_gather
+from repro_torch.models.transformer import (
+    Model, final_norm_slice, from_global, fsdp_views, to_global)
 from repro_torch.timing import NO_CLOCK
 from .optim import OptimConfig, OptState, apply_updates, init_opt_state
 
@@ -151,6 +166,14 @@ class Trainer:
         self.transport = transport
         self.local = transport.local_workers()
         dev = model.flat.device
+        if model.tp > 1:
+            # every worker's forward issues the model group's collectives,
+            # so the group's ranks must run as many forwards, in one order
+            held = tp_all_gather(model.ctx, torch.tensor(
+                [len(self.local)], device=dev)).view(-1).tolist()
+            if len(set(held)) > 1:
+                raise ValueError(f"the model group's ranks hold {held} data "
+                                 "workers; each must hold as many")
         self.grads = torch.zeros((len(self.local), model.d),
                                  dtype=model.flat.dtype, device=dev)
         # the wire decodes to float32; the plain mean keeps the rows' dtype
@@ -368,6 +391,14 @@ class Trainer:
         return self.transport.all_gather(
             [r.to(dev) for r in local]).to(local.device)
 
+    # the flats that state_arrays converts to the global layout at tp > 1
+    _FLATS = ("params", "opt.mu", "opt.nu")
+
+    def _tp_layout(self) -> dict:
+        m = self.model
+        return {"fsdp": (m.fsdp_scheme.bucket_size, self.transport.size())
+                if self.fsdp else None}
+
     def state_arrays(self) -> dict[str, torch.Tensor]:
         """The whole training state as named tensors: flat parameters,
         optimizer moments and count, the scheme state, the step, every
@@ -375,7 +406,32 @@ class Trainer:
         bytes)) and the compression state (``compress.residual``, all M
         workers' rows).  The same in every process, and the same as a
         stacked trainer's of the same M: a collective when other
-        processes hold workers, so every process calls it."""
+        processes hold workers, so every process calls it.
+
+        At tp > 1 it is also gathered over the model group: ``params``
+        and the moments in the reference's global layout
+        (``transformer.to_global``: sharded leaves stacked along their tp
+        axis, ``final_norm`` model rank 0's, as the reference saves it),
+        with every rank's ``final_norm`` besides (``<name>.final_norm``,
+        (tp, d)), and every other entry stacked over the model ranks
+        (tp, ...): the replicated leaves and the levels train per model
+        rank, and a resumed run continues each rank's own."""
+        out = self._local_state_arrays()
+        ctx = self.model.ctx
+        if ctx.tp == 1:
+            return out
+        kw = self._tp_layout()
+        fn = final_norm_slice(self.model.cfg, ctx.tp, **kw)
+        for k in list(out):
+            every = tp_all_gather(ctx, out[k].to(self.model.flat.device))
+            if k in self._FLATS:
+                out[k] = to_global(every, self.model.cfg, **kw).cpu()
+                out[f"{k}.final_norm"] = every[:, fn].cpu()
+            else:
+                out[k] = every.to(out[k].device)
+        return out
+
+    def _local_state_arrays(self) -> dict[str, torch.Tensor]:
         glob = (self.model.global_flat if self.fsdp
                 else lambda t: t)     # FSDP: the global layout
         out = {"params": glob(self.model.flat.detach()),
@@ -397,7 +453,22 @@ class Trainer:
 
     def load_state_arrays(self, arrays: dict[str, torch.Tensor]) -> None:
         """Restore what ``state_arrays`` gave (shapes as this trainer's),
-        keeping the local workers' rows of the per-worker arrays."""
+        keeping the local workers' rows of the per-worker arrays (at
+        tp > 1 this model rank's shards and entries)."""
+        ctx = self.model.ctx
+        if ctx.tp > 1:
+            kw = self._tp_layout()
+            fn = final_norm_slice(self.model.cfg, ctx.tp, **kw)
+            mine = {}
+            for k, v in arrays.items():
+                if k in self._FLATS:
+                    flat = from_global(v, self.model.cfg, ctx.tp, ctx.rank,
+                                       **kw).clone()
+                    flat[fn] = arrays[f"{k}.final_norm"][ctx.rank]
+                    mine[k] = flat
+                elif not k.endswith(".final_norm"):
+                    mine[k] = v[ctx.rank]
+            arrays = mine
         local = (self.model.local_rows if self.fsdp else lambda t: t)
         with torch.no_grad():
             self.model.flat.copy_(local(arrays["params"]))

@@ -1,8 +1,11 @@
 """Weight and cache carry-over from the reference package's trees.
 
 ``from_jax_params`` takes the tree that the reference's ``Model.init``
-returns (``param_mode="dp"``, tp=1), already converted to numpy arrays,
-and lays it out as the port's flat parameter vector.  Nothing of JAX is
+returns (``param_mode="dp"``), already converted to numpy arrays, and
+lays it out as the port's flat parameter vector; at tp > 1, that of one
+rank of the model group (the reference stacks the ranks' shards along a
+tp axis: ``embed`` and ``lm_head`` (tp, ...), a slot's leaves
+(num_groups, tp, ...)).  Nothing of JAX is
 needed: the tree is plain nested dicts and lists of arrays.  numpy has
 no bfloat16, so a bfloat16 tree comes as float32 arrays (which hold
 bfloat16 values exactly) and is cast to the config's ``param_dtype``.
@@ -24,12 +27,13 @@ from repro_torch.models.transformer import (  # noqa: F401  (re-exported)
     dp_to_fsdp, fsdp_to_dp, param_layout)
 
 
-def from_jax_params(np_tree, cfg: ModelConfig) -> torch.Tensor:
-    """Nested dict/list of numpy arrays -> flat (d,) CPU tensor of the
-    config's ``param_dtype``, in the reference's ravel order
-    (``Model.load_flat`` takes it)."""
+def _ravel(np_tree, cfg: ModelConfig, tp: int,
+           fsdp: tuple[int, int] | None = None) -> torch.Tensor:
+    """The reference's tree at ``tp`` -> its global flat float32 CPU
+    tensor (``transformer.to_global``'s layout), each leaf checked
+    against its global shape."""
     parts = []
-    for name, shape, _ in param_layout(cfg):
+    for name, shape, _ in transformer.global_pieces(cfg, tp, fsdp):
         node = np_tree
         for key in name.split("."):
             node = node[int(key)] if isinstance(node, list) else node[key]
@@ -37,7 +41,16 @@ def from_jax_params(np_tree, cfg: ModelConfig) -> torch.Tensor:
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
         parts.append(arr.reshape(-1))
-    flat = torch.from_numpy(np.concatenate(parts))
+    return torch.from_numpy(np.concatenate(parts))
+
+
+def from_jax_params(np_tree, cfg: ModelConfig, tp: int = 1, rank: int = 0
+                    ) -> torch.Tensor:
+    """Nested dict/list of numpy arrays (the reference's tree at ``tp``)
+    -> flat (d,) CPU tensor of the config's ``param_dtype`` of model rank
+    ``rank``, in the reference's ravel order (``Model.load_flat`` takes
+    it)."""
+    flat = transformer.from_global(_ravel(np_tree, cfg, tp), cfg, tp, rank)
     return flat.to(getattr(torch, cfg.param_dtype))
 
 
@@ -57,22 +70,14 @@ def from_jax_caches(np_caches, cfg: ModelConfig) -> list:
 
 
 def from_jax_fsdp_params(np_tree, cfg: ModelConfig, bucket_size: int,
-                         M: int) -> torch.Tensor:
-    """The reference's FSDP tree (``embed``/``lm_head`` (1, Lp), the
-    replicated ``final_norm``, ``slots`` a list of (num_groups, 1, Lp)),
-    as numpy, for M workers and buckets of ``bucket_size`` -> the global
-    FSDP flat (d_fsdp,) CPU tensor of the config's ``param_dtype``."""
-    parts = []
-    for e in transformer.fsdp_layout(cfg, bucket_size, M):
-        node = np_tree
-        for key in e.name.split("."):
-            node = node[int(key)] if isinstance(node, list) else node[key]
-        arr = np.asarray(node, dtype=np.float32)
-        want = (e.Lp,) if e.meta is None else (
-            (e.count, 1, e.Lp) if e.name.startswith("slots.") else (1, e.Lp))
-        if arr.shape != want:
-            raise ValueError(f"{e.name}: shape {arr.shape}, expected {want}")
-        parts.append(arr.reshape(-1))
-    flat = torch.from_numpy(np.concatenate(parts))
+                         M: int, tp: int = 1, rank: int = 0
+                         ) -> torch.Tensor:
+    """The reference's FSDP tree (``embed``/``lm_head`` (tp, Lp), the
+    replicated ``final_norm``, ``slots`` a list of (num_groups, tp, Lp)),
+    as numpy, for M workers and buckets of ``bucket_size`` -> model rank
+    ``rank``'s global FSDP flat (d_fsdp,) CPU tensor of the config's
+    ``param_dtype`` (its flats whole over the M workers)."""
+    fsdp = (bucket_size, M)
+    flat = transformer.from_global(_ravel(np_tree, cfg, tp, fsdp), cfg, tp,
+                                   rank, fsdp=fsdp)
     return flat.to(getattr(torch, cfg.param_dtype))
-

@@ -41,6 +41,12 @@ jamba) and twice bit-equal; RWKV6 at the init's decays, card and CPU
 against float64; a sliding window's ring overwritten by decode steps,
 against the card's own full forward.  These share ``chip_smoke.py``'s
 serving helpers.
+
+Tensor parallelism: ``psum_tp`` over an NCCL group of one rank on the
+card is the identity and the model's loss and gradient equal the tp = 1
+path's bit for bit; a model group of two gloo ranks sharing the card
+against the same two ranks on the CPU (loss rtol 1e-6, gradients within
+1e-5 of their largest entry, ``psum_tp`` and its backward exact).
 """
 import json
 import math
@@ -926,3 +932,50 @@ def test_fsdp_trainer_launches_the_kernels_on_card(dev):
         else:
             assert sum(kcuda.LAUNCHES.values()) == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+def _spawn_card(path, world, device, backend):
+    import torch.multiprocessing as mp
+    import torch_tp_worker
+    mp.start_processes(torch_tp_worker.spawn_card,
+                       args=(world, str(path), device, backend),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(path / f"rank{r}.pt") for r in range(world)]
+
+
+@pytest.mark.cuda
+def test_psum_tp_of_one_nccl_rank_is_the_tp1_path(dev, tmp_path):
+    from repro_torch import configs
+    from repro_torch.models.transformer import Model
+    (got,) = _spawn_card(tmp_path, 1, "cuda:0", "nccl")
+    cfg = configs.get_smoke_config("qwen3-0.6b")
+    model = Model(cfg, device=dev, seed=0)
+    model.load_flat(Model(cfg, device="cpu", seed=0).flat.to(dev))
+    row = torch.zeros_like(model.flat)
+    model.attach_grads(row)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    loss = model.loss(ids.to(dev), ids.roll(1, 1).to(dev))
+    loss.backward()
+    x = torch.randn(3, 5, generator=g)
+    assert torch.equal(got["loss"], loss.detach().cpu())
+    assert torch.equal(got["grad"], row.cpu())
+    assert torch.equal(got["psum"], x) and torch.equal(got["dpsum"], 2 * x)
+    assert torch.equal(got["raw"], x)
+
+
+@pytest.mark.cuda
+def test_tp_pair_sharing_the_card_matches_the_cpu(dev, tmp_path):
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card = _spawn_card(tmp_path / "card", 2, "cuda:0", "gloo")
+    cpu = _spawn_card(tmp_path / "cpu", 2, "cpu", "gloo")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a["loss"].item(), b["loss"].item(),
+                                   rtol=1e-6)
+        scale = b["grad"].abs().max()
+        assert (a["grad"] - b["grad"]).abs().max() <= 1e-5 * scale
+        assert torch.equal(a["psum"], b["psum"])
+        assert torch.equal(a["dpsum"], b["dpsum"])
+        assert torch.equal(a["raw"], b["raw"])
+    assert torch.equal(card[0]["psum"], card[1]["psum"])

@@ -3,9 +3,11 @@
 For each of ``repro.{dist,train,models,kernels,configs}``, every public
 name (the module's names without a leading underscore) has a counterpart
 in ``repro_torch`` of the same name, or the stand-in named here, where
-the port differs by design.  ``TPCtx`` and ``make_dims`` come with tensor
-parallelism, which the port does not have yet.  ``input_specs`` gives
-meta-device tensors of the reference's shapes and dtypes for all four
+the port differs by design; nothing waits any longer (tensor
+parallelism brought ``TPCtx`` and ``make_dims``, and
+``repro_torch.models`` exports ``Dims``, ``head_mask`` and ``pad_to``
+beside them, as the reference's ``models.layers`` has them).
+``input_specs`` gives meta-device tensors of the reference's shapes and dtypes for all four
 input shapes, a VLM's image embeddings among them.
 """
 import importlib
@@ -34,8 +36,10 @@ STAND_INS = {
                 "dequantize_pallas": "dequantize_cuda",
                 "bucket_stats_pallas": "bucket_stats_cuda"},
 }
-# waiting for --tp (ROADMAP §1)
-WAITING = {"models": {"TPCtx", "make_dims"}}
+# reference names the port does not have yet (none since --tp)
+WAITING: dict[str, set] = {}
+# the tensor-parallel primitives repro_torch.models exports
+TP_NAMES = ("TPCtx", "Dims", "make_dims", "head_mask", "pad_to")
 
 
 def _public(mod):
@@ -56,6 +60,21 @@ def test_every_public_name_has_a_counterpart(package):
         if not hasattr(port, stand_in.get(name, name)):
             missing.append(name)
     assert not missing, f"repro_torch.{package} lacks {missing}"
+
+
+def test_models_export_the_tensor_parallel_primitives():
+    from repro.models import layers as jlayers
+    from repro_torch import models
+    from repro_torch.models import layers
+    for name in TP_NAMES:
+        assert getattr(models, name) is getattr(layers, name)
+        assert hasattr(jlayers, name), name
+    cfg = configs.get_smoke_config("granite-3-2b")
+    jcfg = jconfigs.get_smoke_config("granite-3-2b")
+    for tp in (1, 2, 4):
+        assert tuple(models.make_dims(cfg, tp)) == tuple(
+            jlayers.make_dims(jcfg, tp))
+    assert models.pad_to(509, 4) == jlayers.pad_to(509, 4) == 512
 
 
 def test_stand_ins_are_what_they_stand_for():
