@@ -152,14 +152,16 @@ Phases, each of which must pass:
      (RWKV6's chunks of 32; band 3e-4, the same control);
  15d. phase M, data parallelism across processes, each run a subprocess
      of this script (``--rank-run``) while this process holds no large
-     tensor on the card: M1, qwen3-0.6b whole, phase H's setting at M =
-     2 (2 x 1024 uniform tokens a rank, ALQ 3-bit, buckets of 8192,
-     AdamW, a level update at step 1, 3 steps, all_gather) in 2 gloo
-     ranks sharing cuda:0 under ``python -m torch.distributed.run``,
-     against the stacked launcher's ``--workers 2`` run of the same
-     arguments in a process of its own; M2, its first 4 layers with
-     ``--sync two_phase --compress ef --integrity``, 5 steps; M3, NCCL at
-     world size 1 with qwen3-0.6b's SMOKE config against ``--workers 1``.
+     tensor on the card: M1, qwen3-0.6b at full width, 14 of its 28
+     layers (d = 531,399,168), phase H's setting at M = 2 (2 x 1024
+     uniform tokens a rank, ALQ 3-bit, buckets of 8192, AdamW, a level
+     update at step 1, 3 steps, all_gather) in 2 gloo ranks sharing
+     cuda:0 under ``python -m torch.distributed.run``, against the
+     stacked launcher's ``--workers 2`` run of the same arguments; M2,
+     its first 4 layers with ``--sync two_phase --compress ef
+     --integrity``, 5 steps, in the same 2 ranks after M1; M3, NCCL at
+     world size 1 with qwen3-0.6b's SMOKE config against ``--workers 1``;
+     the three stacked runs share one process (``--rank-run ... --then``).
      Every rank's losses and final parameters' sha256 must equal the
      stacked run's (if not, both run again under deterministic
      algorithms, which must agree, and that is reported); per run the
@@ -209,6 +211,29 @@ Phases, each of which must pass:
      llama-vision (with image embeddings) and granite SMOKE configs on 2
      ranks, card against CPU within the earlier card bands, every kernel
      launched;
+ 15h. phase Q, serving at tp > 1 (none of the three kernels launches):
+     Q1 rides P1f/P2's pair of ranks (``--tp-check ... serve``,
+     ``serve_tp``): llama3.2-1b whole at tp = 2 through
+     ``make_prefill_step``/``make_decode_step`` with 2 cache shards, phase
+     K's setting (8 x 1024 prompt, 64 greedy tokens, bf16 compute):
+     prefill ms, decode ms a step (median, spread), tokens/s, a rank's
+     peak memory and caches (half of phase K's), the model group's
+     collectives of a decode step (all-reduces and all-gathers: calls,
+     bytes, ms); at float32 compute the tp = 2 prefill and 4
+     teacher-forced steps against tp = 1 on the same weights
+     (``split_tp1``) within 1e-4 of the largest logit, the gathered
+     caches too; then rwkv6's, jamba's, mixtral's, llama-vision's (with
+     image embeddings) and qwen1.5's (5 heads padded to 6) SMOKE configs
+     at tp = 2, card against CPU within the serve check's bands.  Q2
+     rides P1's 4 gloo ranks (2 data x 2 model; ``--rank-run ... --then
+     --serve-grid``, ``serve_grid``): the
+     serve launcher's ``run`` at ``--tp 2`` on llama3.2's SMOKE config,
+     each data rank's rows equal to its model group's serve of the whole
+     batch; then the long-context layout, llama3.2-1b at full width cut
+     to 4 layers, float32, batch 1, ``seq_shard_axes=("data", "model")``
+     with 4 cache shards, a 4096-token prompt and 8 decode steps against
+     the full forward within 1e-4 of the largest logit, prefill and
+     decode ms;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -242,6 +267,9 @@ BS_B, D_B, M_B = 8192, 768_624_640, 4   # phases B-G: bucket, d, workers
 NB_B, NB_RING = 93_832, 93_856  # buckets of d: one stream; the ring's plan
 K_D = 1927                    # phase D's top-k: the equal wire budget
 D_H, NB_H = 751_632_384, 91_752  # phase H: qwen3-0.6b whole, buckets of d
+# phase M1: qwen3-0.6b at full width and half its depth (it was whole
+# until phase Q came and the script had to give back its time)
+M1_LAYERS, D_M1 = 14, 531_399_168
 NEW_ARCHS = ("granite-3-2b", "qwen3-0.6b", "qwen1.5-32b", "musicgen-large")
 MOE_RWKV_ARCHS = ("mixtral-8x7b", "llama4-scout-17b-a16e", "rwkv6-7b")
 JAMBA, VLM = "jamba-1.5-large-398b", "llama-3.2-vision-11b"
@@ -1942,6 +1970,13 @@ def _steps_off(got, want) -> tuple[float, float]:
     return lerr, cerr
 
 
+def _shards(model) -> int:
+    """The model's cache shards: the sizes of its ``seq_shard_axes``
+    groups multiplied (1 at tp = 1 on one rank; ``decode``'s default)."""
+    from repro_torch.models.layers import shard_of
+    return shard_of(model.seq_ctxs)[0]
+
+
 def _serve_steps(model, ids, vision, prompt, steps, max_len):
     """The prefill of ``ids[:, :prompt]`` and ``steps`` decode steps fed
     ``ids``'s next tokens (teacher forcing): [(logits, caches) after the
@@ -1953,7 +1988,8 @@ def _serve_steps(model, ids, vision, prompt, steps, max_len):
         return logits.cpu(), [tuple(t.to("cpu", copy=True) for t in c)
                               for c in caches]
 
-    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=max_len)
+    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=max_len,
+                                   cache_shards=_shards(model))
     out = [keep(logits, caches)]
     for t in range(prompt, prompt + steps):
         pos = torch.full((ids.shape[0],), t, dtype=torch.int32,
@@ -1994,14 +2030,17 @@ def init_decays_against_float64(configs, Model):
     return _steps_off(card, cpu), _steps_off(cpu, f64), _steps_off(card, f64)
 
 
-def _full_logits(model, ids, vision):
-    """The full forward's last-position float32 logits."""
+def _full_logits(model, ids, vision, at=-1):
+    """The full forward's float32 logits at position ``at`` (the last by
+    default), or with a list of positions, the list of theirs."""
     import torch
     from repro_torch.models.layers import lm_head_logits
     with torch.inference_mode():
         x, _ = model.forward(ids, vision)
-        return lm_head_logits(model.lm_head.to(model.compute_dtype),
-                              x[:, -1])
+        w = model.lm_head.to(model.compute_dtype)
+        logits = [lm_head_logits(w, x[:, t], model.ctx, model.cfg.vocab_size)
+                  for t in ([at] if isinstance(at, int) else at)]
+        return logits[0] if isinstance(at, int) else logits
 
 
 def serve_consistency(model, ids, vision, prompt, steps, every=True,
@@ -2024,7 +2063,8 @@ def serve_consistency(model, ids, vision, prompt, steps, every=True,
                         t.copy_(t.to(round_to))
 
     n = prompt + steps
-    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=n)
+    logits, caches = model.prefill(ids[:, :prompt], vision, max_len=n,
+                                   cache_shards=_shards(model))
     held(caches)
     worst, inside = 0.0, True
     for t in range(prompt, n):
@@ -2291,11 +2331,16 @@ def micro_check(train):
 
 
 def rank_run(argv: list[str]) -> None:
-    """Phase M's child (``chip_smoke.py --rank-run OUT [--deterministic]
-    ARGV...``, under torchrun or alone): one launcher run with every
-    launch count set to 0 just before it; writes its losses, step and
-    stage times, the sha256 of its final parameters, its launches and
-    its peak memory to OUT/rank<R>.json (R the group rank, or "stacked")."""
+    """Phase M's and P1's child (``chip_smoke.py --rank-run OUT
+    [--deterministic] ARGV... [--then ARGV...]...``, under torchrun or
+    alone): one launcher run for each ARGV in turn, in this process, each
+    with every launch count set to 0 just before it (an ARGV of
+    ``--serve-grid`` is phase Q2, ``serve_grid``); writes each run's
+    losses, step and stage times, the sha256 of its final parameters, its
+    launches and its peak memory to OUT/rank<R>.json (R the group rank,
+    or "stacked"): the run's record, or with several runs {"rank": R,
+    "runs": [record, ...]} (several runs share the process's start-up and
+    first grad, which costs 9-16 s a process)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import cuda
@@ -2317,25 +2362,41 @@ def rank_run(argv: list[str]) -> None:
             prints.append(fingerprint(self.model.flat))
             return m
         Trainer.train_step = fingerprinted
-    torch.cuda.reset_peak_memory_stats()
-    cuda.reset_launches()
+    runs = [[]]
+    for a in argv:
+        if a == "--then":
+            runs.append([])
+        else:
+            runs[-1].append(a)
+    recs = []
     try:
-        res = train.run(train.parse_args(argv))
-        counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
-        peak = torch.cuda.max_memory_allocated()
-        rank = dist.get_rank() if dist.is_initialized() else "stacked"
-        rec = {"rank": rank, "d": res["d"],
-               "layers": res["config"].num_layers,
-               "device": str(res["trainer"].model.flat.device),
-               "loss": [h["loss"] for h in res["history"]],
-               "step_ms": [h["step_ms"] for h in res["history"]],
-               "stage_ms": [h["stage_ms"] for h in res["history"]],
-               "corrupt": [h["corrupt_fraction"] for h in res["history"]],
-               "digest": train.params_digest(res["trainer"].model.flat),
-               "launches": counts, "layouts": layouts, "peak_bytes": peak,
-               "model_rank": res["trainer"].model.ctx.rank,
-               "fingerprints": prints,
-               "tp": [h.get("tp_all_reduce") for h in res["history"]]}
+        for one in runs:
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launches()
+            if one == ["--serve-grid"]:     # phase Q2, in P1's ranks
+                recs.append(serve_grid())
+                continue
+            res = train.run(train.parse_args(one))
+            counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+            peak = torch.cuda.max_memory_allocated()
+            recs.append({
+                "rank": dist.get_rank() if dist.is_initialized()
+                else "stacked", "d": res["d"],
+                "layers": res["config"].num_layers,
+                "device": str(res["trainer"].model.flat.device),
+                "loss": [h["loss"] for h in res["history"]],
+                "step_ms": [h["step_ms"] for h in res["history"]],
+                "stage_ms": [h["stage_ms"] for h in res["history"]],
+                "corrupt": [h["corrupt_fraction"] for h in res["history"]],
+                "digest": train.params_digest(res["trainer"].model.flat),
+                "launches": counts, "layouts": layouts, "peak_bytes": peak,
+                "model_rank": res["trainer"].model.ctx.rank,
+                "fingerprints": prints,
+                "tp": [h.get("tp_all_reduce") for h in res["history"]]})
+            del res
+            torch.cuda.empty_cache()
+        rank = recs[0]["rank"]
+        rec = recs[0] if len(recs) == 1 else {"rank": rank, "runs": recs}
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(rec, f)
     finally:
@@ -2378,32 +2439,53 @@ def _steady(rec: dict, update_at: int) -> tuple[float, float, int]:
     return statistics.median(ms), max(ms) - min(ms), len(ms)
 
 
+def _stacked(argv: list[str], ranks: int) -> list[str]:
+    return argv + ["--device", "cuda:0", "--workers", str(ranks)]
+
+
+def _group(argv: list[str], backend: str) -> list[str]:
+    return argv + ["--device", "cuda:0", "--backend", backend]
+
+
+def _runs(phase: str, label: str, argvs: list[list[str]], nproc: int
+          ) -> list[list]:
+    """``--rank-run`` of several runs in one child (``nproc`` processes
+    under torchrun, 0: one plain process): for each run, every process's
+    record, each with the process's ``wall_s``."""
+    joined = []
+    for argv in argvs:
+        joined += (["--then"] if joined else []) + argv
+    recs = _child_runs(phase, "--rank-run", label, joined, nproc)
+    return [[dict(r["runs"][i], wall_s=r["wall_s"]) for r in recs]
+            for i in range(len(argvs))]
+
+
 def phase_m_run(name: str, argv: list[str], ranks: int, backend: str,
-                kernels_needed) -> dict:
-    """One phase-M cell: the launcher in ``ranks`` processes over
-    ``backend`` on cuda:0, and the stacked launcher with ``--workers
-    ranks`` in a process of its own; every step's loss and the final
-    parameters' sha256 must agree bit for bit on every rank (else both
-    run again under deterministic algorithms, and must agree there)."""
-    group = argv + ["--device", "cuda:0", "--backend", backend]
-    stacked = argv + ["--device", "cuda:0", "--workers", str(ranks)]
-    deterministic = False
-    while True:
-        flags = ["--deterministic"] if deterministic else []
-        env = ({"CUBLAS_WORKSPACE_CONFIG": ":4096:8"} if deterministic
-               else None)
-        recs = _child_runs("M", "--rank-run", f"{name}-group",
-                           flags + group, ranks, env)
-        base = _child_runs("M", "--rank-run", f"{name}-stacked",
-                           flags + stacked, 0, env)[0]
-        same = all(r["loss"] == base["loss"] and r["digest"] == base["digest"]
+                kernels_needed, recs: list[dict], base: dict) -> dict:
+    """One phase-M cell: ``recs``, the launcher's run in ``ranks``
+    processes over ``backend`` on cuda:0, against ``base``, the stacked
+    launcher's with ``--workers ranks`` (``phase_m`` runs the cells in
+    shared processes); every step's loss and the final parameters'
+    sha256 must agree bit for bit on every rank (else both run again,
+    each in processes of their own, under deterministic algorithms, and
+    must agree there)."""
+    def agree():
+        return all(r["loss"] == base["loss"] and r["digest"] == base["digest"]
                    for r in recs)
-        if same or deterministic:
-            break
+
+    deterministic = not agree()
+    if deterministic:
         print(f"phase {name}: ranks {[r['loss'] for r in recs]} against "
               f"stacked {base['loss']}: not bit-equal; again under "
               "deterministic algorithms", flush=True)
-        deterministic = True
+        env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+        recs = _child_runs("M", "--rank-run", f"{name}-group",
+                           ["--deterministic"] + _group(argv, backend), ranks,
+                           env)
+        base = _child_runs("M", "--rank-run", f"{name}-stacked",
+                           ["--deterministic"] + _stacked(argv, ranks), 0,
+                           env)[0]
+    same = agree()
     check(same, f"phase {name}: ranks and stacked differ under "
           f"deterministic algorithms: {[r['loss'] for r in recs]} against "
           f"{base['loss']}")
@@ -2441,9 +2523,12 @@ def phase_m_run(name: str, argv: list[str], ranks: int, backend: str,
 def phase_m(smi: str) -> dict:
     """Phase M: data parallelism across processes, each run in
     subprocesses while this process holds no large tensor on the card.
-    M1: qwen3-0.6b whole, 2 gloo ranks on cuda:0 (phase H's setting at
-    M = 2); M2: its first 4 layers, two_phase + ef + integrity, 5 steps;
-    M3: NCCL at world size 1, qwen3-0.6b's SMOKE config."""
+    M1: qwen3-0.6b at full width cut to ``M1_LAYERS`` of its 28 layers,
+    2 gloo ranks on cuda:0 (phase H's setting at M = 2); M2: its first 4
+    layers, two_phase + ef + integrity, 5 steps; M3: NCCL at world size
+    1, qwen3-0.6b's SMOKE config.  The three stacked runs they are held
+    against share one process, and M1's and M2's gloo ranks share a
+    pair of processes (a child's start-up and first grad cost 9-16 s)."""
     import torch
     torch.cuda.empty_cache()
     print(f"phase M: this process holds "
@@ -2453,23 +2538,31 @@ def phase_m(smi: str) -> dict:
             "--data", "uniform", "--scheme", "alq", "--bits", "3",
             "--bucket", str(BS_B), "--optim", "adamw", "--lr", "1e-4",
             "--update-at", "1", "--time-stages"]
+    kernels = ("quantize", "dequantize", "bucket_stats")
+    cells = {"M1": (full + ["--layers", str(M1_LAYERS), "--steps", "3"], 2,
+                    "gloo"),
+             "M2": (full + ["--layers", "4", "--steps", "5", "--sync",
+                            "two_phase", "--compress", "ef", "--integrity"],
+                    2, "gloo"),
+             "M3": (["--arch", "qwen3-0.6b", "--smoke", "--batch", "2",
+                     "--seq", "1024", "--data", "uniform", "--update-at",
+                     "1", "--time-stages", "--steps", "3"], 1, "nccl")}
+    stacked = _runs("M", "stacked", [_stacked(a, n) for a, n, _ in
+                                     cells.values()], 0)
+    gloo = _runs("M", "M12-group", [_group(cells[k][0], "gloo")
+                                    for k in ("M1", "M2")], 2)
+    nccl = _child_runs("M", "--rank-run", "M3-group",
+                       _group(cells["M3"][0], "nccl"), 1)
     out = {"card": smi}
-    out["M1"] = phase_m_run("M1", full + ["--steps", "3"], 2, "gloo",
-                            ("quantize", "dequantize", "bucket_stats"))
-    check(out["M1"]["stacked"]["d"] == D_H
-          and out["M1"]["stacked"]["layers"] == 28,
-          "phase M1 is not qwen3-0.6b whole")
-    out["M2"] = phase_m_run(
-        "M2", full + ["--layers", "4", "--steps", "5", "--sync",
-                      "two_phase", "--compress", "ef", "--integrity"], 2,
-        "gloo", ("quantize", "dequantize", "bucket_stats"))
+    for (name, (argv, ranks, backend)), recs, base in zip(
+            cells.items(), gloo + [nccl], stacked):
+        out[name] = phase_m_run(name, argv, ranks, backend, kernels, recs,
+                                base[0])
+    check(out["M1"]["stacked"]["d"] == D_M1
+          and out["M1"]["stacked"]["layers"] == M1_LAYERS,
+          f"phase M1 is not qwen3-0.6b at {M1_LAYERS} layers")
     check(all(c == 0.0 for r in out["M2"]["ranks"] for c in r["corrupt"]),
           "phase M2 corrupt buckets on a clean wire")
-    out["M3"] = phase_m_run(
-        "M3", ["--arch", "qwen3-0.6b", "--smoke", "--batch", "2", "--seq",
-               "1024", "--data", "uniform", "--update-at", "1",
-               "--time-stages", "--steps", "3"], 1, "nccl",
-        ("quantize", "dequantize", "bucket_stats"))
     return out
 
 
@@ -2722,16 +2815,19 @@ def phase_o(smi: str) -> dict:
     cuda:0, the quantized reduce-scatter, against the stacked M = 2 FSDP
     run: every rank's losses and shard digest bit-equal; every rank
     launches all three kernels.  O2: the float32 FSDP run against the DP
-    run (``sync_mode="fp32"``), one after the other in one process:
-    losses rtol 1e-5, the first step's first moment (0.1 x the
-    aggregate) within 1e-6 of its largest entry."""
+    run (``sync_mode="fp32"``), one after the other in the process of the
+    stacked O1 run: losses rtol 1e-5, the first step's first moment (0.1
+    x the aggregate) within 1e-6 of its largest entry."""
     import statistics
     import torch
     torch.cuda.empty_cache()
     out = {"card": smi}
     ranks = _child_runs("O", "--fsdp-run", "O1-group", ["quantized"], 2)
-    stacked = _child_runs("O", "--fsdp-run", "O1-stacked", ["quantized"],
-                          0)[0]
+    # the stacked quantized run and O2's two share one process
+    o2 = _child_runs("O", "--fsdp-run", "stacked",
+                     ["quantized", "fp32", "dp"], 0)[0]
+    stacked, fp32, dp = (dict(o2["runs"][k], wall_s=o2["wall_s"])
+                         for k in ("quantized", "fp32", "dp"))
     for r in ranks:
         check(r["loss"] == stacked["loss"], f"phase O rank {r['rank']} "
               f"losses {r['loss']} against stacked {stacked['loss']}")
@@ -2742,9 +2838,6 @@ def phase_o(smi: str) -> dict:
             "quantize", "dequantize", "bucket_stats")),
             f"phase O rank {r['rank']} launches {r['launches']}")
         check(all(math.isfinite(x) for x in r["loss"]), "phase O loss")
-    o2 = _child_runs("O", "--fsdp-run", "O2", ["fp32", "dp"], 0)[0]
-    fp32, dp = (dict(o2["runs"][k], wall_s=o2["wall_s"])
-                for k in ("fp32", "dp"))
     rel = max(abs(a - b) / abs(b) for a, b in zip(fp32["loss"], dp["loss"]))
     check(rel <= 1e-5, f"phase O fp32 FSDP losses {fp32['loss']} against DP "
           f"{dp['loss']} (rel {rel})")
@@ -2856,6 +2949,7 @@ def tp_check(argv: list[str]) -> None:
     """Phase P's children (``chip_smoke.py --tp-check OUT MODE...``, under
     torchrun, 2 gloo ranks sharing cuda:0, one model group of 2; each
     MODE in turn).
+    ``serve``, phase Q1: ``serve_tp``.
     ``f32``, P1f: qwen3-0.6b whole at float32 compute, one forward and
     backward of 2 x 1024 tokens at tp = 1 (seed 0) and at tp = 2 with the
     same weights cut in two (``split_tp1``): the losses, and every leaf's
@@ -2936,6 +3030,8 @@ def tp_check(argv: list[str]) -> None:
                 rec["worst"] = worst
                 del two, g1, g2
                 torch.cuda.empty_cache()
+            elif mode == "serve":
+                rec["serve"] = serve_tp(grid)
             else:
                 scheme = QuantScheme(name="alq", bits=3, bucket_size=1024)
                 rec["configs"] = {}
@@ -2995,6 +3091,310 @@ def tp_check(argv: list[str]) -> None:
         dist.destroy_process_group()
 
 
+# phase Q1's SMOKE configs at tp = 2, card against CPU; qwen1.5's 5 heads
+# pad to 6 (one padding head on model rank 1)
+Q_SMOKE = {"rwkv6-7b": {}, JAMBA: {}, "mixtral-8x7b": {}, VLM: {},
+           "qwen1.5-32b": {"num_heads": 5, "num_kv_heads": 1,
+                           "head_dim": 32}}
+
+
+def _cache_bytes(caches) -> int:
+    return sum(t.nbytes for c in caches for t in c)
+
+
+def serve_tp(grid) -> dict:
+    """Phase Q1 (``tp_check``'s ``serve`` mode, a model group of 2 gloo
+    ranks sharing cuda:0).  llama3.2-1b whole at tp = 2 (float32
+    parameters, bf16 compute, ``trained_like`` weights from seed 0)
+    through ``make_prefill_step``/``make_decode_step`` with 2 cache
+    shards, phase K's setting: an 8 x 1024 prefill (warmed up, then
+    timed), 63 greedy decode steps each synchronised, then one more step
+    with the model group's collectives timed; the prefill ms, each step's
+    ms, the collectives of a step (all-reduces and all-gathers: calls,
+    bytes, ms), the caches' bytes and the peak memory of this rank.  At
+    float32 compute: tp = 1 on the same weights, and tp = 2 on them cut
+    in two (``split_tp1``), a 2 x 1024 prefill and 4 teacher-forced
+    steps each, the logits' largest error over the largest logit and
+    the caches gathered at the end against tp = 1's.  Then each of
+    ``Q_SMOKE``'s configs at tp = 2, ``trained_like`` weights: the
+    prefill of 2 x 128 and 8 teacher-forced steps on the CPU and on the
+    card (``_serve_steps``, ``_steps_off``); and the launches (none)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.models.layers import TPStats
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import (ServeConfig, make_decode_step,
+                                   make_prefill_step)
+    dev, ctx = grid.device, grid.tp_ctx
+    cuda.reset_launches()
+    cfg = configs.get_config("llama3.2-1b")
+    batch, prompt, gen = 8, 1024, 64
+    torch.cuda.empty_cache()
+    model = Model(cfg, device=dev, seed=0, tp_ctx=ctx)
+    trained_like(model, torch.Generator(device=dev).manual_seed(19))
+    g = torch.Generator(device=dev).manual_seed(20)
+    ids = torch.randint(0, cfg.vocab_size, (batch, prompt + 4), generator=g,
+                        device=dev)
+    scfg = ServeConfig(max_len=prompt + gen)
+    prefill = make_prefill_step(model, scfg, cache_shards=ctx.tp)
+    decode = make_decode_step(model, scfg, cache_shards=ctx.tp)
+    prefill(ids[:, :prompt])                  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tok, caches = prefill(ids[:, :prompt])
+    torch.cuda.synchronize()
+    rec = {"d": model.d, "compute": cfg.compute_dtype, "batch": batch,
+           "prompt": prompt, "gen": gen,
+           "prefill_ms": (time.perf_counter() - t0) * 1e3,
+           "cache_bytes": _cache_bytes(caches), "step_ms": []}
+    out = [tok]
+    for i in range(gen - 1):
+        pos = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
+        TPStats.reset()
+        t0 = time.perf_counter()
+        tok, caches = decode(tok, pos, caches)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["tokens"] = torch.stack(out, dim=1).tolist()
+    TPStats.reset()
+    TPStats.timed = True
+    decode(tok, torch.full((batch,), prompt + gen - 1, dtype=torch.int32,
+                           device=dev), caches)
+    TPStats.timed = False
+    rec["collectives"] = {k: getattr(TPStats, k) for k in (
+        "calls", "bytes", "ms", "gather_calls", "gather_bytes", "gather_ms")}
+    del model, caches, prefill, decode
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rows = ids[:2]
+
+    def chain(m):
+        """The logits of a 2 x 1024 prefill and 4 teacher-forced steps,
+        and the caches after them, gathered to the global layout."""
+        logits, caches = m.prefill(rows[:, :prompt], max_len=prompt + 4,
+                                   cache_shards=m.tp)
+        steps = [logits]
+        for t in range(prompt, prompt + 4):
+            pos = torch.full((2,), t, dtype=torch.int32, device=dev)
+            logits, caches = m.decode(rows[:, t], pos, caches)
+            steps.append(logits)
+        return steps, m.gather_caches(caches)
+
+    one = Model(cfg32, device=dev, seed=0)
+    want, want_caches = chain(one)
+    mine = split_tp1(one.flat, cfg32, ctx.tp, ctx.rank)
+    del one
+    torch.cuda.empty_cache()
+    two = Model(cfg32, device=dev, seed=0, tp_ctx=ctx)
+    two.load_flat(mine)
+    del mine
+    got, got_caches = chain(two)
+    rec["f32_logits"] = max(_max_rel(a, b) for a, b in zip(got, want))
+    rec["f32_caches"] = max(_max_rel(a, b) for x, y in zip(got_caches,
+                                                            want_caches)
+                            for a, b in zip(x, y))
+    del two, want_caches, got_caches
+    torch.cuda.empty_cache()
+
+    toks = np.random.default_rng(18).integers(0, 509, (2, 136))
+    rec["smoke"] = {}
+    for arch, over in Q_SMOKE.items():
+        cfg = dataclasses.replace(configs.get_smoke_config(arch), **over)
+        rng = torch.Generator().manual_seed(18)
+        on_cpu = Model(cfg, device="cpu", seed=0, tp_ctx=ctx)
+        trained_like(on_cpu, rng)
+        vision = (torch.randn(2, cfg.num_image_tokens, cfg.d_model,
+                              generator=rng)
+                  if cfg.cross_attn_every else None)
+        on_card = Model(cfg, device=dev, seed=0, tp_ctx=ctx)
+        on_card.load_flat(on_cpu.flat.to(dev))
+        ids = torch.from_numpy(toks % cfg.vocab_size)
+        t0 = time.perf_counter()
+        cpu = _serve_steps(on_cpu, ids, vision, 128, 8, 136)
+        t1 = time.perf_counter()
+        card = _serve_steps(on_card, ids.to(dev), None if vision is None
+                            else vision.to(dev), 128, 8, 136)
+        t2 = time.perf_counter()
+        lerr, cerr = _steps_off(card, cpu)
+        rec["smoke"][arch] = {"name": cfg.name, "logits": lerr,
+                              "caches": cerr, "heads": on_card.dims.n_heads,
+                              "cpu_s": t1 - t0, "card_s": t2 - t1}
+        del on_cpu, on_card, cpu, card
+    rec["launches"] = dict(cuda.LAUNCHES)
+    return rec
+
+
+def serve_grid() -> dict:
+    """Phase Q2, a run of ``rank_run`` (``--rank-run OUT ... --then
+    --serve-grid``) in phase P1's 4 gloo ranks sharing cuda:0, which keep
+    their group (2 data x 2 model).  First the serve launcher's ``run``
+    at ``--tp 2`` (llama3.2's SMOKE config, 4 x 32 prompt, 16 tokens:
+    each data rank's 2 rows), then its model group alone serving the
+    whole batch with the same weights, as a 2-rank run of the launcher
+    would; then the long-context layout: llama3.2-1b at full width cut
+    to 4 layers, float32, batch 1, ``seq_shard_axes=("data", "model")``
+    with 4 cache shards (this rank's shard: its world rank), a
+    4096-token prompt (timed) and 8 decode steps (each timed), the
+    prefill's and each step's logits against one full forward of the
+    whole sequence with the same weights (``_full_logits`` at each
+    position).  Returns this rank's record."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import shard_of
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import (ServeConfig, make_decode_step,
+                                   make_prefill_step)
+    args = serve.parse_args(["--tp", "2", "--device", "cuda:0", "--backend",
+                             "gloo", "--batch", "4", "--prompt-len", "32",
+                             "--gen", "16"])
+    res = serve.run(args)
+    m, cfg = res["model"], res["config"]
+    dev = m.flat.device
+    rec = {"rank": dist.get_rank(), "rows": list(res["rows"]),
+           "tokens": res["tokens"].tolist(),
+           "launcher_ms": [res["prefill_ms"], res["decode_ms"]]}
+    whole = Model(cfg, device=dev, seed=serve.SEED, tp_ctx=m.ctx)
+    whole.load_flat(m.flat)
+    scfg = ServeConfig(max_len=args.prompt_len + args.gen)
+    prefill = make_prefill_step(whole, scfg, cache_shards=m.tp)
+    decode = make_decode_step(whole, scfg, cache_shards=m.tp)
+    tok, caches = prefill(serve.prompts(cfg, args.batch, args.prompt_len,
+                                        dev))
+    toks = [tok]
+    for i in range(args.gen - 1):
+        pos = torch.full((args.batch,), args.prompt_len + i,
+                         dtype=torch.int32, device=dev)
+        tok, caches = decode(tok, pos, caches)
+        toks.append(tok)
+    rec["whole"] = torch.stack(toks, dim=1).tolist()
+    del whole, caches
+
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b"),
+                              num_layers=4, compute_dtype="float32")
+    lc = Model(cfg, device=dev, seed=0, tp_ctx=m.ctx,
+               data_ctx=m.groups["data"], seq_shard_axes=("data", "model"))
+    prompt, steps = 4096, 8
+    g = torch.Generator(device=dev).manual_seed(21)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt + steps), generator=g,
+                        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = lc.prefill(ids[:, :prompt], max_len=prompt + steps,
+                                cache_shards=4)
+    torch.cuda.synchronize()
+    rec.update(shard=shard_of(lc.seq_ctxs), lc_d=lc.d,
+               prefill_ms=(time.perf_counter() - t0) * 1e3,
+               cache_bytes=_cache_bytes(caches), step_ms=[])
+    got = [logits]
+    for t in range(prompt, prompt + steps):
+        pos = torch.full((1,), t, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        logits, caches = lc.decode(ids[:, t], pos, caches)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        got.append(logits)
+    want = _full_logits(lc, ids, None, list(range(prompt - 1,
+                                                  prompt + steps)))
+    rec["errs"] = [_max_rel(a, b) for a, b in zip(got, want)]
+    rec["launches"] = dict(cuda.LAUNCHES)
+    return rec
+
+
+def phase_q(smi: str, q1: list[dict], q2: list[dict],
+            k_cache_bytes: int) -> dict:
+    """Phase Q: serving at tp > 1.  Q1 (``serve_tp``, run in phase P's
+    pair of ranks): llama3.2-1b whole at tp = 2, phase K's setting; each
+    rank holds half of phase K's attention caches (``k_cache_bytes``);
+    the float32 tp = 2 chain within 1e-4 of the largest logit of tp =
+    1's (phase K's band), its gathered caches too; the SMOKE configs at
+    tp = 2 card against CPU within the serve check's bands.  Q2
+    (``serve_grid``, run in phase P1's 4 gloo ranks): the launcher's data
+    ranks' rows equal the model group's serve of the whole batch, and the
+    long-context layout within 1e-4 of the full forward.  Neither
+    launches a kernel."""
+    import statistics
+    out = {"card": smi}
+    for r in q1:
+        med = statistics.median(r["step_ms"][1:])
+        spread = max(r["step_ms"][1:]) - min(r["step_ms"][1:])
+        tps = r["batch"] * (r["gen"] - 1) / (sum(r["step_ms"]) / 1e3)
+        c = r["collectives"]
+        check(r["tokens"] == q1[0]["tokens"], "phase Q1: the ranks' tokens "
+              "differ")
+        check(all(0 <= t < 128256 for row in r["tokens"] for t in row)
+              and len(r["tokens"]) == r["batch"]
+              and len(r["tokens"][0]) == r["gen"], "phase Q1 tokens")
+        check(2 * r["cache_bytes"] == k_cache_bytes, f"phase Q1: a rank's "
+              f"caches {r['cache_bytes']} B, phase K's {k_cache_bytes} B")
+        check(r["f32_logits"] <= 1e-4 and r["f32_caches"] <= 1e-4,
+              f"phase Q1: float32 tp = 2 off tp = 1 by {r['f32_logits']} "
+              f"(logits), {r['f32_caches']} (caches)")
+        check(not any(r["launches"].values()), f"phase Q1 launched kernels: "
+              f"{r['launches']}")
+        print(f"phase Q1 rank {q1.index(r)}: llama3.2-1b whole at tp = 2 "
+              f"(d = {r['d']} a rank, {r['compute']} compute), "
+              f"{r['batch']} x {r['prompt']} prompt: prefill "
+              f"{r['prefill_ms']:.1f} ms; "
+              f"{r['gen'] - 1} decode steps: first {r['step_ms'][0]:.2f} ms, "
+              f"then median {med:.2f} ms (spread {spread:.2f}), {tps:.1f} "
+              f"tokens/s; a step's collectives: {c['calls']} all-reduces "
+              f"({c['bytes'] / 2**10:.1f} KiB, {c['ms']:.2f} ms), "
+              f"{c['gather_calls']} all-gathers "
+              f"({c['gather_bytes'] / 2**10:.1f} KiB, {c['gather_ms']:.2f} "
+              f"ms); caches {r['cache_bytes'] / 2**20:.1f} MiB (phase K: "
+              f"{k_cache_bytes / 2**20:.1f}), peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB; float32 against tp = 1: "
+              f"logits {r['f32_logits']:.3g}, "
+              f"caches {r['f32_caches']:.3g} of the largest entry ({smi})",
+              flush=True)
+        for arch, sm in r["smoke"].items():
+            band = 5e-5 if arch == JAMBA else 1e-5
+            check(sm["logits"] <= band and sm["caches"] <= band,
+                  f"phase Q1 {arch} at tp = 2: logits {sm['logits']}, "
+                  f"caches {sm['caches']} off the CPU's (band {band})")
+            print(f"phase Q1 rank {q1.index(r)} {sm['name']} at tp = 2 "
+                  f"({sm['heads']} q heads): card against CPU, logits "
+                  f"{sm['logits']:.2g}, caches {sm['caches']:.2g} of the "
+                  f"largest entry (band {band}); CPU {sm['cpu_s']:.1f} s, "
+                  f"card {sm['card_s']:.1f} s", flush=True)
+    out["Q1"] = q1
+    for r in q2:
+        rows = r["rows"]
+        check(rows == [2 * (r["rank"] // 2), 2 * (r["rank"] // 2) + 1],
+              f"phase Q2 rank {r['rank']} rows {rows}")
+        check(r["tokens"] == [r["whole"][b] for b in rows], f"phase Q2 rank "
+              f"{r['rank']}: the launcher's rows {r['tokens']} against the "
+              f"whole batch's {r['whole']}")
+        check(r["shard"] == [4, r["rank"]], f"phase Q2 shard {r['shard']}")
+        check(max(r["errs"]) <= 1e-4, f"phase Q2 rank {r['rank']}: the "
+              f"long-context decode off the full forward by {r['errs']}")
+        check(not any(r["launches"].values()), f"phase Q2 launched kernels: "
+              f"{r['launches']}")
+        print(f"phase Q2 rank {r['rank']} (data {r['rank'] // 2}, model "
+              f"{r['rank'] % 2}): the launcher at --tp 2 served rows {rows} "
+              f"as the model group's whole batch; long context (llama3.2-1b "
+              f"at full width, 4 layers, d = {r['lc_d']} a rank, float32, "
+              f"cache shard {r['shard'][1]} of 4, "
+              f"{r['cache_bytes'] / 2**20:.2f} MiB): prefill of 4096 "
+              f"{r['prefill_ms']:.1f} ms, decode steps ms "
+              f"{[round(t, 2) for t in r['step_ms']]}, against the full "
+              f"forward {max(r['errs']):.3g} of the largest logit (band "
+              f"1e-4) ({smi})", flush=True)
+    out["Q2"] = q2
+    return out
+
+
 def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
     """Phase P: tensor parallelism, each run a subprocess while this
     process holds no large tensor on the card.  P1: qwen3-0.6b whole
@@ -3023,7 +3423,8 @@ def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
             "--bucket", str(BS_B), "--optim", "adamw", "--lr", "1e-4",
             "--update-at", "1", "--time-stages", "--steps", "3",
             "--device", "cuda:0", "--backend", "gloo"]
-    recs = _child_runs("P", "--rank-run", "P1", argv, 4)
+    # phase Q2 rides the same four ranks after P1 (``serve_grid``)
+    recs, out["Q2"] = _runs("P", "P1-Q2", [argv, ["--serve-grid"]], 4)
     for r in recs:
         check(r["d"] == D_P and r["layers"] == 28,
               f"phase P1 rank {r['rank']}: d {r['d']}, {r['layers']} layers")
@@ -3060,7 +3461,11 @@ def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
           f"rank; each model rank's data ranks bit-equal after every step",
           flush=True)
     out["P1"] = recs
-    f32 = p2 = _child_runs("P", "--tp-check", "f32-p2", ["f32", "p2"], 2)
+    # phase Q1 rides the same pair of ranks (``serve``), reported by phase_q
+    f32 = p2 = _child_runs("P", "--tp-check", "f32-p2-q1",
+                           ["f32", "p2", "serve"], 2)
+    out["Q1"] = [r.pop("serve") for r in f32]
+    out["Q1_wall_s"] = f32[0]["wall_s"]
     for r in f32:
         rel = abs(r["loss2"] - r["loss1"]) / abs(r["loss1"])
         check(rel <= 1e-5, f"phase P1f rank {r['rank']}: loss tp=2 "
@@ -3438,8 +3843,13 @@ def main() -> None:
     lap("phase O")
     # ---- phase P: tensor parallelism, in subprocesses ----
     phase_pp = phase_p(smi, ops, ref, lv, shapes)
+    q1, q2 = phase_pp.pop("Q1"), phase_pp.pop("Q2")
     print(json.dumps({"phase_p": phase_pp}), flush=True)
-    lap("phase P")
+    lap("phase P (with phase Q's runs)")
+    # ---- phase Q: serving at tp > 1 (its runs rode phase P's children) ----
+    phase_qq = phase_q(smi, q1, q2, phase_k["cache_bytes"])
+    print(json.dumps({"phase_q": phase_qq}), flush=True)
+    lap("phase Q")
     counts_p = [r["launches"] for r in phase_pp["P1"]] + [
         c["launches"] for r in phase_pp["P2"]
         for c in r["configs"].values()]

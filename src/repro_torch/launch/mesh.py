@@ -16,8 +16,10 @@ through gloo (``--device cuda:0 --backend gloo``).
 ``init_grid`` lays the world out as the reference's ``make_local_mesh``
 lays its devices out on ``jax.make_mesh((dp, tp), ("data", "model"))``:
 rank r is at (data r // tp, model r % tp).  It returns the model group
-(a ``TPCtx`` for the model's collectives) and a transport over the data
-group (for the quantized wire).
+(a ``TPCtx`` for the model's collectives), a transport over the data
+group (for the quantized wire) and a ``TPCtx`` over the data group too
+(serving's caches split the batch, or a long context, over it), the
+counterparts of the reference's ``mesh_axes``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,15 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", 0))
 
 
+def refuse_group_flags(backend: str | None, tp: int) -> None:
+    """A launcher's check when torchrun did not start it: ``--backend``
+    and ``--tp`` > 1 need a process group."""
+    for flag, given in (("--backend", backend), ("--tp", tp > 1)):
+        if given:
+            raise ValueError(f"{flag} needs a process group: start the "
+                             "launcher with torch.distributed.run")
+
+
 def init_process_group(backend: str | None = None, device="cuda", *,
                        init_method: str = "env://"
                        ) -> tuple[torch.device, ProcessGroupTransport]:
@@ -46,7 +57,9 @@ def init_process_group(backend: str | None = None, device="cuda", *,
     ``device`` ``cuda`` means ``cuda:LOCAL_RANK``.  Returns (this
     process's device, the group's transport).  A CUDA device must exist;
     the group's first collective runs here, so a group that cannot form
-    raises now rather than mid-step.
+    raises now rather than mid-step.  A process that is in the world
+    already (a script that drives several launches in one process) keeps
+    its group, which must be of ``backend``.
     """
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -62,9 +75,13 @@ def init_process_group(backend: str | None = None, device="cuda", *,
         if not torch.cuda.is_available():
             raise RuntimeError(f"no CUDA device for {device}")
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method,
-                            rank=int(os.environ["RANK"]),
-                            world_size=int(os.environ["WORLD_SIZE"]))
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method=init_method,
+                                rank=int(os.environ["RANK"]),
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    elif dist.get_backend() != backend:
+        raise ValueError(f"this process is in a {dist.get_backend()} "
+                         f"group, not a {backend} one")
     probe = torch.ones(1, device=device)
     dist.all_reduce(probe)
     if int(probe.item()) != dist.get_world_size():
@@ -78,6 +95,7 @@ class Grid(NamedTuple):
     transport: ProcessGroupTransport   # over this rank's data group
     tp_ctx: TPCtx                      # over this rank's model group
     dp: int
+    data_ctx: TPCtx                    # over this rank's data group
 
 
 def _probe(group, device, size: int, what: str) -> None:
@@ -116,4 +134,4 @@ def init_grid(tp: int, backend: str | None = None, device="cuda", *,
     _probe(model_group, device, tp, "model")
     _probe(data_group, device, dp, "data")
     return Grid(device, ProcessGroupTransport(data_group),
-                TPCtx.over(model_group), dp)
+                TPCtx.over(model_group), dp, TPCtx.over(data_group))

@@ -173,19 +173,16 @@ def _group(args: argparse.Namespace):
     model group's context), else the stacked workers' on ``--device``."""
     world = mesh.world_size()
     if not world:
-        for flag, given in (("--backend", args.backend),
-                            ("--tp", args.tp > 1)):
-            if given:
-                raise ValueError(f"{flag} needs a process group: start "
-                                 "the launcher with torch.distributed.run")
+        mesh.refuse_group_flags(args.backend, args.tp)
         return torch.device(args.device), None, args.workers, None
     if args.tp == 1:
         device, transport = mesh.init_process_group(args.backend,
                                                     args.device)
         dp, tp_ctx = world, None
     else:
-        device, transport, tp_ctx, dp = mesh.init_grid(
-            args.tp, args.backend, args.device)
+        grid = mesh.init_grid(args.tp, args.backend, args.device)
+        device, transport, tp_ctx, dp = (grid.device, grid.transport,
+                                         grid.tp_ctx, grid.dp)
     if args.workers not in (1, dp):
         ranks = "ranks" if tp_ctx is None else "data ranks"
         raise ValueError(f"--workers {args.workers} under {dp} {ranks}: a "

@@ -16,8 +16,20 @@ At tp > 1 (``ctx``) the query heads are padded to a multiple of tp and
 sharded over the model group, the small kv projection is replicated, and
 each local q head reads the kv head of its *global* index; the padding
 heads' outputs are masked to zero, and the row-parallel output
-projection is psum'd.  Serving's caches at tp > 1 are sequence-sharded in
-the reference, which the port does not run yet.
+projection is psum'd.
+
+Serving's caches are sequence-sharded, as the reference's: the ring of C
+slots (rounded up to a multiple of ``cache_shards``) is cut into
+``cache_shards`` runs of C_local slots, and shard ``slot // C_local``
+holds a token, the shards numbered over the groups of ``seq_ctxs`` (the
+model group; for batch-1 long context the data group, then the model
+group).  A decode step all-gathers the one-token q over the model group,
+so that every rank scores every (padded) head against its own sequence
+shard; the running max and the softmax sums of the shards are combined
+with ``pmax`` and ``psum`` over each group in turn, the token's own key
+is folded in once, and each rank keeps its own heads for the
+row-parallel output projection.  At tp = 1 with one shard nothing is
+gathered or reduced.
 """
 from __future__ import annotations
 
@@ -26,7 +38,8 @@ import itertools
 import torch
 
 from .config import CHUNKED, SLIDING, ModelConfig
-from .layers import TP1, TPCtx, head_mask, make_dims, rms_norm, rope
+from .layers import (TP1, TPCtx, head_mask, make_dims, pad_to, rms_norm,
+                     rope, shard_of, tp_all_gather)
 
 NEG_INF = -1e30
 MAX_Q_BLOCKS = 32
@@ -107,25 +120,47 @@ def _expand_kv(t: torch.Tensor, num_heads: int) -> torch.Tensor:
         B, S, num_heads, hd)
 
 
-def _expand_kv_local(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx
-                     ) -> torch.Tensor:
-    """(B, S, KV, hd) -> (B, S, heads_local, hd) at tp > 1: local q head
-    h reads kv head min(g // (H // KV), KV - 1), g = rank * heads_local +
-    h its global index (the reference's ``_expand_kv``).  Consecutive
-    heads share a kv head, so the copy is a concatenation of expanded
-    runs, whose backward sums each run (no scatter)."""
-    dims = make_dims(cfg, ctx.tp)
+def _kv_index(cfg: ModelConfig, first: int, count: int) -> list[int]:
+    """The kv head of each of ``count`` q heads from global head
+    ``first``: min(g // (H // KV), KV - 1), the padding heads past H on
+    the last kv head (the reference's ``_expand_kv`` and
+    ``_expand_kv_all_heads``)."""
     ratio = max(1, cfg.num_heads // cfg.num_kv_heads)
-    idx = [min((ctx.tp_rank() * dims.heads_local + h) // ratio,
-               dims.n_kv_heads - 1) for h in range(dims.heads_local)]
+    return [min((first + h) // ratio, cfg.num_kv_heads - 1)
+            for h in range(count)]
+
+
+def _take_heads(t: torch.Tensor, idx: list[int]) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, len(idx), hd), head h holding kv head
+    idx[h].  Consecutive heads share a kv head, so the copy is a
+    concatenation of expanded runs, whose backward sums each run (no
+    scatter)."""
     B, S, _, hd = t.shape
     return torch.cat([t[:, :, j:j + 1].expand(B, S, len(list(run)), hd)
                       for j, run in itertools.groupby(idx)], dim=2)
 
 
+def _expand_kv_local(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx
+                     ) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, heads_local, hd) at tp > 1: local q head
+    h reads the kv head of its *global* index rank * heads_local + h."""
+    hl = make_dims(cfg, ctx.tp).heads_local
+    return _take_heads(t, _kv_index(cfg, ctx.tp_rank() * hl, hl))
+
+
 def _expand(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx) -> torch.Tensor:
     return (_expand_kv(t, cfg.num_heads) if ctx.tp == 1
             else _expand_kv_local(t, cfg, ctx))
+
+
+def _expand_all(t: torch.Tensor, cfg: ModelConfig, ctx: TPCtx
+                ) -> torch.Tensor:
+    """(B, S, KV, hd) -> one kv head for each of the model's *global*
+    q heads, padded to a multiple of tp (the reference's
+    ``_expand_kv_all_heads``)."""
+    if ctx.tp == 1:
+        return _expand_kv(t, cfg.num_heads)
+    return _take_heads(t, _kv_index(cfg, 0, make_dims(cfg, ctx.tp).n_heads))
 
 
 def _combine_heads(cfg: ModelConfig, p: dict[str, torch.Tensor],
@@ -166,31 +201,41 @@ def _project_qkv(cfg: ModelConfig, p: dict[str, torch.Tensor],
     return q, k, v
 
 
-def cache_spec(cfg: ModelConfig, kind: str, max_len: int) -> int:
-    """Slots C of one attention layer's decode cache: the window or the
-    chunk where ``kind`` limits what a token sees, else ``max_len``; a
-    token at position t lives in slot t % C."""
+def cache_spec(cfg: ModelConfig, kind: str, max_len: int, shards: int = 1
+               ) -> tuple[int, int]:
+    """(C, C_local): the slots of one attention layer's decode cache and
+    of each of its ``shards`` sequence shards.  C is the window or the
+    chunk where ``kind`` limits what a token sees, else ``max_len``,
+    rounded up to a multiple of ``shards`` (which changes the ring's
+    modulus, as in the reference); a token at position t lives in slot
+    t % C, on shard slot // C_local."""
     if kind == SLIDING:
-        return min(cfg.window, max_len)
-    if kind == CHUNKED:
-        return min(cfg.chunk, max_len)
-    return max_len
+        C = min(cfg.window, max_len)
+    elif kind == CHUNKED:
+        C = min(cfg.chunk, max_len)
+    else:
+        C = max_len
+    C = pad_to(C, shards)
+    return C, C // shards
 
 
 def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, kind: str, *, return_cache: bool = False,
                  max_len: int = 0, q_block: int = 512, kv_block: int = 512,
-                 ctx: TPCtx = TP1):
+                 ctx: TPCtx = TP1, cache_shards: int = 1, seq_ctxs=()):
     """x: (B, S, d) -> (B, S, d).  ``p`` holds the layer's attention
     leaves in x's dtype (``wq``, ``wk``, ``wv``, ``wo``, and ``bq``,
     ``bk``, ``bv`` with qkv bias, ``q_norm``, ``k_norm`` with qk-norm);
-    ``kind`` is the slot's attention kind.
+    ``kind`` is the slot's attention kind.  ``ctx`` at tp > 1 shards the
+    q heads.
 
-    With ``return_cache`` it returns (y, (k, v)): the decode cache of
-    ``cache_spec(cfg, kind, max_len or S)`` slots, (B, C, KV, hd) in k's
-    dtype, holding the last min(C, S) tokens' k (after RoPE) and v at
-    slot t % C, the others zero: ``attn_decode``'s ring addressing.
-    ``ctx`` at tp > 1 shards the q heads."""
+    With ``return_cache`` it returns (y, (k, v)): this rank's shard of
+    the decode cache, ``cache_spec(cfg, kind, max_len or S,
+    cache_shards)``'s C_local slots, (B, C_local, KV, hd) in k's dtype.
+    Of the last min(C, S) tokens, each goes to slot t % C of the ring and
+    so to shard (t % C) // C_local; this rank's shard (``shard_of(
+    seq_ctxs)``) keeps its own tokens' k (after RoPE) and v, the other
+    slots zero: ``attn_decode``'s ring addressing."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     q, k, v = _project_qkv(cfg, p, x, x, torch.arange(S, device=x.device))
@@ -218,44 +263,65 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     y = _combine_heads(cfg, p, out, ctx)
     if not return_cache:
         return y
-    C = cache_spec(cfg, kind, max_len or S)
-    keep = min(C, S)
-    slot = torch.arange(S - keep, S, device=x.device) % C
-    kk = k.new_zeros((B, C) + k.shape[2:])
-    vv = v.new_zeros((B, C) + v.shape[2:])
-    kk[:, slot] = k[:, S - keep:]
-    vv[:, slot] = v[:, S - keep:]
+    C, C_local = cache_spec(cfg, kind, max_len or S, cache_shards)
+    t = torch.arange(S - min(C, S), S)                  # the kept tokens
+    slot = t % C
+    mine = slot // C_local == shard_of(seq_ctxs)[1]     # host-side: no sync
+    src, dst = t[mine].to(x.device), (slot[mine] % C_local).to(x.device)
+    kk = k.new_zeros((B, C_local) + k.shape[2:])
+    vv = v.new_zeros((B, C_local) + v.shape[2:])
+    kk[:, dst] = k[:, src]
+    vv[:, dst] = v[:, src]
     return y, (kk, vv)
 
 
 def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
                 x: torch.Tensor, pos: torch.Tensor,
-                cache: tuple[torch.Tensor, torch.Tensor], kind: str
+                cache: tuple[torch.Tensor, torch.Tensor], kind: str, *,
+                ctx: TPCtx = TP1, cache_shards: int = 1, seq_ctxs=()
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token a row against the ring cache: x (B, 1, d), ``pos`` (B,)
-    its absolute positions, ``cache`` (k, v) of (B, C, KV, hd).  Returns
-    (y (B, 1, d), the cache), whose slot pos % C now holds the token's k
-    and v (written in place).
+    its absolute positions, ``cache`` (k, v) of (B, C_local, KV, hd),
+    this rank's shard of a ring of C = C_local * ``cache_shards`` slots
+    sequence-sharded over ``seq_ctxs`` (``attn_forward``'s layout).
+    Returns (y (B, 1, d), the cache), whose slot pos % C now holds the
+    token's k and v on the shard that owns it (written in place).
 
     Each slot's absolute position follows from ``pos`` and the ring; a
     slot is seen when it holds a position in [0, pos) that the window or
     the chunk admits.  The scores and the softmax run in float32, masked
     with the finite ``NEG_INF``, so that an empty cache weighs nothing
     once the token's own key is folded in (exactly once, after the
-    cache's slots)."""
+    cache's slots).  At tp > 1 the q heads are all-gathered over the
+    model group and every rank scores all of them against its shard; the
+    shards' running max is ``pmax``'d and their softmax sums ``psum``'d
+    over each group of ``seq_ctxs`` in turn, and the rank's own heads go
+    through the row-parallel ``wo``."""
     B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.head_dim_
+    hd = cfg.head_dim_
     q, k_new, v_new = _project_qkv(cfg, p, x, x, pos[:, None])
+    if ctx.tp > 1:
+        q = torch.cat(list(tp_all_gather(ctx, q)), dim=2)       # all heads
     k_cache, v_cache = cache
-    C = k_cache.shape[1]
+    C_local = k_cache.shape[1]
+    C = C_local * cache_shards
+    shard = shard_of(seq_ctxs)[1]
     rows = torch.arange(B, device=x.device)
     slot = (pos % C).long()
-    k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+    local = slot % C_local
+    k_in = k_new[:, 0].to(k_cache.dtype)
+    v_in = v_new[:, 0].to(v_cache.dtype)
+    if cache_shards > 1 or shard:       # only the owner shard keeps it
+        mine = (slot // C_local == shard)[:, None, None]
+        k_in = torch.where(mine, k_in, k_cache[rows, local])
+        v_in = torch.where(mine, v_in, v_cache[rows, local])
+    k_cache[rows, local] = k_in
+    v_cache[rows, local] = v_in
 
-    delta = (pos % C)[:, None] - torch.arange(C, device=x.device)
+    gslot = shard * C_local + torch.arange(C_local, device=x.device)
+    delta = (pos % C)[:, None] - gslot
     delta = torch.where(delta < 0, delta + C, delta)
-    slot_pos = pos[:, None] - delta                              # (B, C)
+    slot_pos = pos[:, None] - delta                          # (B, C_local)
     now = pos[:, None]
     valid = (slot_pos >= 0) & (slot_pos <= now)
     if kind == SLIDING:
@@ -264,16 +330,21 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
         valid &= slot_pos >= (now // cfg.chunk) * cfg.chunk
     valid &= slot_pos != now
 
-    qs = q.float() * hd ** -0.5                                  # (B,1,H,hd)
-    ke, ve = _expand_kv(k_cache, H), _expand_kv(v_cache, H)      # (B,C,H,hd)
+    qs = q.float() * hd ** -0.5                              # (B,1,H,hd)
+    ke, ve = _expand_all(k_cache, cfg, ctx), _expand_all(v_cache, cfg, ctx)
     s = torch.einsum("bqhd,bchd->bhqc", qs, ke.float())
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    m = s.amax(dim=-1)                                           # (B,H,1)
+    m = s.amax(dim=-1)                                       # (B,H,1)
+    for c in seq_ctxs:
+        m = c.pmax(m)
     ps = torch.exp(s - m[..., None])
     l = ps.sum(dim=-1)
     acc = torch.einsum("bhqc,bchd->bhqd", ps, ve.float())
+    for c in seq_ctxs:
+        l, acc = c.psum(l), c.psum(acc)
     # the new token's own key and value, always visible to itself
-    ke_new, ve_new = _expand_kv(k_new, H), _expand_kv(v_new, H)
+    ke_new, ve_new = _expand_all(k_new, cfg, ctx), _expand_all(v_new, cfg,
+                                                               ctx)
     s_new = torch.einsum("bqhd,bqhd->bhq", qs, ke_new.float())
     m2 = torch.maximum(m, s_new)
     corr = torch.exp(m - m2)
@@ -282,8 +353,10 @@ def attn_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
     acc2 = (acc * corr[..., None]
             + pn[..., None] * ve_new.float().transpose(1, 2))
     out = (acc2 / torch.clamp(l2, min=1e-30)[..., None]).transpose(1, 2)
-    y = out.reshape(B, 1, H * hd).to(x.dtype) @ p["wo"]
-    return y, (k_cache, v_cache)
+    if ctx.tp > 1:          # back to this rank's heads
+        hl = make_dims(cfg, ctx.tp).heads_local
+        out = out[:, :, ctx.tp_rank() * hl:(ctx.tp_rank() + 1) * hl]
+    return _combine_heads(cfg, p, out.to(x.dtype), ctx), (k_cache, v_cache)
 
 
 def cross_attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],

@@ -43,19 +43,25 @@ _GROUPS: dict[str, object] = {}
 
 
 class TPStats:
-    """Counts of the model group's collectives issued in this process:
-    calls, bytes (the input's), and with ``timed`` set the milliseconds
+    """Counts of the collectives that ``TPCtx`` groups issue in this
+    process: the all-reduces (``calls``, ``bytes`` of their inputs,
+    ``ms``) and the all-gathers (``gather_calls``, ``gather_bytes`` of
+    each rank's part, ``gather_ms``); with ``timed`` set the milliseconds
     on the host clock around each (after synchronising the device, so
     that a collective's time is its own)."""
 
     calls = 0
     bytes = 0
     ms = 0.0
+    gather_calls = 0
+    gather_bytes = 0
+    gather_ms = 0.0
     timed = False
 
     @classmethod
     def reset(cls) -> None:
         cls.calls, cls.bytes, cls.ms = 0, 0, 0.0
+        cls.gather_calls, cls.gather_bytes, cls.gather_ms = 0, 0, 0.0
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -103,7 +109,9 @@ class PsumTP(torch.autograd.Function):
 class TPCtx(NamedTuple):
     """The tensor-parallel context threaded through the model code: the
     model group (registered under ``group``), its size ``tp``, this
-    process's rank in it, and the compute dtype."""
+    process's rank in it, and the compute dtype.  Serving's long-context
+    cache layout also names the data group by one (``Model(data_ctx=)``),
+    whose ``tp`` is then that group's size."""
 
     tp: int = 1
     rank: int = 0
@@ -137,17 +145,44 @@ class TPCtx(NamedTuple):
         return x if self.tp == 1 else tp_all_reduce(x.detach(), self.group,
                                                     "max")
 
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The element-wise sum over the group, outside autograd (serving's
+        softmax sums over the sequence shards)."""
+        return x if self.tp == 1 else tp_all_reduce(x.detach(), self.group,
+                                                    "sum")
+
 
 TP1 = TPCtx()
 
 
+def shard_of(ctxs) -> tuple[int, int]:
+    """(shards, this rank's shard) of a dim split over the groups of
+    ``ctxs`` in order, the first outermost: the reference's ``shard_id =
+    shard_id * axis_size(ax) + axis_index(ax)`` over ``seq_shard_axes``
+    (on ``launch.mesh.init_grid``'s grid, over (data, model), the world
+    rank)."""
+    n, i = 1, 0
+    for c in ctxs:
+        n, i = n * c.tp, i * c.tp + c.rank
+    return n, i
+
+
 def tp_all_gather(ctx: TPCtx, x: torch.Tensor) -> torch.Tensor:
-    """x from every rank of the model group -> (tp, ...) in rank order
-    (outside autograd; for checkpoints)."""
+    """x from every rank of the group -> (tp, ...) in rank order (outside
+    autograd: checkpoints, serving's q and logits, gathered caches)."""
     if ctx.tp == 1:
         return x[None]
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.tp)]
-    dist.all_gather(parts, x.contiguous(), group=ctx.process_group)
+    TPStats.gather_calls += 1
+    TPStats.gather_bytes += x.numel() * x.element_size()
+    if TPStats.timed:
+        _sync(x)
+        t0 = time.perf_counter()
+    dist.all_gather(parts, x, group=ctx.process_group)
+    if TPStats.timed:
+        _sync(x)
+        TPStats.gather_ms += (time.perf_counter() - t0) * 1e3
     return torch.stack(parts)
 
 

@@ -18,8 +18,10 @@ elementwise operations over the whole chunk, so a chunk of 64 costs 6
 levels, not 64 steps.  The conv is a sum of shifted products in the
 reference's order of additions (not ``conv1d``, whose depthwise
 backward on the card is not guaranteed deterministic).  Serving's cache
-is the last state and the conv's last width - 1 inputs; a decode step is
-the forward on one token from it (the reference's ``mamba_decode``).
+is the last state and the conv's last width - 1 inputs (at tp > 1 those
+of this rank's channels); a decode step is the forward on one token from
+it (the reference's ``mamba_decode``, its chunk of 1 being a chunk of
+min(``MAMBA_CHUNK``, 1) here).
 
 At tp > 1 the d_inner channels are sharded over the model group (every
 leaf but the out-projection's output side is this rank's channels'), the

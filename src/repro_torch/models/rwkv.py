@@ -16,7 +16,8 @@ the ``exp`` may overflow; the mask then gives 0 in the forward).  The
 decay path mixes the token-shifted input through a LoRA; r, k, v and g
 use a learned static token-shift interpolation.  Serving's prefill
 returns the state after the last chunk, and ``rwkv_decode`` runs the
-recurrence itself, one token at a time.
+recurrence itself, one token at a time (at tp > 1 on this rank's heads'
+state, as serving's caches shard it).
 
 At tp > 1 the heads are sharded over the model group: r, k, v, g and
 their projections, the bonus ``u`` and the group norm are this rank's
@@ -159,27 +160,29 @@ def rwkv_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
 
 def rwkv_decode(cfg: ModelConfig, p: dict[str, torch.Tensor],
                 x: torch.Tensor,
-                cache: tuple[torch.Tensor, torch.Tensor]
+                cache: tuple[torch.Tensor, torch.Tensor], ctx: TPCtx = TP1
                 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token a row: x (B, 1, d), ``cache`` (state (B, H, hd, hd)
-    float32, prev_x (B, 1, d) the token before).  The recurrence itself:
-    o = r S + (r . (u * k)) v, then S <- exp(logw) * S + k^T v.  Returns
-    (y (B, 1, d) float32, (the new state, x))."""
+    float32 of this rank's H heads, prev_x (B, 1, d) the token before).
+    The recurrence itself: o = r S + (r . (u * k)) v, then S <- exp(logw)
+    * S + k^T v.  Returns (y (B, 1, d) float32, (the new state, x)).
+    ``ctx`` at tp > 1 shards the heads, as ``rwkv_forward``'s."""
     B = x.shape[0]
-    H, hd = rwkv_dims(cfg)
+    H, hd = rwkv_dims(cfg, ctx.tp)
     state, prev_x = cache
     xf, xs = x[:, 0], prev_x[:, 0]
     r = (_mix(xf, xs, p["mu_r"]) @ p["proj_r"]).reshape(B, H, hd)
     k = (_mix(xf, xs, p["mu_k"]) @ p["proj_k"]).reshape(B, H, hd)
     v = (_mix(xf, xs, p["mu_v"]) @ p["proj_v"]).reshape(B, H, hd)
     g = _mix(xf, xs, p["mu_g"]) @ p["proj_g"]
-    logw = _decay_log(p, _mix(xf, xs, p["mu_w"])).reshape(B, H, hd)
+    logw = _decay_log(p, _mix(xf, xs, p["mu_w"]), ctx, H * hd).reshape(
+        B, H, hd)
     u = p["u"].reshape(H, hd).float()
     r32, k32, v32 = r.float(), k.float(), v.float()
     o = torch.einsum("bhd,bhde->bhe", r32, state)
     o = o + torch.einsum("bhd,hd,bhd->bh", r32, u, k32)[..., None] * v32
     state = (torch.exp(logw)[..., None] * state
              + torch.einsum("bhd,bhe->bhde", k32, v32))
-    o = _group_rms(o[:, None], p["ln_x"], cfg.norm_eps)        # (B, 1, d)
+    o = _group_rms(o[:, None], p["ln_x"], cfg.norm_eps)        # (B, 1, dl)
     o = o * F.silu(g.float())[:, None].to(o.dtype)
-    return o @ p["wo"].to(o.dtype), (state, x)
+    return ctx.psum_tp(o @ p["wo"].to(o.dtype)), (state, x)

@@ -55,7 +55,14 @@ Serving runs the same layers in another mode (``PREFILL``: the sequence
 forward that also returns each mixer's decode cache; ``DECODE``: one
 token a row against those caches), without autograd.  Caches keep the
 reference's layout: a list with one entry per layer slot, each a tuple
-of tensors stacked over the groups as (num_groups, B, ...).
+of tensors stacked over the groups as (num_groups, B, ...).  A rank
+holds its shard of each (``cache_layout``): attention's ring is
+sequence-sharded over the groups of ``seq_shard_axes`` (the model group;
+for batch-1 long context the data group, then the model group), RWKV6's
+states over the model group by heads and Mamba's by channels, and the
+batch over the data group where the serve launcher splits it.
+``gather_caches`` and ``shard_caches`` move between a rank's caches and
+the global ones (the reference's ``shard_map`` outputs).
 """
 from __future__ import annotations
 
@@ -75,7 +82,8 @@ from .attention import (attn_decode, attn_forward, cache_spec,
                         cross_attn_forward)
 from .config import MAMBA, RWKV, ModelConfig
 from .layers import (TP1, TPCtx, embed_lookup, lm_head_logits, lm_head_loss,
-                     make_dims, rms_norm, swiglu, tp_all_reduce)
+                     make_dims, rms_norm, shard_of, swiglu, tp_all_gather,
+                     tp_all_reduce)
 from .mamba import A_LOG_INIT, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_factor, moe_ffn
 from .rwkv import rwkv_decode, rwkv_dims, rwkv_forward, rwkv_specs
@@ -519,16 +527,19 @@ class DecoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, vision: torch.Tensor | None = None,
                 mode: str = TRAIN, cache: tuple | None = None,
                 pos: torch.Tensor | None = None, max_len: int = 0,
-                weights: dict | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor, tuple | None]:
+                weights: dict | None = None, cache_shards: int = 1,
+                seq_ctxs=()) -> tuple[torch.Tensor, torch.Tensor,
+                                      tuple | None]:
         """x: (B, S, d) -> (x, the MoE aux loss or 0, the mixer's cache or
         None).  ``mode``: ``TRAIN``; ``PREFILL``, which also returns the
         decode cache (attention's of ``max_len`` slots at most); or
         ``DECODE``, one token a row (S = 1) at positions ``pos`` (B,)
-        against ``cache``.  A cross slot runs its cross-attention block
-        only when ``vision`` is given.  ``weights`` (the slot's leaves,
-        nested as ``dist.fsdp.unflatten`` gives them) replaces the layer's
-        own parameters (FSDP's gathered slot)."""
+        against ``cache``.  Attention's cache is this rank's of
+        ``cache_shards`` sequence shards over the groups of ``seq_ctxs``.
+        A cross slot runs its cross-attention block only when ``vision``
+        is given.  ``weights`` (the slot's leaves, nested as
+        ``dist.fsdp.unflatten`` gives them) replaces the layer's own
+        parameters (FSDP's gathered slot)."""
         cfg, cd, ctx = self.cfg, x.dtype, self.ctx
         w = self._own_weights() if weights is None else weights
 
@@ -538,19 +549,21 @@ class DecoderLayer(nn.Module):
         mixer = block("mixer")
         h = rms_norm(x, w["norm1"].to(cd), cfg.norm_eps)
         prefill = mode == PREFILL
+        shards = dict(cache_shards=cache_shards, seq_ctxs=seq_ctxs)
         if self.kind == RWKV:
-            out = (rwkv_decode(cfg, mixer, h, cache) if mode == DECODE else
-                   rwkv_forward(cfg, mixer, h, return_state=prefill,
-                                ctx=ctx))
+            out = (rwkv_decode(cfg, mixer, h, cache, ctx) if mode == DECODE
+                   else rwkv_forward(cfg, mixer, h, return_state=prefill,
+                                     ctx=ctx))
         elif self.kind == MAMBA:        # decode: the forward on one token
             out = mamba_forward(cfg, mixer, h, cache=cache,
                                 return_state=mode != TRAIN, ctx=ctx)
         elif mode == DECODE:
-            out = attn_decode(cfg, mixer, h, pos, cache, self.attn_kind)
+            out = attn_decode(cfg, mixer, h, pos, cache, self.attn_kind,
+                              ctx=ctx, **shards)
         else:
             out = attn_forward(cfg, mixer, h, self.attn_kind,
                                return_cache=prefill, max_len=max_len,
-                               ctx=ctx)
+                               ctx=ctx, **shards)
         mix, cache = (out, None) if mode == TRAIN else out
         x = x + mix.to(cd)
         if self.has_cross and vision is not None:
@@ -590,8 +603,14 @@ class Model(nn.Module):
     flat holds that rank's shards (``param_layout(cfg, tp)``), drawn per
     rank but for the replicated leaves, and the forward issues the
     group's collectives.  Under FSDP each model rank shards its own flat
-    over the data-parallel ``transport``.  Serving at tp > 1 is not
-    ported (its caches are sequence-sharded in the reference).
+    over the data-parallel ``transport``.
+
+    Serving's attention caches are sequence-sharded over the groups of
+    ``seq_shard_axes``, "model" (``tp_ctx``'s group) and "data"
+    (``data_ctx``'s, a ``TPCtx`` over this rank's data group, which
+    ``launch.mesh.init_grid`` gives); the reference's default is
+    ("model",), and ("data", "model") shards a batch-1 long-context cache
+    over every rank of the grid.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0,
@@ -599,7 +618,8 @@ class Model(nn.Module):
                  transport: StackedTransport | None = None,
                  fsdp_scheme: QuantScheme | None = None,
                  fsdp_sync: str = "quantized", fsdp_codec=None,
-                 tp_ctx: TPCtx | None = None):
+                 tp_ctx: TPCtx | None = None, data_ctx: TPCtx | None = None,
+                 seq_shard_axes: tuple[str, ...] = ("model",)):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat {remat!r}; known: {REMAT_MODES}")
@@ -613,6 +633,10 @@ class Model(nn.Module):
         self.ctx = tp_ctx._replace(compute_dtype=self.compute_dtype)
         self.tp = self.ctx.tp
         self.dims = make_dims(cfg, self.tp)
+        # the groups a cache dim may be split over, by the reference's axis
+        self.groups = {"model": self.ctx, "data": data_ctx or TP1}
+        self.seq_shard_axes = tuple(seq_shard_axes)
+        self.seq_ctxs = tuple(self.groups[ax] for ax in self.seq_shard_axes)
         flat, lv = init_flat(param_layout(cfg, self.tp),
                              getattr(torch, cfg.param_dtype), device, seed,
                              None if self.tp == 1 else self.ctx.rank)
@@ -833,80 +857,179 @@ class Model(nn.Module):
                           ctx=self.ctx, vocab=self.cfg.vocab_size)
         return ce + aux / max(self.cfg.num_layers, 1)
 
-    def _serving(self) -> None:
-        if self.tp > 1:
-            raise NotImplementedError(
-                "serving at tp > 1 needs sequence-sharded caches, which "
-                "the port does not run yet")
-
     @torch.inference_mode()
     def prefill(self, ids: torch.Tensor, vision: torch.Tensor | None = None,
-                *, max_len: int) -> tuple[torch.Tensor, list]:
+                *, max_len: int, cache_shards: int = 1
+                ) -> tuple[torch.Tensor, list]:
         """Serving's prefill of a (B, S) prompt: (the last position's
         float32 logits (B, V), the caches for decode steps up to position
-        ``max_len`` - 1), the caches laid out as ``init_cache``'s."""
-        self._serving()
+        ``max_len`` - 1), the caches laid out as ``init_cache``'s: this
+        rank's shards, attention's of ``cache_shards`` (the reference's
+        default of 1 keeps the whole ring on shard 0)."""
         cd, G = self.compute_dtype, self.cfg.group_size
-        x = F.embedding(ids, self._embed_weights(None))
+        x = embed_lookup(self.ctx, self._embed_weights(None), ids)
         per_layer = []
         for i, layer in enumerate(self.layers):
             x, _, c = layer(x, vision, PREFILL, max_len=max_len,
-                            weights=self._slot_weights(i, None))
+                            weights=self._slot_weights(i, None),
+                            cache_shards=cache_shards,
+                            seq_ctxs=self.seq_ctxs)
             per_layer.append(c)
         x = rms_norm(x[:, -1], self.final_norm.to(cd), self.cfg.norm_eps)
         caches = [tuple(torch.stack([c[i] for c in per_layer[s::G]])
                         for i in range(2)) for s in range(G)]
-        return lm_head_logits(self._lm_weights(None), x), caches
+        return self._logits(x), caches
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return lm_head_logits(self._lm_weights(None), x, self.ctx,
+                              self.cfg.vocab_size)
 
     @torch.inference_mode()
     def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list,
-               vision: torch.Tensor | None = None
+               vision: torch.Tensor | None = None,
+               cache_shards: int | None = None
                ) -> tuple[torch.Tensor, list]:
         """One decode step: ``token`` (B,) ids at absolute positions
         ``pos`` (B,) against ``caches`` (``prefill``'s or ``init_cache``'s
-        layout), which are updated in place.  Returns (float32 logits
-        (B, V), the caches)."""
-        self._serving()
+        layout), which are updated in place.  ``cache_shards`` defaults to
+        the product of the ``seq_shard_axes`` groups' sizes, as the
+        reference's.  Returns (float32 logits (B, V), the caches)."""
         cd, G = self.compute_dtype, self.cfg.group_size
-        x = F.embedding(token[:, None], self._embed_weights(None))
+        if cache_shards is None:
+            cache_shards = shard_of(self.seq_ctxs)[0]
+        x = embed_lookup(self.ctx, self._embed_weights(None), token[:, None])
         for i, layer in enumerate(self.layers):
             g, s = divmod(i, G)
             views = tuple(t[g] for t in caches[s])
             x, _, new = layer(x, vision, DECODE, views, pos,
-                              weights=self._slot_weights(i, None))
+                              weights=self._slot_weights(i, None),
+                              cache_shards=cache_shards,
+                              seq_ctxs=self.seq_ctxs)
             for view, t in zip(views, new):
                 if t is not view:
                     view.copy_(t)
         x = rms_norm(x[:, 0], self.final_norm.to(cd), self.cfg.norm_eps)
-        return lm_head_logits(self._lm_weights(None), x), caches
+        return self._logits(x), caches
 
-    def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype | None = None) -> list:
-        """Zero caches of ``batch`` rows, one entry per layer slot, each
-        stacked (num_groups, batch, ...): attention (k, v) of (C, KV, hd)
-        in ``dtype`` (C from ``cache_spec``); RWKV (state (H, hd, hd)
-        float32, prev_x (1, d) in ``dtype``); Mamba (h (d_inner, d_state)
-        float32, conv (width - 1, d_inner) in ``dtype``).  ``dtype``
-        defaults to the compute dtype, that of ``prefill``'s caches."""
+    def _cache_shapes(self, batch: int, max_len: int, cache_shards: int,
+                      dtype: torch.dtype | None, local: bool) -> list:
+        """((shape, dtype), (shape, dtype)) of each slot's cache leaves,
+        one rank's (``local``) or the global ones."""
         cfg = self.cfg
         dtype = dtype or self.compute_dtype
+        tp = self.tp if local else 1
         lead = (cfg.num_groups, batch)
-        dev = self.flat.device
         out = []
         for slot in range(cfg.group_size):
             kind = cfg.slot_kind(slot)
             if kind == RWKV:
-                H, hd = rwkv_dims(cfg)
+                H, hd = rwkv_dims(cfg, tp)
                 shapes = (((H, hd, hd), torch.float32),
                           ((1, cfg.d_model), dtype))
             elif kind == MAMBA:
-                di = mamba_dims(cfg)
+                di = mamba_dims(cfg, tp)
                 shapes = (((di, cfg.mamba_d_state), torch.float32),
                           ((cfg.mamba_conv - 1, di), dtype))
             else:
-                C = cache_spec(cfg, cfg.slot_attn_kind(slot), max_len)
-                kv = (C, cfg.num_kv_heads, cfg.head_dim_)
+                C, C_local = cache_spec(cfg, cfg.slot_attn_kind(slot),
+                                        max_len, cache_shards)
+                kv = (C_local if local else C, cfg.num_kv_heads,
+                      cfg.head_dim_)
                 shapes = (kv, dtype), (kv, dtype)
-            out.append(tuple(torch.zeros(lead + shape, dtype=dt, device=dev)
-                             for shape, dt in shapes))
+            out.append(tuple((lead + shape, dt) for shape, dt in shapes))
         return out
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype | None = None, *,
+                   cache_shards: int = 1) -> list:
+        """Zero caches of ``batch`` rows in this rank's shapes, one entry
+        per layer slot, each stacked (num_groups, batch, ...): attention
+        (k, v) of (C_local, KV, hd) in ``dtype`` (``cache_spec`` with
+        ``cache_shards``); RWKV (state (H, hd, hd) float32 of this rank's
+        heads, prev_x (1, d) in ``dtype``); Mamba (h (d_inner, d_state)
+        float32, conv (width - 1, d_inner) in ``dtype``, this rank's
+        channels).  ``dtype`` defaults to the compute dtype, that of
+        ``prefill``'s caches."""
+        dev = self.flat.device
+        return [tuple(torch.zeros(shape, dtype=dt, device=dev)
+                      for shape, dt in leaves)
+                for leaves in self._cache_shapes(batch, max_len,
+                                                 cache_shards, dtype, True)]
+
+    def global_cache_shapes(self, batch_global: int, max_len: int,
+                            cache_shards: int,
+                            dtype: torch.dtype | None = None) -> list:
+        """((shape, dtype), (shape, dtype)) of each slot's cache leaves in
+        the global layout (the reference's ``global_cache_struct``): every
+        rank's shards of ``cache_layout`` put together."""
+        return self._cache_shapes(batch_global, max_len, cache_shards, dtype,
+                                  False)
+
+    def cache_layout(self, batch_axes: tuple[str, ...] = ()) -> list:
+        """Which dims of each cache leaf are split over which groups (the
+        reference's ``cache_pspecs``): ``cache_layout(cfg, batch_axes,
+        seq_shard_axes)``."""
+        return cache_layout(self.cfg, batch_axes, self.seq_shard_axes)
+
+    def _part(self, axes: tuple[str, ...]) -> tuple[int, int]:
+        return shard_of([self.groups[ax] for ax in axes])
+
+    def shard_caches(self, caches: list, batch_axes: tuple[str, ...] = ()
+                     ) -> list:
+        """Global caches -> this rank's (copies), cut as ``cache_layout
+        (batch_axes)`` says."""
+        return [tuple(narrow_to(t, spec, self._part).clone()
+                      for t, spec in zip(leaves, specs))
+                for leaves, specs in zip(caches,
+                                         self.cache_layout(batch_axes))]
+
+    def gather_caches(self, caches: list, batch_axes: tuple[str, ...] = ()
+                      ) -> list:
+        """This rank's caches -> the global ones, on every rank (a
+        collective: every rank of the groups calls it).  A dim split over
+        several groups is gathered over the last (innermost) first."""
+        out = []
+        for leaves, specs in zip(caches, self.cache_layout(batch_axes)):
+            whole = []
+            for t, spec in zip(leaves, specs):
+                for dim, axes in enumerate(spec):
+                    for ax in reversed(axes or ()):
+                        t = torch.cat(list(tp_all_gather(self.groups[ax], t)),
+                                      dim=dim)
+                whole.append(t)
+            out.append(tuple(whole))
+        return out
+
+
+def cache_layout(cfg: ModelConfig, batch_axes: tuple[str, ...] = (),
+                 seq_shard_axes: tuple[str, ...] = ("model",)) -> list:
+    """For each layer slot, for each of its two cache leaves, a spec of
+    its leading dims (as a ``PartitionSpec``): None, or the groups ("data",
+    "model") that split the dim, the first outermost.  Attention's k and
+    v: (None, batch, seq_shard_axes); RWKV6's state (None, batch,
+    ("model",)) and prev_x (None, batch); Mamba's h (None, batch,
+    ("model",)) and conv (None, batch, None, ("model",))."""
+    b = tuple(batch_axes) or None
+    seq = tuple(seq_shard_axes)
+    out = []
+    for slot in range(cfg.group_size):
+        kind = cfg.slot_kind(slot)
+        if kind == RWKV:
+            out.append(((None, b, ("model",)), (None, b)))
+        elif kind == MAMBA:
+            out.append(((None, b, ("model",)), (None, b, None, ("model",))))
+        else:
+            out.append(((None, b, seq), (None, b, seq)))
+    return out
+
+
+def narrow_to(t: torch.Tensor, spec: tuple, part) -> torch.Tensor:
+    """The block of ``t`` (a global leaf) that ``spec`` (``cache_layout``'s)
+    gives one rank: ``part(axes)`` -> (blocks, this rank's block) of a dim
+    split over ``axes``.  A view."""
+    for dim, axes in enumerate(spec):
+        if axes:
+            n, i = part(tuple(axes))
+            size = t.shape[dim] // n
+            t = t.narrow(dim, i * size, size)
+    return t

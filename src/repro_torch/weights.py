@@ -9,10 +9,11 @@ tp axis: ``embed`` and ``lm_head`` (tp, ...), a slot's leaves
 needed: the tree is plain nested dicts and lists of arrays.  numpy has
 no bfloat16, so a bfloat16 tree comes as float32 arrays (which hold
 bfloat16 values exactly) and is cast to the config's ``param_dtype``.
-``from_jax_caches`` does the same for the decode caches that the
-reference's ``Model.prefill`` returns, and ``from_jax_fsdp_params`` for
-the reference's FSDP tree (``param_mode="fsdp"``), which goes to the
-port's global FSDP flat (``Model.load_flat`` of an FSDP model keeps its
+``from_jax_caches`` cuts the decode caches that the reference's
+``Model.prefill`` and ``decode`` return (global, as its ``shard_map``
+gives them) to one rank's.  ``from_jax_fsdp_params`` takes the
+reference's FSDP tree (``param_mode="fsdp"``) to the port's global FSDP
+flat (``Model.load_flat`` of an FSDP model keeps its
 local shards).  ``dp_to_fsdp``/``fsdp_to_dp`` convert between the two
 flats, so that one set of weights drives both modes.
 """
@@ -54,18 +55,27 @@ def from_jax_params(np_tree, cfg: ModelConfig, tp: int = 1, rank: int = 0
     return flat.to(getattr(torch, cfg.param_dtype))
 
 
-def from_jax_caches(np_caches, cfg: ModelConfig) -> list:
-    """The reference's decode caches (one (a, b) pair of numpy arrays a
-    layer slot, stacked over the groups; tp = 1, one cache shard) -> the
-    port's CPU tensors in the same layout: attention's k and v, RWKV6's
-    prev_x and Mamba's conv inputs in the compute dtype, the recurrent
-    states float32."""
+def from_jax_caches(np_caches, cfg: ModelConfig, tp: int = 1, rank: int = 0,
+                    cache_shards: int = 1, shard_id: int = 0) -> list:
+    """The reference's decode caches in its global layout (one (a, b) pair
+    of numpy arrays a layer slot, stacked over the groups: the outputs of
+    its ``shard_map``-ped prefill or decode under ``cache_pspecs``) ->
+    the CPU tensors one rank holds (``transformer.cache_layout``):
+    attention's k and v cut to sequence shard ``shard_id`` of
+    ``cache_shards``, RWKV6's state and Mamba's state and conv inputs to
+    model rank ``rank``'s heads or channels of ``tp``; attention's k and
+    v, RWKV6's prev_x and Mamba's conv inputs in the compute dtype, the
+    recurrent states float32.  The batch is not cut."""
     cd = getattr(torch, cfg.compute_dtype)
+    layout = transformer.cache_layout(cfg, seq_shard_axes=("seq",))
+    part = {("model",): (tp, rank), ("seq",): (cache_shards, shard_id)}.get
     out = []
-    for slot, (a, b) in enumerate(np_caches):
+    for slot, (leaves, specs) in enumerate(zip(np_caches, layout)):
         first = cd if cfg.slot_kind(slot) == ATTN else torch.float32
-        out.append(tuple(torch.from_numpy(np.array(t, np.float32)).to(dt)
-                         for t, dt in ((a, first), (b, cd))))
+        out.append(tuple(
+            transformer.narrow_to(torch.from_numpy(np.array(t, np.float32)),
+                                  spec, part).to(dt).contiguous()
+            for t, spec, dt in zip(leaves, specs, (first, cd))))
     return out
 
 

@@ -20,7 +20,14 @@ Not a test module (pytest collects ``test_*.py`` only).  ``MODE``:
   levels after every step, and the uniforms of every data rank;
 * ``fsdp``: the same with ``param_mode="fsdp"`` (jax 0.9.0 removed
   ``batching.BatchTracer``, which ``repro.dist.fsdp._check_not_vmapped``
-  reads, so this process replaces that guard with a no-op).
+  reads, so this process replaces that guard with a no-op);
+* ``serve``: the reference's ``Model.prefill`` and ``decode`` under
+  ``jax.shard_map`` over a (dp, tp) mesh, its caches sequence-sharded
+  over ``seq_shard_axes`` in ``cache_shards`` shards and gathered by the
+  out-specs of ``cache_pspecs``: the weights, the prefill's logits and
+  global caches, and those after each of 3 teacher-forced decode steps
+  (one jitted program each for prefill and decode); with ``split`` only
+  the tp = 1 weights and the same cut in tp (``split_params``).
 """
 import dataclasses
 import json
@@ -309,13 +316,70 @@ def mode_train(cases, fsdp=False):
     return res
 
 
+def mode_serve(cases):
+    res = {}
+    for c in cases:
+        cfg, tp, dp, name = config(c), c["tp"], c.get("dp", 1), c["name"]
+        seq = tuple(c.get("seq", ("model",)))
+        rng = np.random.default_rng(c.get("seed", 0))
+        B, S, max_len, shards = c["batch"], c["prompt"], c["max_len"], \
+            c["shards"]
+        ids = rng.integers(0, cfg.vocab_size, (B, S + 3)).astype(np.int32)
+        res[f"{name}.ids"] = ids
+        if c.get("split"):
+            _, p1 = init_params(cfg, 1)
+            keep_tree(res, f"{name}.w1", p1)
+            keep_tree(res, f"{name}.w", split_params(p1, tp))
+            continue
+        model, params = init_params(cfg, tp, dp, data_axes=("data",),
+                                    seq_shard_axes=seq)
+        keep_tree(res, f"{name}.w", params)
+        vision = None
+        if cfg.cross_attn_every:
+            vision = rng.standard_normal((B, 8, cfg.d_model)).astype(
+                np.float32)
+            res[f"{name}.vision"] = vision
+        pspecs, cspecs = model.param_specs(), model.cache_pspecs(())
+        vspec = None if vision is None else P()
+
+        def smap(f, i, o):
+            return jax.jit(jax.shard_map(f, in_specs=i, out_specs=o,
+                                         check_vma=False))
+
+        def keep(t, logits, caches):
+            res[f"{name}.logits{t}"] = np.asarray(logits)
+            for slot, pair in enumerate(caches):
+                for i, leaf in enumerate(pair):
+                    res[f"{name}.c{t}.{slot}.{i}"] = np.asarray(leaf,
+                                                               np.float32)
+
+        with jax.set_mesh(mesh_of(dp, tp)):
+            pf = smap(lambda p, i, v: model.prefill(
+                p, i, v, max_len=max_len, cache_shards=shards),
+                (pspecs, P(), vspec), (P(), cspecs))
+            df = smap(lambda p, t, pos, cc, v: model.decode(
+                p, t, pos, cc, v, cache_shards=shards),
+                (pspecs, P(), P(), cspecs, vspec), (P(), cspecs))
+            p = jax.tree.map(jnp.asarray, params)
+            v = None if vision is None else jnp.asarray(vision)
+            logits, caches = pf(p, jnp.asarray(ids[:, :S]), v)
+            keep(0, logits, caches)
+            for i in range(3):
+                logits, caches = df(p, jnp.asarray(ids[:, S + i]),
+                                    jnp.full((B,), S + i, jnp.int32),
+                                    caches, v)
+                keep(i + 1, logits, caches)
+    return res
+
+
 def main():
     mode, out, cases = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
     if mode == "fsdp":
         import repro.dist.fsdp as fsdp_lib
         fsdp_lib._check_not_vmapped = lambda shard, axes: None
     run = {"model": mode_model, "prims": mode_prims, "train": mode_train,
-           "fsdp": lambda c: mode_train(c, fsdp=True)}[mode]
+           "fsdp": lambda c: mode_train(c, fsdp=True),
+           "serve": mode_serve}[mode]
     np.savez(out, **run(cases))
     print("REFERENCE_OK")
 

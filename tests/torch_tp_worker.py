@@ -7,7 +7,8 @@ results (``reference.npz``, written by ``tests/torch_tp_reference.py``)
 and the test's cases (``job.pt``), runs the port's side of each case on
 its rank, and saves its results to ``rank<r>.pt``.  ``python
 tests/torch_tp_worker.py launch DIR ARGV...`` runs the training launcher
-under torchrun and saves each rank's flat and history.
+under torchrun and saves each rank's flat and history; ``serve DIR
+ARGV...`` the serving launcher, saving each rank's rows and tokens.
 
 Every process runs on one torch thread: the ranks share the host's
 cores.  Only ``spawn_fsdp`` imports JAX, to replay the reference's keys
@@ -143,6 +144,84 @@ def spawn_model(rank: int, world: int, path: str) -> None:
                 ctx, index = groups[case["tp"]]
                 if case["tp"] == 4 or case["pair"] == index:
                     res[case["name"]] = run(case, ctx, z)
+        torch.save(res, os.path.join(path, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_groups(world: int) -> dict:
+    """The groups of the serving cases: a model group of 2 for each pair
+    of ranks, one of 4, and the (2, 2) grid's data groups {0, 2} and
+    {1, 3} (rank r at data r // 2, model r % 2), each this rank's as a
+    float32 ``TPCtx``."""
+    out = {tp: ctx for tp, (ctx, _) in _groups(world).items()}
+    for m in range(2):
+        g = dist.new_group([m, m + 2])
+        if dist.get_rank() % 2 == m:
+            out["data"] = TPCtx.over(g, torch.float32)
+    return out
+
+
+def _keep(logits, caches) -> dict:
+    return {"logits": logits.clone(),
+            "caches": [tuple(t.clone() for t in c) for c in caches]}
+
+
+def serve_case(case, ctx: TPCtx, data_ctx: TPCtx | None, z) -> dict:
+    """The port's prefill on this rank from the reference's weights, its
+    caches gathered to the global layout, and 3 teacher-forced decode
+    steps started from this rank's cut of the reference's prefill caches
+    (``from_jax_caches``); with ``split`` the tp = 1 weights cut in tp and
+    3 decode steps from the port's own prefill."""
+    cfg, name = config(case), case["name"]
+    seq = tuple(case.get("seq", ("model",)))
+    model = Model(cfg, device="cpu", tp_ctx=ctx, data_ctx=data_ctx,
+                  seq_shard_axes=seq)
+    model.load_flat(weights.from_jax_params(tree_of(z, f"{name}.w"), cfg,
+                                            ctx.tp, ctx.rank))
+    ids = torch.from_numpy(z[f"{name}.ids"]).long()
+    vision = (torch.from_numpy(z[f"{name}.vision"])
+              if f"{name}.vision" in z.files else None)
+    S, shards = case["prompt"], case["shards"]
+    logits, caches = model.prefill(ids[:, :S], vision,
+                                   max_len=case["max_len"],
+                                   cache_shards=shards)
+    out = {"prefill": _keep(logits, caches),
+           "shard": layers.shard_of(model.seq_ctxs)}
+    if case.get("split"):
+        start = caches
+    else:
+        out["gathered"] = model.gather_caches(caches)
+        out["round_trip"] = all(
+            torch.equal(a, b) for x, y in zip(
+                model.shard_caches(out["gathered"]), caches)
+            for a, b in zip(x, y))
+        ref = [(z[f"{name}.c0.{s}.0"], z[f"{name}.c0.{s}.1"])
+               for s in range(cfg.group_size)]
+        start = weights.from_jax_caches(ref, cfg, ctx.tp, ctx.rank, shards,
+                                        out["shard"][1])
+    out["steps"] = []
+    for i in range(3):
+        pos = torch.full((ids.shape[0],), S + i, dtype=torch.int32)
+        logits, start = model.decode(ids[:, S + i], pos, start, vision)
+        out["steps"].append(_keep(logits, start))
+    return out
+
+
+def spawn_serve(rank: int, world: int, path: str) -> None:
+    """The serving cases: a tp = 2 case on the pair of ranks
+    ``case["pair"]``, a tp = 4 case and the (2, 2) grid's on all four."""
+    _join(path, world, rank)
+    try:
+        job = torch.load(os.path.join(path, "job.pt"))
+        z = np.load(os.path.join(path, "serve.npz"))
+        groups = _serve_groups(world)
+        res = {}
+        for case in job["serve"]:
+            tp, dp = case["tp"], case.get("dp", 1)
+            if dp > 1 or tp == 4 or case["pair"] == rank // 2:
+                res[case["name"]] = serve_case(
+                    case, groups[tp], groups["data"] if dp > 1 else None, z)
         torch.save(res, os.path.join(path, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -291,6 +370,21 @@ def launch(out_dir: str, argv: list[str]) -> None:
             dist.destroy_process_group()
 
 
+def launch_serve(out_dir: str, argv: list[str]) -> None:
+    """The serving launcher under torchrun, twice in this process (the
+    second run keeps the group the first joined); each rank saves its
+    rows and both runs' tokens."""
+    from repro_torch.launch import serve
+    try:
+        res = [serve.run(serve.parse_args(argv)) for _ in range(2)]
+        torch.save({"rows": list(res[0]["rows"]), "tokens": res[0]["tokens"],
+                    "again": res[1]["tokens"]},
+                   os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    if sys.argv[1] == "launch":
-        launch(sys.argv[2], sys.argv[3:])
+    {"launch": launch, "serve": launch_serve}[sys.argv[1]](sys.argv[2],
+                                                          sys.argv[3:])
