@@ -234,6 +234,16 @@ Phases, each of which must pass:
      with 4 cache shards, a 4096-token prompt and 8 decode steps against
      the full forward within 1e-4 of the largest logit, prefill and
      decode ms;
+ 15i. phase R, the dry run (no kernel launches; nothing on the card):
+     R2, ``python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape
+     all --mesh single`` as a child (rank 0 of the 16 x 16 layout on the
+     meta device under a fake process group; every record ok), runs
+     while R1 counts phase H's update step and phase K's prefill and one
+     decode step on the meta device (``launch.op_cost``): each meta peak
+     within 10% of the card's peak for that phase less what the card
+     held before it, and H's counted FLOPs over its measured update step
+     as TFLOP/s and as a share of the H100 SXM5's dense bf16 989.4
+     TFLOP/s at 700 W;
  16. last, measurements only: the blockwise attention's forward and
      backward against one ``scaled_dot_product_attention`` call at
      phase B's and phase H's layer shapes (ms, added memory), and a
@@ -284,6 +294,11 @@ P2_BANDS = {"mixtral-8x7b": (1e-6, 1e-5), "llama4-scout-17b-a16e": (1e-6, 1e-5),
             "rwkv6-7b": (1e-6, 1e-5), "jamba-1.5-large-398b": (1e-6, 5e-5),
             "llama-3.2-vision-11b": (1e-6, 1e-5),
             "granite-3-2b": (1e-5, 1e-4)}
+# phase R: the meta device's peaks against the card's, and R2's dry run
+PEAK_BAND = 0.10
+R2_ARGV = ["--arch", "llama3.2-1b", "--shape", "all", "--mesh", "single"]
+# the bytes on the card when a phase's peak counter was reset
+PEAK_BASE: dict[str, int] = {}
 # a register-resident entry point; groups: threads, elements a thread
 REG_ENTRY = re.compile(r"_regsI.*Li(\d+)ELi(\d+)EEEv")
 
@@ -1294,6 +1309,7 @@ def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
     import torch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    PEAK_BASE[name] = torch.cuda.memory_allocated()
     cuda.reset_launches()
     res = train.run(train.parse_args(argv))
     counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
@@ -2195,6 +2211,8 @@ def serve_phase(configs, Model, cuda, name, arch, batch, prompt, gen,
                                    make_prefill_step)
     cfg = configs.get_config(arch)
     torch.cuda.empty_cache()
+    # what the card held before the phase: its peak counts the rest
+    PEAK_BASE[name] = torch.cuda.memory_allocated()
     cuda.reset_launches()
     model = Model(cfg, device="cuda", seed=0)
     check(model.d == d, f"phase {name} d = {model.d}, expected {d}")
@@ -3500,6 +3518,138 @@ def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
     return out
 
 
+def meta_h():
+    """Phase H's update step on the meta device, built as the launcher
+    builds it (qwen3-0.6b whole, 4 stacked workers x 2 x 1024, ALQ 3-bit,
+    buckets of 8192, AdamW, the level update at step 1): its
+    ``op_cost.Cost``, the peak over building and the step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.schemes import QuantScheme
+    from repro_torch.launch import op_cost
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+    with op_cost.CostMode() as mode:
+        model = Model(configs.get_config("qwen3-0.6b"), device="meta",
+                      seed=0)
+        check(model.d == D_H, f"phase R1: H's meta d = {model.d}")
+        trainer = Trainer(model, TrainConfig(
+            scheme=QuantScheme(name="alq", bits=3, bucket_size=BS_B),
+            optim=OptimConfig(name="adamw", lr=1e-4, weight_decay=0.0),
+            update_milestones=(1,), update_every=0, workers=M_B), seed=0)
+        trainer.step = 1                 # the card's update step
+        toks = torch.empty((2 * M_B, 1025), dtype=torch.int64,
+                           device="meta")
+        built = mode.cost.peak_bytes
+        mode.reset()
+        trainer.step_tensors({"ids": toks[:, :-1], "labels": toks[:, 1:]})
+    return mode.cost, max(built, mode.cost.peak_bytes)
+
+
+def meta_k():
+    """Phase K on the meta device: llama3.2-1b whole, the 8 x 1028 ids,
+    the prefill of 8 x 1024 and one decode step (max_len 1088): the
+    ``op_cost.Cost`` of the two steps and the peak over building and
+    both."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import op_cost
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve import (ServeConfig, make_decode_step,
+                                   make_prefill_step)
+    with op_cost.CostMode() as mode:
+        model = Model(configs.get_config("llama3.2-1b"), device="meta",
+                      seed=0)
+        check(model.d == D_K, f"phase R1: K's meta d = {model.d}")
+        ids = torch.empty((8, 1024 + 4), dtype=torch.int64, device="meta")
+        scfg = ServeConfig(max_len=1024 + 64)
+        prefill = make_prefill_step(model, scfg)
+        decode = make_decode_step(model, scfg)
+        built = mode.cost.peak_bytes
+        mode.reset()
+        tok, caches = prefill(ids[:, :1024])
+        decode(tok, torch.empty((8,), dtype=torch.int32, device="meta"),
+               caches)
+    return mode.cost, max(built, mode.cost.peak_bytes)
+
+
+def phase_r(smi: str, card: dict) -> dict:
+    """Phase R, the dry run's check on the card's host.  R2 starts first,
+    as a child (``python -m repro_torch.launch.dryrun`` at llama3.2-1b's
+    three shapes on the single-pod layout; every record must be ok) and
+    runs while R1 counts phase H's update step and phase K's prefill and
+    decode step on the meta device (``launch.op_cost``).  Each meta peak
+    must lie within 10% of the peak the card measured for that phase in
+    this run, less what the card held before the phase (``PEAK_BASE``);
+    H's counted FLOPs over its measured update step give a rate and a
+    share of the dense bf16 peak.  ``card``: H's and K's peaks (bytes)
+    and H's update step (ms)."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    out_dir = os.path.join(ROOT, "build", "phase_r")
+    if os.path.isdir(out_dir):          # records of an earlier run
+        for fn in os.listdir(out_dir):
+            os.remove(os.path.join(out_dir, fn))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *R2_ARGV,
+         "--out", out_dir],
+        cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=(
+            os.path.join(ROOT, "src") + os.pathsep
+            + os.environ.get("PYTHONPATH", ""))),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        cost_h, peak_h = meta_h()
+        cost_k, peak_k = meta_k()
+        r1_s = time.perf_counter() - t0
+        out, _ = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    rec = {"card": smi, "r1_s": r1_s}
+    for name, cost, meta_peak in (("H", cost_h, peak_h),
+                                  ("K", cost_k, peak_k)):
+        own = card[name]["peak_bytes"] - PEAK_BASE[name]
+        off = meta_peak / own - 1.0
+        print(f"phase R1: {name} on the meta device: peak "
+              f"{meta_peak / 2**30:.3f} GiB against the card's "
+              f"{own / 2**30:.3f} GiB ({card[name]['peak_bytes'] / 2**30:.3f}"
+              f" less {PEAK_BASE[name] / 2**30:.3f} held before), "
+              f"{100 * off:+.2f}%; {cost.flops:.6g} FLOPs "
+              f"({cost.matmul_flops:.6g} in matmuls), "
+              f"{cost.hbm_bytes:.6g} HBM bytes", flush=True)
+        check(abs(off) <= PEAK_BAND, f"phase R1: {name}'s meta peak "
+              f"{meta_peak} is {100 * off:+.2f}% off the card's {own}")
+        rec[name] = {"meta_peak_bytes": meta_peak, "card_peak_bytes": own,
+                     "base_bytes": PEAK_BASE[name], "off": off,
+                     "flops": cost.flops, "matmul_flops": cost.matmul_flops,
+                     "hbm_bytes": cost.hbm_bytes}
+    rate = cost_h.flops / (card["H"]["step_ms"] / 1e3)
+    rec["H"].update(step_ms=card["H"]["step_ms"], flops_per_s=rate,
+                    bf16_share=rate / PEAK_FLOPS)
+    print(f"phase R1: H's update step, {cost_h.flops:.6g} counted FLOPs "
+          f"in {card['H']['step_ms']:.1f} ms: {rate / 1e12:.2f} TFLOP/s, "
+          f"{100 * rate / PEAK_FLOPS:.2f}% of the dense bf16 "
+          f"{PEAK_FLOPS / 1e12:.1f} TFLOP/s of an H100 SXM5 at 700 W "
+          f"(data sheet); card: {smi}; counted on the host in {r1_s:.1f} s",
+          flush=True)
+    print(out.strip(), flush=True)
+    check(child.returncode == 0, f"phase R2: the dry run exited "
+          f"{child.returncode}")
+    recs = []
+    for fn in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, fn)) as f:
+            recs.append(json.load(f))
+    check(len(recs) == 3 and all(r["ok"] for r in recs),
+          f"phase R2: records {[(r['shape'], r['ok']) for r in recs]}")
+    rec["R2"] = [{k: r[k] for k in ("shape", "microbatches", "run_s",
+                                    "bytes_per_device", "roofline",
+                                    "model_flops_per_device",
+                                    "useful_flops_ratio")} for r in recs]
+    return rec
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3774,6 +3924,9 @@ def main() -> None:
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
                    "loss": h["loss"]} for h in res["history"]]}}),
         flush=True)
+    # for phase R: the peak and the update step (step 1)
+    card_r = {"H": {"peak_bytes": peak,
+                    "step_ms": res["history"][1]["step_ms"]}}
     del res
 
     # ---- phase I: rwkv6-7b at full width, 2 of 32 layers ----
@@ -3850,6 +4003,11 @@ def main() -> None:
     phase_qq = phase_q(smi, q1, q2, phase_k["cache_bytes"])
     print(json.dumps({"phase_q": phase_qq}), flush=True)
     lap("phase Q")
+    # ---- phase R: the dry run on the meta device, against H and K ----
+    card_r["K"] = {"peak_bytes": phase_k["peak_bytes"]}
+    phase_rr = phase_r(smi, card_r)
+    print(json.dumps({"phase_r": phase_rr}), flush=True)
+    lap("phase R")
     counts_p = [r["launches"] for r in phase_pp["P1"]] + [
         c["launches"] for r in phase_pp["P2"]
         for c in r["configs"].values()]

@@ -69,6 +69,8 @@ class SeedKey:
         return SeedKey(int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1)))
 
     def uniform(self, shape, device) -> torch.Tensor:
+        if torch.device(device).type == "meta":   # shapes only, no generator
+            return torch.empty(shape, dtype=torch.float32, device=device)
         gen = torch.Generator(device=device).manual_seed(self.seed)
         return torch.rand(shape, generator=gen, dtype=torch.float32,
                           device=device)

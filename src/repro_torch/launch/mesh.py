@@ -20,16 +20,27 @@ rank r is at (data r // tp, model r % tp).  It returns the model group
 group (for the quantized wire) and a ``TPCtx`` over the data group too
 (serving's caches split the batch, or a long context, over it), the
 counterparts of the reference's ``mesh_axes``.
+
+``make_production_mesh`` and ``mesh_axes`` give the reference's two
+production layouts, (16, 16) over ("data", "model") and (2, 16, 16) over
+("pod", "data", "model"), as shapes only.  ``fake_grid`` makes one rank
+of such a layout, on the ``meta`` device under torch's ``"fake"``
+process-group backend, whose collectives move nothing: the dry run
+(``launch.dryrun``) runs the rank's step there without a cluster.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
 import os
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.dist.transport import ProcessGroupTransport
+from repro_torch.models import layers
 from repro_torch.models.layers import TPCtx
 
 BACKENDS = ("nccl", "gloo")
@@ -98,6 +109,23 @@ class Grid(NamedTuple):
     data_ctx: TPCtx                    # over this rank's data group
 
 
+def _grid_groups(world: int, tp: int, rank: int):
+    """Every model group and every data group of a world of dp * tp ranks
+    in ``init_grid``'s order (rank r at (r // tp, r % tp)), each made by
+    every rank as ``new_group`` requires; returns rank's two."""
+    dp = world // tp
+    model_group = data_group = None
+    for d in range(dp):
+        g = dist.new_group([d * tp + m for m in range(tp)])
+        if d == rank // tp:
+            model_group = g
+    for m in range(tp):
+        g = dist.new_group([d * tp + m for d in range(dp)])
+        if m == rank % tp:
+            data_group = g
+    return model_group, data_group
+
+
 def _probe(group, device, size: int, what: str) -> None:
     probe = torch.ones(1, device=device)
     dist.all_reduce(probe, group=group)
@@ -121,17 +149,73 @@ def init_grid(tp: int, backend: str | None = None, device="cuda", *,
                          "ranks")
     dp = world // tp
     device, _ = init_process_group(backend, device, init_method=init_method)
-    rank = dist.get_rank()
-    model_group = data_group = None
-    for d in range(dp):
-        g = dist.new_group([d * tp + m for m in range(tp)])
-        if d == rank // tp:
-            model_group = g
-    for m in range(tp):
-        g = dist.new_group([d * tp + m for d in range(dp)])
-        if m == rank % tp:
-            data_group = g
+    model_group, data_group = _grid_groups(world, tp, dist.get_rank())
     _probe(model_group, device, tp, "model")
     _probe(data_group, device, dp, "data")
     return Grid(device, ProcessGroupTransport(data_group),
                 TPCtx.over(model_group), dp, TPCtx.over(data_group))
+
+
+# ---- the production layouts (shapes only) ---------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A production layout: the extent of each named axis (the reference's
+    ``Mesh.shape``), the data axes first and "model" last."""
+
+    shape: dict
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Layout:
+    """The reference's production layout: 16 x 16 a pod over ("data",
+    "model"), and 2 pods over ("pod", "data", "model")."""
+    if multi_pod:
+        return Layout({"pod": 2, "data": 16, "model": 16})
+    return Layout({"data": 16, "model": 16})
+
+
+def mesh_axes(mesh) -> tuple[tuple[str, ...], str]:
+    """(data_axes, model_axis) of a layout built above."""
+    data_axes = tuple(n for n in mesh.axis_names if n in ("pod", "data"))
+    return data_axes, "model"
+
+
+@contextlib.contextmanager
+def fake_grid(mesh, rank: int = 0) -> Iterator[Grid]:
+    """One rank (``rank``, 0 by default) of ``mesh`` on the meta device:
+    a ``"fake"`` process group of the layout's world size, its model and
+    data groups made as ``init_grid`` makes them (the data group spans
+    every data axis, pod and data), yielded as a ``Grid``.  Every
+    collective on it completes at once and moves nothing.  On exit every
+    group it made is destroyed and the model groups' names are
+    forgotten: nothing stays set up.  A process already in a group
+    cannot make one."""
+    # torch's fake backend lives in its testing package: imported here
+    # alone, where it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_grid: this process is in a process group "
+                           "already")
+    world = mesh.size
+    tp = mesh.shape[mesh_axes(mesh)[1]]
+    with layers.group_scope():
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=world)
+        try:
+            model_group, data_group = _grid_groups(world, tp, rank)
+            yield Grid(torch.device("meta"),
+                       ProcessGroupTransport(data_group),
+                       TPCtx.over(model_group), world // tp,
+                       TPCtx.over(data_group))
+        finally:
+            dist.destroy_process_group()

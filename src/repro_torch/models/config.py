@@ -152,3 +152,54 @@ class ModelConfig:
         if k:
             return FULL if slot % k == k - 1 else self.attn_kind
         return self.attn_kind
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch hold a 500k context (long_500k eligibility)?
+        RWKV6's state is O(1) and the hybrid's attention slots are
+        sequence-sharded; otherwise sliding or chunked attention."""
+        if self.layer_pattern in (RWKV, MAMBA_HYBRID):
+            return True
+        return self.attn_kind in (SLIDING, CHUNKED)
+
+    def param_count(self) -> int:
+        """Approximate global parameter count, unpadded and without norms
+        or biases, exactly as the reference counts it (RWKV6's time-mix
+        as 6 d^2)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        n_q = self.num_heads * hd
+        n_kv = self.num_kv_heads * hd
+        total = 2 * V * d  # embed + lm head
+        for slot in range(self.group_size):
+            kind = self.slot_kind(slot)
+            if kind == ATTN:
+                mix = d * n_q + 2 * d * n_kv + n_q * d
+            elif kind == RWKV:
+                mix = 6 * d * d
+            else:
+                di = self.mamba_expand * d
+                mix = (2 * d * di + di * d
+                       + di * (2 * self.mamba_d_state + self.dt_rank))
+            if self.slot_has_cross(slot):
+                mix += d * n_q + 2 * d * n_kv + n_q * d
+            if self.slot_is_moe(slot):
+                ffp = self.num_experts * 3 * d * ff
+                if self.shared_expert:
+                    ffp += 3 * d * ff
+            else:
+                ffp = 3 * d * ff
+            total += (mix + ffp) * self.num_groups
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches: an MoE slot's top_k experts (and
+        its shared expert) only."""
+        total = self.param_count()
+        if not self.moe:
+            return total
+        unused = (self.num_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        for slot in range(self.group_size):
+            if self.slot_is_moe(slot):
+                total -= unused * self.num_groups
+        return total

@@ -27,9 +27,10 @@ At tp = 1 ``psum_tp`` is the identity and no collective is issued.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
-from typing import NamedTuple
+from typing import Iterator, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -40,6 +41,18 @@ from .config import ModelConfig
 
 # the model groups the collectives run over, by the name a TPCtx holds
 _GROUPS: dict[str, object] = {}
+
+
+@contextlib.contextmanager
+def group_scope() -> Iterator[None]:
+    """Forgets on exit the groups that ``TPCtx.over`` registered inside,
+    for a caller that destroys those process groups on its way out."""
+    before = set(_GROUPS)
+    try:
+        yield
+    finally:
+        for name in set(_GROUPS) - before:
+            del _GROUPS[name]
 
 
 class TPStats:

@@ -447,14 +447,19 @@ def init_flat(layout, dtype: torch.dtype, device, seed: int,
     seeded ``rank_seed(seed, rank)``."""
     flat = torch.empty(sum(math.prod(shape) for _, shape, _ in layout),
                        dtype=dtype, device=device)
-    gen = torch.Generator(device=flat.device).manual_seed(seed)
-    own = gen if rank is None else torch.Generator(
-        device=flat.device).manual_seed(rank_seed(seed, rank))
+    # the meta device holds shapes and no generator: nothing is drawn
+    draw = flat.device.type != "meta"
+    if draw:
+        gen = torch.Generator(device=flat.device).manual_seed(seed)
+        own = gen if rank is None else torch.Generator(
+            device=flat.device).manual_seed(rank_seed(seed, rank))
     views, off = {}, 0
     for name, shape, code in layout:
         n = math.prod(shape)
         view = flat[off:off + n].view(shape)
-        if code == _ONES:
+        if not draw:
+            pass
+        elif code == _ONES:
             view.fill_(1.0)
         elif code == A_LOG_INIT:
             view.copy_(torch.log(torch.arange(

@@ -166,7 +166,10 @@ class Trainer:
         self.transport = transport
         self.local = transport.local_workers()
         dev = model.flat.device
-        if model.tp > 1:
+        # the meta device (the dry run) carries shapes: no host reads, and
+        # no generators (a draw there allocates its shape)
+        meta = dev.type == "meta"
+        if model.tp > 1 and not meta:
             # every worker's forward issues the model group's collectives,
             # so the group's ranks must run as many forwards, in one order
             held = tp_all_gather(model.ctx, torch.tensor(
@@ -191,6 +194,7 @@ class Trainer:
                                                        model.d, dev)
         self.step = 0
         self.generators = [
+            None if meta else
             torch.Generator(device=dev).manual_seed(worker_seed(seed, w))
             for w in self.local]
 
@@ -207,6 +211,17 @@ class Trainer:
         losses, per-worker wire metrics are worker 0's, the residual norm
         the workers' mean.
         """
+        return {k: v.item() if isinstance(v, torch.Tensor) else v
+                for k, v in self.step_tensors(batch, u=u, u2=u2,
+                                              clock=clock).items()}
+
+    def step_tensors(self, batch: dict[str, torch.Tensor], *,
+                     u: Sequence[torch.Tensor] | None = None,
+                     u2: Sequence[torch.Tensor] | None = None,
+                     clock=NO_CLOCK) -> dict:
+        """``train_step``'s device work: its metrics, those the step
+        computes as 0-d tensors on the model's device, unread.  The dry
+        run (``launch.dryrun``) drives it on the meta device."""
         tcfg, model = self.tcfg, self.model
         rows, k, mb = self._split(batch)
         if self.fsdp:
@@ -253,17 +268,17 @@ class Trainer:
         # every worker's loss, in worker order, in every process
         losses = self.transport.all_gather(losses)
         return {
-            "loss": losses.mean().item(),
-            "grad_norm": grad_norm.item(),
+            "loss": losses.mean(),
+            "grad_norm": grad_norm,
             "comm_bits_per_coord": m.comm_bits_per_coord,
-            "quant_error": m.quant_error[0].item(),
+            "quant_error": m.quant_error[0],
             "reduce_bits_per_coord": m.reduce_bits_per_coord,
             "broadcast_bits_per_coord": m.broadcast_bits_per_coord,
-            "entropy_bits_per_coord": float(m.entropy_bits_per_coord),
-            "residual_norm": m.residual_norm.mean().item(),
+            "entropy_bits_per_coord": m.entropy_bits_per_coord,
+            "residual_norm": m.residual_norm.mean(),
             "kept_fraction": m.kept_fraction,
-            "corrupt_fraction": m.corrupt_fraction[0].item(),
-            "excluded_workers": m.excluded_workers[0].item(),
+            "corrupt_fraction": m.corrupt_fraction[0],
+            "excluded_workers": m.excluded_workers[0],
         }
 
     def _split(self, batch) -> tuple[int, int, int]:
@@ -365,14 +380,13 @@ class Trainer:
         wire = (model.fsdp_codec.nominal_bits_per_coord if quantized
                 else 32.0)
         return {
-            "loss": losses.mean().item(),
-            "grad_norm": grad_norm.item(),
+            "loss": losses.mean(),
+            "grad_norm": grad_norm,
             "comm_bits_per_coord": 2.0 * wire if quantized else 32.0,
             "quant_error": 0.0,
             "reduce_bits_per_coord": wire,
             "broadcast_bits_per_coord": wire if quantized else 0.0,
-            "entropy_bits_per_coord": float(
-                self.scheme_state.entropy_bits),
+            "entropy_bits_per_coord": self.scheme_state.entropy_bits,
             "residual_norm": 0.0,
             "kept_fraction": 1.0,
             "corrupt_fraction": 0.0,

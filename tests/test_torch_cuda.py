@@ -42,6 +42,9 @@ against float64; a sliding window's ring overwritten by decode steps,
 against the card's own full forward.  These share ``chip_smoke.py``'s
 serving helpers.
 
+The dry run: the meta device's peak of a SMOKE train step, counted by
+``launch.op_cost``, within 10% of the card's for the same step.
+
 Tensor parallelism: ``psum_tp`` over an NCCL group of one rank on the
 card is the identity and the model's loss and gradient equal the tp = 1
 path's bit for bit; a model group of two gloo ranks sharing the card
@@ -932,6 +935,48 @@ def test_fsdp_trainer_launches_the_kernels_on_card(dev):
         else:
             assert sum(kcuda.LAUNCHES.values()) == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_meta_peak_of_a_smoke_train_step_matches_the_card(dev):
+    """The dry run's live-bytes count (``launch.op_cost``) of a train
+    step on the meta device against the card's ``max_memory_allocated``
+    for the same step, within 10%: two stacked workers of qwen3-0.6b's
+    SMOKE config, 8 x 1024 tokens, ALQ 3-bit, buckets of 1024, AdamW,
+    the level update.  The card's peak counts from what it held before
+    the trainer was built, after a first step has made cuBLAS's
+    workspaces (held across steps, on no meta device)."""
+    from repro_torch import configs
+    from repro_torch.launch import op_cost
+    from repro_torch.models.transformer import Model
+    from repro_torch.train.optim import OptimConfig
+    from repro_torch.train.train_step import TrainConfig, Trainer
+
+    cfg = configs.get_smoke_config("qwen3-0.6b")
+
+    def step(device):
+        model = Model(cfg, device=device, seed=0)
+        trainer = Trainer(model, TrainConfig(
+            scheme=QuantScheme(name="alq", bits=3, bucket_size=1024),
+            optim=OptimConfig(name="adamw", lr=1e-4),
+            update_milestones=(0,), update_every=0, workers=2), seed=0)
+        toks = torch.zeros((8, 1025), dtype=torch.int64, device=device)
+        trainer.step_tensors({"ids": toks[:, :-1], "labels": toks[:, 1:]})
+
+    step(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(dev)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - base
+    with op_cost.CostMode() as mode:
+        step("meta")
+    meta = mode.cost.peak_bytes
+    print(f"meta peak {meta} B, card peak {card} B, meta/card - 1 = "
+          f"{meta / card - 1.0:+.4%}")
+    assert abs(meta / card - 1.0) <= 0.10, (meta, card)
 
 
 def _spawn_card(path, world, device, backend):

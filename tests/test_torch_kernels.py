@@ -13,6 +13,9 @@ exact, except that a code may differ by one where the reference's
 ``|u - rho| < 1e-5``, i.e. where a last-ulp norm difference moves rho
 across u.
 """
+import inspect
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -190,6 +193,19 @@ def test_ops_take_the_plain_version_for_cpu_tensors_only():
     ops.dequantize_op(codes, norms, lv)
     ops.bucket_stats_op(vt)
     assert dict(kcuda.LAUNCHES) == before  # CPU calls launch nothing
+    # a meta tensor takes the kernel's operator, whose fake gives the
+    # outputs' shapes and dtypes and launches nothing; a CUDA tensor
+    # goes to the launch functions themselves, never through an operator
+    assert all(inspect.isfunction(f) for f in (
+        ops.quantize_cuda, ops.dequantize_cuda, ops.bucket_stats_cuda))
     meta = torch.empty((8, 256), device="meta")
+    codes, norms = ops.quantize_op(meta, meta, lv.to("meta"))
+    assert (codes.device.type, codes.shape, codes.dtype, norms.shape) == (
+        "meta", (8, 256), torch.int8, (8,))
+    assert ops.dequantize_op(codes, norms, lv.to("meta")).dtype == (
+        torch.float32)
+    assert [t.shape for t in ops.bucket_stats_op(meta)] == [(8,)] * 3
+    assert dict(kcuda.LAUNCHES) == before
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.quantize_op(meta, meta, lv.to("meta"))
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")),
+                   "quantize")
