@@ -4,21 +4,27 @@
   python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. set-up: the card's name and power limit; the three CUDA kernels are
-     built with nvcc from ``src/repro_torch/csrc`` (one nvcc each, all at
-     once) into ``build/kernels``; each kernel's build line gives its
-     registers, shared memory and spill bytes (``-Xptxas -v``);
+  1. set-up: the card's name and power limit; the four CUDA kernels
+     (quantize, dequantize and dequantize_mean, bucket_stats) are built
+     with nvcc from the three sources in ``src/repro_torch/csrc`` (one
+     nvcc each, all at once) into ``build/kernels``; each source's build
+     line gives its registers, shared memory and spill bytes (``-Xptxas
+     -v``);
   2. kernel checks: each kernel against its plain PyTorch version on the
      card, at buckets of 1024 and 8192, f32 and bf16 values, l2 and linf
      norms, 3-bit and 8-bit grids, and in every bucket layout (registers
      at 1024 and 8192, shared memory for odd sizes and unaligned
-     pointers, read twice beyond shared memory); then at the shapes
-     phases B-G give them, where each kernel is timed in 3 rounds
-     (median and spread) beside its plain version and its bound (the
-     simulator's: the param server's 8-bit L-inf downlink, a ring hop
-     over 4 workers' chunks, buckets of 512 in shared memory; phase H's
-     91,752 and phase I's 129,163 buckets of 8192), and the top-k
-     selection is timed at full width;
+     pointers, read twice beyond shared memory); dequantize and
+     dequantize_mean as bit patterns; then at the shapes phases B-G give
+     them, where each kernel is timed in 3 rounds (median and spread)
+     beside its plain version and its bound (phase B's: dequantize at the
+     4 streams' int32 and at one stream's int8, its own round trip, and
+     dequantize_mean over the 4 streams' int8, with how many coordinates
+     the decode-then-``mean(0)`` route moves at M = 3; the simulator's:
+     the param server's 8-bit L-inf downlink, a ring hop over 4 workers'
+     chunks, buckets of 512 in shared memory; phase H's 91,752 and phase
+     I's 129,163 buckets of 8192), and the top-k selection is timed at
+     full width;
   3. sync checks on the card against the same calls on the CPU (the
      plain versions), with the same gradients and uniforms, 4 workers:
      all_gather, two_phase without and with integrity words,
@@ -73,18 +79,20 @@ Phases, each of which must pass:
   7. phase B: llama3.2-1b at full width cut to 4 layers, 4 workers of 2
      sequences of 1024 tokens, ALQ 3-bit, buckets of 8192, AdamW, a level
      update at step 1, 5 steps, all_gather: finite loss, time per step and
-     per stage, peak memory, and every kernel launched;
+     per stage, peak memory and the stage that holds it (every phase run
+     through the launcher prints it), and every kernel launched;
   8. phase C: the same model and batch, ``--sync two_phase --compress ef
      --integrity``, 5 steps: finite loss, stage times, peak memory, the
      plan's bits a coordinate (reduce + broadcast), no corrupt bucket on
      the clean wire, and every kernel launched;
   9. phase D: the same model, ``--sync all_gather --compress topk``, 3
      steps: finite loss, kept fraction 1927/8192, stage times (the top-k
-     selection among them), peak memory, every kernel launched;
+     selection among them), peak memory, every kernel launched but
+     dequantize_mean (the sparse codec decodes, then averages);
  10. phase E: phase B with ``--codec entropy``, 3 steps: finite loss,
      measured bits a coordinate above 0 and at most the plan's capacity,
      stage times (the Huffman coding is booked to pack and unpack), peak
-     memory, quantize and dequantize launched;
+     memory, quantize, dequantize and dequantize_mean launched;
  11. phase F: phase B with ``--codec mixed_width --sync two_phase`` (the
      default widths (2, 4): 4- and 16-level grids), 3 steps: finite loss,
      reduce and broadcast bits as planned, 8 group quantizes and 4
@@ -97,7 +105,8 @@ Phases, each of which must pass:
      ``run_scenario``: per step the host-clock time, the stage split
      (grad, stats, drift, topology, optimizer), the bytes, the simulated
      time, agg_err and quant_error; per cell the peak memory and the
-     launches; finite losses, and at step 0 the param server's uplinks
+     launches (the ring's hops requantize: no dequantize_mean); finite
+     losses, and at step 0 the param server's uplinks
      equal to the allreduce's encodes and its and the ring's agg_err
      above the allreduce's;
  12b. phase H: qwen3-0.6b at full width and full depth (28 layers, d =
@@ -130,7 +139,7 @@ Phases, each of which must pass:
      of jamba-1.5-large's slot 0 alone (``mamba-slot``: the Mamba mixer
      and the dense FFN, 1,024,327,680 bf16 parameters) on 2 x 1024
      hidden states, each with a ``torch.profiler`` split;
- 15c. serving (none of the three kernels launches): the serve check,
+ 15c. serving (none of the four kernels launches): the serve check,
      each of the 11 SMOKE configs with trained-like weights (the VLM with
      image embeddings), a prefill of 2 x 128 and 8 teacher-forced decode
      steps on the card against the CPU (logits and caches), twice
@@ -167,7 +176,7 @@ Phases, each of which must pass:
      algorithms, which must agree, and that is reported); per run the
      steady step time (median, spread), the stage split with its
      ``collective`` stage, each rank's peak memory and launches, and every
-     rank launched all three kernels;
+     rank launched all four kernels;
  15e. phase N, rematerialization and the chunked loss at full width:
      llama3.2-1b whole (16 layers, d = 1,498,482,688, V = 128,256), one
      worker's forward and backward of 1 x 4096 tokens under ``remat``
@@ -183,9 +192,9 @@ Phases, each of which must pass:
      8192, AdamW, a level update at step 1, 3 steps, through
      ``Model(param_mode="fsdp")`` and ``Trainer``: 2 gloo ranks sharing
      cuda:0 against the stacked M = 2 FSDP run (losses and every shard's
-     sha256 bit-equal; every rank launches all three kernels: the
-     reduce-scatter's quantize and dequantize, the level update's
-     bucket_stats), then the float32 FSDP run against the DP run
+     sha256 bit-equal; every rank launches the three kernels FSDP
+     runs: the reduce-scatter's quantize and dequantize, the level
+     update's bucket_stats), then the float32 FSDP run against the DP run
      (losses rtol 1e-5, the first step's first moment within 1e-6 of its
      largest entry); per run the steps, stages, peak memory and launches;
      before them the FSDP rounds' kernel shapes ((240, 8192) a layer
@@ -198,7 +207,7 @@ Phases, each of which must pass:
      parameters fingerprinted on the card): the model ranks of each data
      rank report bit-equal losses, each model rank's two data ranks hold
      bit-equal parameters after every step, the losses are finite and
-     every rank launches all three kernels; per rank the steps, stages,
+     every rank launches all four kernels; per rank the steps, stages,
      the model group's all-reduces (calls, bytes, ms), peak memory and
      launches; the kernels at P1's shapes against their plain versions
      before it; P1f (``--tp-check f32``), qwen3-0.6b whole at float32
@@ -211,7 +220,7 @@ Phases, each of which must pass:
      llama-vision (with image embeddings) and granite SMOKE configs on 2
      ranks, card against CPU within the earlier card bands, every kernel
      launched;
- 15h. phase Q, serving at tp > 1 (none of the three kernels launches):
+ 15h. phase Q, serving at tp > 1 (none of the four kernels launches):
      Q1 rides P1f/P2's pair of ranks (``--tp-check ... serve``,
      ``serve_tp``): llama3.2-1b whole at tp = 2 through
      ``make_prefill_step``/``make_decode_step`` with 2 cache shards, phase
@@ -340,6 +349,13 @@ def timed_rounds(fns: dict, reps: int, rounds: int = 3
             for k, v in ts.items()}
 
 
+def f32_bits(x: "torch.Tensor") -> "torch.Tensor":
+    """A float32 tensor's bit patterns (equal only where the values and
+    the signs of zero are)."""
+    import torch
+    return x.contiguous().view(torch.int32)
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -351,7 +367,8 @@ def kernel_grid(ops, ref, lv):
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    worst = {"quantize": 0.0, "dequantize": 0.0, "bucket_stats": 0.0}
+    worst = {"quantize": 0.0, "dequantize": 0.0, "dequantize_mean": 0.0,
+             "bucket_stats": 0.0}
     mismatches = 0
     for bs in (1024, 8192):
         for dt in (torch.float32, torch.bfloat16):
@@ -374,7 +391,15 @@ def kernel_grid(ops, ref, lv):
                     for c in (c1, c1.to(torch.int32), c1.to(torch.int32) * 3):
                         d1 = ops.dequantize_op(c, n1, levels)
                         d2 = ref.dequantize_ref(c, n1, levels)
-                        check(torch.equal(d1, d2), "dequantize not exact")
+                        check(torch.equal(f32_bits(d1), f32_bits(d2)),
+                              "dequantize not bit-equal")
+                        # two streams: these codes and their rows reversed
+                        cm = torch.stack([c, c.flip(0)])
+                        nm = torch.stack([n1, n1.flip(0)])
+                        d1 = ops.dequantize_mean_op(cm, nm, levels)
+                        d2 = ref.dequantize_mean_ref(cm, nm, levels)
+                        check(torch.equal(f32_bits(d1), f32_bits(d2)),
+                              "dequantize_mean not bit-equal")
                     for a, b in zip(ops.bucket_stats_op(vb, norm_type=norm),
                                     ref.bucket_stats_ref(vb, norm)):
                         check(torch.allclose(a, b, rtol=1e-5, atol=1e-7),
@@ -521,7 +546,8 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
                     note=f"({nb}, {BS_B}) f32"))
     del vb, u, vals
 
-    # the decode path: int32 codes of all M workers' streams in one call
+    # dequantize over the 4 streams' int32 codes in one call, as the
+    # decode launched it before dequantize_mean (its earlier records' shape)
     g2 = torch.Generator(device=dev).manual_seed(2)
     c32 = torch.randint(-(L - 1), L, (M_B * nb, BS_B), generator=g2,
                         device=dev, dtype=torch.int32)
@@ -529,12 +555,12 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     got = ops.dequantize_op(c32, n4, levels)
     rows4 = -(-M_B * nb // (chunks * M_B))
     for i in range(0, M_B * nb, rows4):
-        check(torch.equal(got[i:i + rows4],
-                          ref.dequantize_ref(c32[i:i + rows4],
-                                             n4[i:i + rows4], levels)),
-              "dequantize at phase B's shape not exact")
+        check(torch.equal(f32_bits(got[i:i + rows4]),
+                          f32_bits(ref.dequantize_ref(c32[i:i + rows4],
+                                                  n4[i:i + rows4], levels))),
+              "dequantize at phase B's shape not bit-equal")
     del got
-    t = timed_rounds({"one block a bucket":
+    t = timed_rounds({"persistent grid":
                       lambda: ops.dequantize_op(c32, n4, levels)}, 3)
     plain = timed(lambda: [ref.dequantize_ref(c32[i:i + rows4],
                                               n4[i:i + rows4], levels)
@@ -544,11 +570,39 @@ def main_path_kernels(ops, ref, lv, cuda, codec_for_scheme, QuantScheme):
     out.append(dict(name="dequantize",
                     source="src/repro_torch/csrc/dequantize.cu",
                     replaces="src/repro/kernels/dequantize.py:18",
-                    max_abs_err=0.0, timings=t, pick="one block a bucket",
+                    max_abs_err=0.0, timings=t, pick="persistent grid",
                     plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
-                    entry="dequantize_kernelIiE",
+                    entry="dequantize_vecIiE",
                     note=f"({M_B * nb}, {BS_B}) int32"))
     del c32, n4
+
+    # the main path's decode: one dequantize_mean over the 4 streams' int8
+    # codes (zero norms among them, so negative codes give -0 terms)
+    c8, n8 = mean_inputs(M_B, nb, levels, g2)
+    got = ops.dequantize_mean_op(c8, n8, levels)
+    rows16 = -(-nb // 16)
+    parts16 = range(0, nb, rows16)
+    for i in parts16:
+        check(torch.equal(f32_bits(got[i:i + rows16]), f32_bits(
+            ref.dequantize_mean_ref(c8[:, i:i + rows16],
+                                    n8[:, i:i + rows16], levels))),
+              "dequantize_mean at phase B's shape not bit-equal")
+    del got
+    t = timed_rounds({"persistent grid":
+                      lambda: ops.dequantize_mean_op(c8, n8, levels)}, 5)
+    plain = timed(lambda: [ref.dequantize_mean_ref(
+        c8[:, i:i + rows16], n8[:, i:i + rows16], levels)
+        for i in parts16], 1)
+    b, by = bound_ms(mean_bytes(M_B, nb, BS_B), M_B * n * 6)
+    out.append(dict(name="dequantize_mean",
+                    source="src/repro_torch/csrc/dequantize.cu",
+                    replaces="none (src/repro/dist/sync.py:13-17: the "
+                    "reference's decode then transport.mean_workers, fused)",
+                    max_abs_err=0.0, timings=t, pick="persistent grid",
+                    plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None,
+                    entry="mean_vecIaLi0EE",
+                    note=f"({M_B}, {nb}, {BS_B}) int8, the plain mean"))
+    del c8, n8
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     for k in out:
@@ -590,6 +644,72 @@ def chunks(rows, parts=8):
     """Row ranges for the plain versions, to bound their temporaries."""
     step = -(-rows // parts)
     return range(0, rows, step), step
+
+
+def mean_inputs(M, nb, levels, g):
+    """(M, nb, 8192) int8 codes over ``levels`` and (M, nb) norms, every
+    7th bucket's norm 0."""
+    import torch
+    L = levels.numel()
+    codes = torch.randint(-(L - 1), L, (M, nb, BS_B), generator=g,
+                          device=levels.device, dtype=torch.int8)
+    norms = torch.rand(M, nb, generator=g, device=levels.device) + 0.1
+    norms[:, ::7] = 0.0
+    return codes, norms
+
+
+def mean_bytes(M, nb, bs) -> int:
+    """The bytes dequantize_mean must move: M int8 codes and M norms a
+    bucket read, one f32 value a coordinate written (its operations: ~6
+    a term)."""
+    n = nb * bs
+    return M * n + M * nb * 4 + n * 4
+
+
+def decode_shapes(ops, ref, lv, out, nb=NB_B):
+    """The main path's dequantize, a stream's own int8 rows at phase B's
+    nb, timed (record appended to ``out``); then the mean's order at M =
+    3 and 4: how many coordinates today's fused mean (sum, then divide)
+    and the decode-then-``mean(0)`` route it replaced (ATen's CUDA mean
+    multiplies by 1/M) part on.  Returns those counts."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    levels = lv.uniform_levels(3, device=dev)
+    c8, n8 = mean_inputs(1, nb, levels, g)
+    c8, n8 = c8[0], n8[0]
+    got = ops.dequantize_op(c8, n8, levels)
+    parts, rows = chunks(nb, 16)
+    for i in parts:
+        want = ref.dequantize_ref(c8[i:i + rows], n8[i:i + rows], levels)
+        check(torch.equal(f32_bits(got[i:i + rows]), f32_bits(want)),
+              "dequantize of one int8 stream not bit-equal")
+    del got
+    n = nb * BS_B
+    record_shape(out, "main-path shape", "dequantize",
+                 f"({nb}, {BS_B}) int8",
+                 lambda: ops.dequantize_op(c8, n8, levels),
+                 lambda: [ref.dequantize_ref(c8[i:i + rows], n8[i:i + rows],
+                                             levels) for i in parts],
+                 n * 5 + nb * 4, n * 5, 0.0,
+                 "a worker's own round trip from its row of the codes")
+    del c8, n8
+    moved = {}
+    for M in (3, 4):
+        codes, norms = mean_inputs(M, nb, levels, g)
+        old = ops.dequantize_op(codes.view(M * nb, BS_B), norms.view(-1),
+                                levels).view(M, -1).mean(0)
+        new = ops.dequantize_mean_op(codes, norms, levels).view(-1)
+        moved[M] = int((f32_bits(old) != f32_bits(new)).sum())
+        rel = float(((old - new).abs() / new.abs().clamp(min=1e-30)).max())
+        del old, new, codes, norms
+        print(f"mean order at M = {M}, ({nb}, {BS_B}) int8: decode then "
+              f"mean(0) against dequantize_mean (sum, then divide) differ "
+              f"at {moved[M]} of {n} coordinates ({moved[M] / n:.4%}), "
+              f"largest relative difference {rel:.3g}", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return moved
 
 
 def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec,
@@ -1271,7 +1391,9 @@ def phase_g(sim, cuda):
         cell = res["cells"][0]
         check(all(math.isfinite(s["loss"]) for s in cell["steps"]),
               f"phase G {topo}: loss not finite")
-        check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS),
+        # the ring's hops requantize: no fused decode-and-average
+        check(all(counts.get(k, 0) > 0 for k in cuda.KERNELS
+                  if topo != "ring" or k != "dequantize_mean"),
               f"phase G {topo}: launches {counts}")
         for s in cell["steps"]:
             split = ", ".join(f"{k} {v:.1f}" for k, v in s["stage_ms"].items())
@@ -1303,17 +1425,49 @@ def phase_g(sim, cuda):
     return out
 
 
+@contextlib.contextmanager
+def stage_peaks():
+    """While open, every stage clock's mark also books the card's peak
+    since the last mark to that stage (and restarts the peak counter);
+    yields the stage -> peak bytes dict, whose last entry
+    ``"after the last mark"`` holds what came after."""
+    import torch
+    from repro_torch import timing
+    peaks: dict[str, int] = {}
+    mark = timing.StageClock.mark
+
+    def book(stage):
+        p = torch.cuda.max_memory_allocated()
+        peaks[stage] = max(peaks.get(stage, 0), p)
+        torch.cuda.reset_peak_memory_stats()
+
+    def marked(self, stage):
+        mark(self, stage)
+        book(stage)
+
+    timing.StageClock.mark = marked
+    try:
+        yield peaks
+    finally:
+        timing.StageClock.mark = mark
+        book("after the last mark")
+
+
 def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
     """One training run through the launcher with every launch count set
-    to 0 just before it; returns (result, launches, layouts, peak)."""
+    to 0 just before it; returns (result, launches, layouts, peak) and
+    keeps the stage that held the peak in ``res["peak_stage"]``."""
     import torch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     PEAK_BASE[name] = torch.cuda.memory_allocated()
     cuda.reset_launches()
-    res = train.run(train.parse_args(argv))
-    counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
-    peak = torch.cuda.max_memory_allocated()
+    with stage_peaks() as peaks:
+        res = train.run(train.parse_args(argv))
+        counts, layouts = dict(cuda.LAUNCHES), dict(cuda.LAYOUTS)
+    peak = max(peaks.values())
+    res["peak_stage"] = max(peaks, key=peaks.get)
+    res["stage_peaks"] = peaks
     del res["trainer"]  # free the phase's model and state for the next
     check(res["d"] == d, f"phase {name} d = {res['d']}, expected {d}")
     hist = res["history"]
@@ -1325,6 +1479,11 @@ def run_phase(train, name, argv, kernels_needed, cuda, d=D_B):
         split = ", ".join(f"{k} {v:.1f}" for k, v in h["stage_ms"].items())
         print(f"phase {name} step {h['step']}: {h['step_ms']:.1f} ms/step; "
               f"stages ms: {split}; loss {h['loss']:.4f}", flush=True)
+    top = ", ".join(f"{k} {v / 2**30:.2f}" for k, v in sorted(
+        peaks.items(), key=lambda kv: -kv[1])[:4])
+    print(f"phase {name}: peak memory {peak / 2**30:.2f} GiB in stage "
+          f"{res['peak_stage']} (the highest stages, GiB: {top})",
+          flush=True)
     return res, counts, layouts, peak
 
 
@@ -1394,8 +1553,27 @@ def phase_shapes(ops, ref, lv, out, phase, nb, m=M_B):
                  lambda: [ref.dequantize_ref(c32[i:i + rows], n4[i:i + rows],
                                              levels) for i in parts],
                  m * n * 8 + m * nb * 4, m * n * 5, 0.0,
-                 f"decode of the {m} gathered streams")
+                 f"the {m} gathered streams, as decoded before the fused "
+                 "mean")
     del c32, n4
+    c8, n8 = mean_inputs(m, nb, levels, g)
+    got = ops.dequantize_mean_op(c8, n8, levels)
+    parts, rows = chunks(nb, 16)
+    for i in parts:
+        want = ref.dequantize_mean_ref(c8[:, i:i + rows], n8[:, i:i + rows],
+                                       levels)
+        check(torch.equal(f32_bits(got[i:i + rows]), f32_bits(want)),
+              f"dequantize_mean at phase {phase}'s shape not bit-equal")
+    del got
+    record_shape(out, f"phase {phase} shape", "dequantize_mean",
+                 f"({m}, {nb}, {BS_B}) int8",
+                 lambda: ops.dequantize_mean_op(c8, n8, levels),
+                 lambda: [ref.dequantize_mean_ref(
+                     c8[:, i:i + rows], n8[:, i:i + rows], levels)
+                     for i in parts],
+                 mean_bytes(m, nb, BS_B), m * n * 6, 0.0,
+                 f"decode and mean of the {m} gathered streams")
+    del c8, n8
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -2117,7 +2295,7 @@ def serve_check(configs, Model, cuda):
     logit), printed beside the card against the CPU.  Then
     ``python -m repro_torch.launch.serve`` (its ``main``) once on the
     card.  Serving computes no gradient, so
-    none of the three kernels launches."""
+    none of the four kernels launches."""
     import dataclasses
     import numpy as np
     import torch
@@ -2556,7 +2734,7 @@ def phase_m(smi: str) -> dict:
             "--data", "uniform", "--scheme", "alq", "--bits", "3",
             "--bucket", str(BS_B), "--optim", "adamw", "--lr", "1e-4",
             "--update-at", "1", "--time-stages"]
-    kernels = ("quantize", "dequantize", "bucket_stats")
+    kernels = ("quantize", "dequantize", "dequantize_mean", "bucket_stats")
     cells = {"M1": (full + ["--layers", str(M1_LAYERS), "--steps", "3"], 2,
                     "gloo"),
              "M2": (full + ["--layers", "4", "--steps", "5", "--sync",
@@ -2832,10 +3010,11 @@ def phase_o(smi: str) -> dict:
     large tensor on the card.  O1: qwen3-0.6b whole in 2 gloo ranks on
     cuda:0, the quantized reduce-scatter, against the stacked M = 2 FSDP
     run: every rank's losses and shard digest bit-equal; every rank
-    launches all three kernels.  O2: the float32 FSDP run against the DP
-    run (``sync_mode="fp32"``), one after the other in the process of the
-    stacked O1 run: losses rtol 1e-5, the first step's first moment (0.1
-    x the aggregate) within 1e-6 of its largest entry."""
+    launches the three kernels FSDP runs (no dequantize_mean).  O2: the
+    float32 FSDP run against the DP run (``sync_mode="fp32"``), one after
+    the other in the process of the stacked O1 run: losses rtol 1e-5,
+    the first step's first moment (0.1 x the aggregate) within 1e-6 of its
+    largest entry."""
     import statistics
     import torch
     torch.cuda.empty_cache()
@@ -3422,7 +3601,7 @@ def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
     3 steps): the model ranks of a data rank report bit-equal losses,
     the data ranks of a model rank hold bit-equal parameters after every
     step (their fingerprints), finite losses, every rank launches all
-    three kernels, d = D_P a rank; per rank the steps, stages, the model
+    four kernels, d = D_P a rank; per rank the steps, stages, the model
     group's all-reduces (calls, bytes, ms), peak memory and launches;
     before it the kernels at P1's shapes against their plain versions.
     P1f: the float32 tp = 2 pass against tp = 1 (``tp_check f32``,
@@ -3450,7 +3629,7 @@ def phase_p(smi: str, ops, ref, lv, shapes) -> dict:
         check(all(math.isfinite(x) for x in r["loss"]),
               f"phase P1 losses {r['loss']}")
         check(all(r["launches"].get(k, 0) > 0 for k in (
-            "quantize", "dequantize", "bucket_stats")),
+            "quantize", "dequantize", "dequantize_mean", "bucket_stats")),
             f"phase P1 rank {r['rank']} launches {r['launches']}")
         check(len(r["fingerprints"]) == 3, "phase P1 fingerprints")
     for d in range(2):
@@ -3712,7 +3891,7 @@ def main() -> None:
     built = cuda.build()
     print(f"build: {json.dumps(built)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in cuda.KERNELS:
+    for name in cuda.SOURCES:
         print(build_line(name, built.get(name), cuda.ptxas_report(name)),
               flush=True)
 
@@ -3722,6 +3901,7 @@ def main() -> None:
                                 QuantScheme)
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
                                     QuantScheme, SparseCodec, resample_levels)
+    mean_order = decode_shapes(ops, ref, lv, shapes)
     sim_shapes(ops, ref, lv, cuda, shapes)
     phase_shapes(ops, ref, lv, shapes, "H", NB_H)
     phase_shapes(ops, ref, lv, shapes, "I", NB_I)
@@ -3781,8 +3961,9 @@ def main() -> None:
     check(all(layouts_b.get(f"{k}/regs", 0) == counts_b[k]
               for k in ("quantize", "bucket_stats")),
           f"phase B bucket layouts {layouts_b}")
-    print(f"phase B: d={res['d']}, peak memory {peak / 2**30:.2f} GiB, "
-          f"launches {counts_b}, layouts {layouts_b}", flush=True)
+    print(f"phase B: d={res['d']}, peak memory {peak / 2**30:.2f} GiB in "
+          f"stage {res['peak_stage']}, launches {counts_b}, layouts "
+          f"{layouts_b}", flush=True)
     phases["B"] = (res, counts_b, layouts_b, peak)
 
     # ---- phase C: two_phase + ef + integrity ----
@@ -3818,7 +3999,8 @@ def main() -> None:
     # ---- phase D: all_gather + topk ----
     res, counts_d, layouts_d, peak = run_phase(
         train, "D", full + ["--steps", "3", "--compress", "topk"],
-        cuda.KERNELS, cuda)
+        # the sparse codec decodes, then averages: no dequantize_mean
+        ("quantize", "dequantize", "bucket_stats"), cuda)
     hist = res["history"]
     check(all(h["kept_fraction"] == K_D / BS_B for h in hist),
           f"phase D kept fraction {hist[-1]['kept_fraction']}")
@@ -3835,7 +4017,7 @@ def main() -> None:
     # ---- phase E: all_gather over the entropy-coded wire ----
     res, counts_e, layouts_e, peak = run_phase(
         train, "E", full + ["--steps", "3", "--codec", "entropy"],
-        ("quantize", "dequantize"), cuda)
+        ("quantize", "dequantize", "dequantize_mean"), cuda)
     plan_e = make_codec(scheme, "entropy").plan(D_B)
     hist = res["history"]
     for h in hist:
@@ -3882,12 +4064,13 @@ def main() -> None:
     lap("phases B-F")
 
     print(json.dumps({"phases": {k: {
-        "card": smi, "d": r["d"], "peak_bytes": pk, "launches": c,
-        "layouts": ly,
+        "card": smi, "d": r["d"], "peak_bytes": pk,
+        "peak_stage": r["peak_stage"], "stage_peaks": r["stage_peaks"],
+        "launches": c, "layouts": ly,
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
                    "loss": h["loss"]} for h in r["history"]]}
         for k, (r, c, ly, pk) in phases.items()},
-        "select_ms": t_select}), flush=True)
+        "select_ms": t_select, "mean_order": mean_order}), flush=True)
     del phases, res
 
     # ---- phase G: the cluster simulator at full width ----
@@ -3916,10 +4099,12 @@ def main() -> None:
               for k in ("quantize", "bucket_stats")),
           f"phase H bucket layouts {layouts_h}")
     print(f"phase H: d={res['d']}, 28 layers, peak memory "
-          f"{peak / 2**30:.2f} GiB, launches {counts_h}, layouts "
-          f"{layouts_h}", flush=True)
+          f"{peak / 2**30:.2f} GiB in stage {res['peak_stage']}, launches "
+          f"{counts_h}, layouts {layouts_h}", flush=True)
     print(json.dumps({"phase_h": {
-        "card": smi, "d": res["d"], "peak_bytes": peak, "launches": counts_h,
+        "card": smi, "d": res["d"], "peak_bytes": peak,
+        "peak_stage": res["peak_stage"], "stage_peaks": res["stage_peaks"],
+        "launches": counts_h,
         "layouts": layouts_h,
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
                    "loss": h["loss"]} for h in res["history"]]}}),
@@ -4028,6 +4213,8 @@ def main() -> None:
             *counts_m, *counts_o, *counts_p))
         k["route"] = "cuda"
         k["shapes"] = shapes.get(k["name"], [])
+        check(k["launches"] > 0, f"{k['name']} was not launched by the "
+              "phases")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_share", "ms_spread", "shapes")

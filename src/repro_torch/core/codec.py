@@ -10,6 +10,11 @@ A codec owns three things:
               as int32 bit patterns (``core.packing``).
 ``decode``    The inverse over one stream or over M gathered streams at
               once -> (n,) or (M, n) values.
+``decode_mean`` M gathered streams -> their mean under a transport's
+              averaging rule, (n,), with each stream's own values on
+              request; the uniform, entropy and mixed-width codecs decode
+              and average in one fused kernel (``dequantize_mean``), so
+              that no (M, n) float32 is held.
 
 Three codecs ship here (plus ``repro_torch.compress.SparseCodec``), each
 bit-identical on the wire with the reference package's for the same
@@ -40,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import heapq
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -49,7 +54,7 @@ from repro_torch.kernels import ops
 from repro_torch.timing import NO_CLOCK
 from . import packing
 from .levels import num_levels as _num_levels_for_bits
-from .quantize import NORM_LINF, pad_to_buckets
+from .quantize import NORM_LINF, code_dtype, pad_to_buckets
 
 # The bucket count is padded to a multiple of this, as in the reference
 # (whose Pallas grid tiles 8 buckets), so that plans and payload shapes
@@ -99,6 +104,17 @@ class WirePlan(NamedTuple):
     def payload_bytes(self) -> float:
         """Bytes of one (padded) segment payload."""
         return 4.0 * (self.code_words + self.norm_words)
+
+
+class MeanDecode(NamedTuple):
+    """What ``decode_mean`` gives: the transport's mean over the M
+    streams, (shard_n,); the (M, shard_nb) validity of a checked decode
+    (None otherwise); and ``row(w)``, stream w's own decoded values
+    (shard_n,), one stream at a time."""
+
+    mean: torch.Tensor
+    valid: torch.Tensor | None
+    row: Callable[[int], torch.Tensor]
 
 
 def _align_up(x: int, m: int) -> int:
@@ -204,6 +220,26 @@ class GradientCodec:
         and ignore it; mixed-width segments each have their own."""
         raise NotImplementedError
 
+    def decode_mean(self, payload: WirePayload, levels: torch.Tensor,
+                    plan: WirePlan, transport, *, shard=None,
+                    checked: bool = False, clock=NO_CLOCK) -> MeanDecode:
+        """Gathered (M, ...) streams -> ``MeanDecode``: their mean under
+        ``transport``'s averaging rule (``mean_workers``, or with
+        ``checked`` ``decode_checked``'s validity and
+        ``mean_workers_bucketed``).  This default decodes every stream and
+        then averages, holding the (M, shard_n) values; the uniform,
+        entropy and mixed-width codecs fuse the two."""
+        if checked:
+            vals, valid = self.decode_checked(payload, levels, plan,
+                                              shard=shard, clock=clock)
+            mean = transport.mean_workers_bucketed(vals, valid,
+                                                   self.bucket_size)
+        else:
+            vals, valid = self.decode(payload, levels, plan, shard=shard,
+                                      clock=clock), None
+            mean = transport.mean_workers(vals)
+        return MeanDecode(mean, valid, lambda w: vals[w])
+
     def _payload(self, words: torch.Tensor, norms: torch.Tensor,
                  plan: WirePlan) -> WirePayload:
         """(shards, code_words) symbol words + (nb,) norms -> a payload:
@@ -249,8 +285,10 @@ class UniformCodec(GradientCodec):
     """One (num_levels, bucket_size) for every bucket.
 
     Encode is one fused quantize kernel and one fixed-width pack per
-    segment; decode is one unpack per stream and one fused dequantize
-    over all streams.
+    segment; decode is one unpack per stream, into signed codes of
+    ``code_dtype(L)``, and one dequantize over all streams, or for
+    ``decode_mean`` one ``dequantize_mean`` that averages them as it
+    decodes.
     """
 
     num_levels: int = 8
@@ -325,7 +363,10 @@ class UniformCodec(GradientCodec):
         clock.mark("pack")
         return payload
 
-    def _decode_uniform(self, payload, levels, plan, want_valid, clock):
+    def _codes(self, payload, levels, plan, want_valid, clock):
+        """Payload stream(s) -> (codes (M, shard_nb, bucket_size) of
+        ``code_dtype(L)``, norms (M, shard_nb), validity (M, shard_nb) or
+        None, whether the payload was one 1-D stream)."""
         words, nwords = payload
         single = words.dim() == 1
         if single:
@@ -333,38 +374,40 @@ class UniformCodec(GradientCodec):
         snb, n, bs = plan.shard_nb, plan.shard_n, self.bucket_size
         M = words.shape[0]
         L = levels.shape[0]
-        wb = packing.wire_bits_for(L)
         stored = None
         if plan.integrity:
             stored, words = words[:, :snb], words[:, snb:]
         norms = self._norm_rows(nwords, snb)
-        sym = torch.empty((M, n), dtype=torch.int32, device=words.device)
+        codes = torch.empty((M, snb, bs), dtype=code_dtype(L),
+                            device=words.device)
         valid = None
         if want_valid:
             valid = torch.ones((M, snb), dtype=torch.bool,
                                device=words.device)
         for m in range(M):
-            sym[m] = packing.unpack(words[m], n, wb)
+            packing.unpack_signed(words[m], n, L, out=codes[m])
             if want_valid and stored is not None:
                 clock.mark("unpack")
-                valid[m] = packing.bucket_checksums(
-                    sym[m].view(snb, bs),
-                    packing.norm_bit_patterns(norms[m], self.norm_dtype)
-                ) == stored[m]
+                valid[m] = self._checksums(codes[m], norms[m], L) == stored[m]
                 clock.mark("checksum")
-        sym -= L - 1                      # unsigned symbols -> signed codes
         clock.mark("unpack")
-        vals = ops.dequantize_op(sym.view(M * snb, bs), norms.reshape(-1),
+        return codes, norms, valid, single
+
+    def _decode(self, payload, levels, plan, want_valid, clock):
+        codes, norms, valid, single = self._codes(payload, levels, plan,
+                                                  want_valid, clock)
+        M, snb, bs = codes.shape
+        vals = ops.dequantize_op(codes.view(M * snb, bs), norms.reshape(-1),
                                  levels)
-        del sym
-        vals = vals.view(M, n)
+        del codes
+        vals = vals.view(M, snb * bs)
         clock.mark("decode")
         if single:
             return vals[0], None if valid is None else valid[0]
         return vals, valid
 
     def decode(self, payload, levels, plan, *, shard=None, clock=NO_CLOCK):
-        return self._decode_uniform(payload, levels, plan, False, clock)[0]
+        return self._decode(payload, levels, plan, False, clock)[0]
 
     def decode_checked(self, payload, levels, plan, *, shard=None,
                        clock=NO_CLOCK):
@@ -372,7 +415,25 @@ class UniformCodec(GradientCodec):
         (shard_nb,) or (M, shard_nb): True iff the bucket's checksum word
         matches its symbols and norm bits (always, without an integrity
         plan)."""
-        return self._decode_uniform(payload, levels, plan, True, clock)
+        return self._decode(payload, levels, plan, True, clock)
+
+    def decode_mean(self, payload, levels, plan, transport, *, shard=None,
+                    checked=False, clock=NO_CLOCK):
+        """One fused ``dequantize_mean`` over the gathered streams' codes,
+        weighted as ``transport.mean_weights`` says; ``row(w)`` decodes
+        stream w from the codes kept (int8 up to 7 bits)."""
+        codes, norms, valid, _ = self._codes(payload, levels, plan, checked,
+                                             clock)
+        w = transport.mean_weights(valid)
+        mean = ops.dequantize_mean_op(
+            codes, norms, levels, None if w is None else w.to(codes.device),
+            valid).view(-1)
+        clock.mark("decode")
+
+        def row(m):
+            return ops.dequantize_op(codes[m], norms[m], levels).view(-1)
+
+        return MeanDecode(mean, valid, row)
 
     def requantize(self, vb: torch.Tensor, levels: torch.Tensor, *,
                    plan: WirePlan | None = None, chunk: int = 0,
@@ -583,15 +644,16 @@ class EntropyCodec(UniformCodec):
         return payload
 
     def _huffman_decode(self, regions: torch.Tensor) -> torch.Tensor:
-        """(M, snb, cap) region words -> (M, snb, bucket_size) int32
-        symbols, each bucket decoded as a Huffman run.  Reads past a
-        region give zero words, as the reference's clamped reads of its
-        zero-padded region do."""
+        """(M, snb, cap) region words -> (M, snb, bucket_size) signed
+        codes of ``code_dtype(L)``, each bucket decoded as a Huffman run.
+        Reads past a region give zero words, as the reference's clamped
+        reads of its zero-padded region do."""
         M, snb, cap = regions.shape
+        L = self.num_levels
         len_t, code_t, mask_t = self._table(regions.device)
         padded = torch.nn.functional.pad(regions, (0, 1))
-        sym = torch.empty((M, snb, self.bucket_size), dtype=torch.int32,
-                          device=regions.device)
+        codes = torch.empty((M, snb, self.bucket_size), dtype=code_dtype(L),
+                            device=regions.device)
         pos = torch.zeros((M, snb, 1), dtype=torch.int64,
                           device=regions.device)
         one = torch.tensor([0, 1], dtype=torch.int64, device=regions.device)
@@ -605,10 +667,10 @@ class EntropyCodec(UniformCodec):
             s = ((u & mask_t) == code_t).to(torch.int32).argmax(
                 dim=2, keepdim=True)
             pos += len_t[s]
-            sym[:, :, t:t + 1] = s
-        return sym
+            codes[:, :, t:t + 1] = s - (L - 1)   # symbol -> signed code
+        return codes
 
-    def _decode_entropy(self, payload, levels, plan, want_valid, clock):
+    def _codes(self, payload, levels, plan, want_valid, clock):
         words, nwords = payload
         single = words.dim() == 1
         if single:
@@ -623,43 +685,32 @@ class EntropyCodec(UniformCodec):
         fallback = headers >= _FLAG
         regions = words[:, head + snb:head + snb * (1 + cap)].view(M, snb,
                                                                    cap)
-        sym = self._huffman_decode(regions)
+        codes = self._huffman_decode(regions)
         fb = fallback.nonzero(as_tuple=True)
         if fb[0].numel():
-            sym[fb] = _unpack_rows(regions[fb], bs, wb)
+            codes[fb] = (_unpack_rows(regions[fb], bs, wb) - (L - 1)).to(
+                codes.dtype)
         clock.mark("unpack")
         valid = None
         if want_valid:
             valid = torch.ones((M, snb), dtype=torch.bool, device=words.device)
             if plan.integrity:
                 for m in range(M):
-                    valid[m] = packing.bucket_checksums(
-                        sym[m], packing.norm_bit_patterns(
-                            norms[m], self.norm_dtype)) == words[m, :snb]
+                    valid[m] = self._checksums(codes[m], norms[m],
+                                               L) == words[m, :snb]
                 # header sanity: a fallback bucket's length is exactly the
                 # fixed-width run, a coded bucket's fits its capacity
                 used = headers & (_FLAG - 1)
                 valid &= torch.where(fallback, used == bs * wb,
                                      used <= 32 * cap)
                 clock.mark("checksum")
-        sym -= L - 1                      # unsigned symbols -> signed codes
-        vals = ops.dequantize_op(sym.view(M * snb, bs), norms.reshape(-1),
-                                 levels)
-        del sym
-        vals = vals.view(M, snb * bs)
-        clock.mark("decode")
-        if single:
-            return vals[0], None if valid is None else valid[0]
-        return vals, valid
-
-    def decode(self, payload, levels, plan, *, shard=None, clock=NO_CLOCK):
-        return self._decode_entropy(payload, levels, plan, False, clock)[0]
+        return codes, norms, valid, single
 
     def decode_checked(self, payload, levels, plan, *, shard=None,
                        clock=NO_CLOCK):
         """``decode`` plus a bool validity verdict per stream and bucket:
         its checksum word matches and its header is sane."""
-        return self._decode_entropy(payload, levels, plan, True, clock)
+        return self._decode(payload, levels, plan, True, clock)
 
     # requantize: UniformCodec's; entropy coding is lossless on symbols
 
@@ -884,25 +935,36 @@ class MixedWidthCodec(GradientCodec):
         clock.mark("pack")
         return payload
 
+    def _segment_codes(self, words, seg, clock):
+        """(M, code_words) streams of ONE segment -> each width group's
+        (M, group buckets, bucket_size) signed codes of its own
+        ``code_dtype``, in the segment's group order."""
+        bs = self.bucket_size
+        out = []
+        for g in seg:
+            cnt = len(g.local_idx)
+            codes = torch.empty((words.shape[0], cnt, bs),
+                                dtype=code_dtype(g.nlev), device=words.device)
+            for m, w in enumerate(words):
+                packing.unpack_signed(w[g.word_off:g.word_off + g.word_cnt],
+                                      cnt * bs, g.nlev, out=codes[m])
+            out.append(codes)
+        clock.mark("unpack")
+        return out
+
     def _decode_segment(self, words, norms, levels, seg, clock):
         """(M, code_words) streams of ONE segment -> (M, shard_n)."""
         M, snb = norms.shape
         bs = self.bucket_size
         out = torch.zeros((M, snb, bs), dtype=torch.float32,
                           device=words.device)
-        for g in seg:
-            cnt = len(g.local_idx)
-            sym = torch.stack([packing.unpack_signed(
-                w[g.word_off:g.word_off + g.word_cnt], cnt * bs, g.nlev)
-                for w in words])
-            clock.mark("unpack")
+        for g, codes in zip(seg, self._segment_codes(words, seg, clock)):
             loc = torch.tensor(g.local_idx, dtype=torch.int64,
                                device=words.device)
             vals = ops.dequantize_op(
-                sym.view(M * cnt, bs), norms[:, loc].reshape(-1),
+                codes.view(-1, bs), norms[:, loc].reshape(-1),
                 resample_levels(levels, g.nlev))
-            del sym
-            out[:, loc] = vals.view(M, cnt, bs)
+            out[:, loc] = vals.view(M, -1, bs)
             del vals
             clock.mark("decode")
         return out.view(M, snb * bs)
@@ -931,6 +993,43 @@ class MixedWidthCodec(GradientCodec):
                 for s in range(plan.shards)])
         return self._decode_segment(words, norms, levels, layouts[int(shard)],
                                     clock)
+
+    def decode_mean(self, payload, levels, plan, transport, *, shard=None,
+                    checked=False, clock=NO_CLOCK):
+        """The streams of one segment (an unsharded plan, or ``shard``
+        named): one fused ``dequantize_mean`` a width group, on its
+        resampled grid; ``row(w)`` decodes stream w's groups from the
+        codes kept.  Otherwise (one's own sharded payload, stream i
+        segment i) the default: decode, then the transport's mean."""
+        if checked or (plan.shards > 1 and shard is None):
+            return super().decode_mean(payload, levels, plan, transport,
+                                       shard=shard, checked=checked,
+                                       clock=clock)
+        words, nwords = payload
+        snb, bs = plan.shard_nb, self.bucket_size
+        norms = self._norm_rows(nwords, snb)
+        seg = _segment_layouts(plan.widths, plan.shards,
+                               bs)[0 if plan.shards == 1 else int(shard)]
+        codes = self._segment_codes(words, seg, clock)
+        w = transport.mean_weights(None)
+        w = None if w is None else w.to(words.device)
+        groups = [(torch.tensor(g.local_idx, dtype=torch.int64,
+                                device=words.device),
+                   resample_levels(levels, g.nlev)) for g in seg]
+        mean = torch.zeros((snb, bs), dtype=torch.float32,
+                           device=words.device)
+        for (loc, lv), c in zip(groups, codes):
+            mean[loc] = ops.dequantize_mean_op(c, norms[:, loc], lv, w)
+        clock.mark("decode")
+
+        def row(m):
+            out = torch.zeros((snb, bs), dtype=torch.float32,
+                              device=words.device)
+            for (loc, lv), c in zip(groups, codes):
+                out[loc] = ops.dequantize_op(c[m], norms[m, loc], lv)
+            return out.view(-1)
+
+        return MeanDecode(mean.view(-1), None, row)
 
     def requantize(self, vb: torch.Tensor, levels: torch.Tensor, *,
                    plan: WirePlan, chunk: int = 0,

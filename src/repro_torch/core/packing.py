@@ -96,10 +96,17 @@ def pack(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return out
 
 
-def unpack(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
-    """Inverse of pack: recover n unsigned symbols (int32)."""
+def unpack(words: torch.Tensor, n: int, bits: int, *, bias: int = 0,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse of pack: recover n unsigned symbols (int32).  With ``bias``
+    each symbol less ``bias``, taken a chunk at a time and written into
+    ``out`` (n contiguous elements of any integer dtype; int32 when not
+    given), so that signed codes come out unbiased in their own width
+    with no int32 copy of the stream."""
     words = words.reshape(-1)
-    out = torch.empty(n, dtype=torch.int32, device=words.device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.int32, device=words.device)
+    out = out.view(-1)
     widx, off = _group_layout(bits, words.device)
     spill = torch.where(off > 0, 32 - off, torch.zeros_like(off))
     mask = (1 << bits) - 1
@@ -115,7 +122,9 @@ def unpack(words: torch.Tensor, n: int, bits: int) -> torch.Tensor:
         hi = torch.where(off > 0, (w[:, widx + 1] << spill) & MASK32,
                          torch.zeros_like(lo))
         sym = ((lo | hi) & mask).reshape(-1)[:cnt]
-        out[start:start + cnt] = sym.to(torch.int32)
+        if bias:
+            sym -= bias
+        out[start:start + cnt] = sym.to(out.dtype)
     return out
 
 
@@ -242,7 +251,9 @@ def pack_signed(signed_codes: torch.Tensor, num_levels: int) -> torch.Tensor:
     return pack(bias_codes(signed_codes, num_levels), bits)
 
 
-def unpack_signed(words: torch.Tensor, n: int, num_levels: int
-                  ) -> torch.Tensor:
+def unpack_signed(words: torch.Tensor, n: int, num_levels: int,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse of ``pack_signed``: n signed level indices (int32, or into
+    ``out``)."""
     bits = wire_bits_for(num_levels)
-    return unbias_codes(unpack(words, n, bits), num_levels)
+    return unpack(words, n, bits, bias=num_levels - 1, out=out)

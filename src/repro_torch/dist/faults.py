@@ -132,8 +132,9 @@ class FaultyTransport(StackedTransport):
     Wraps an inner transport and corrupts the int32 rows that come out of
     ``all_gather`` / ``all_to_all``: per-word bit flips, then whole-row
     zeroing of dropped or delayed workers.  Aggregation (``weights``,
-    ``active_vector``, ``mean_workers*``) is the inner transport's, so
-    dropout masking composes with fault injection unchanged.
+    ``active_vector``, ``mean_weights``, ``mean_workers*``) is the inner
+    transport's, so dropout masking composes with fault injection
+    unchanged.
 
     Every draw of the step comes from one generator seeded with ``seed``
     on the device of the first payload it sees: first the drop and delay
@@ -159,6 +160,9 @@ class FaultyTransport(StackedTransport):
 
     def weights(self):
         return self.inner.weights()
+
+    def mean_weights(self, valid=None):
+        return self.inner.mean_weights(valid)
 
     def mean_workers(self, stacked):
         return self.inner.mean_workers(stacked)

@@ -11,9 +11,10 @@ with the same aggregate, and with all M workers' metrics.
 Wire modes
 ----------
 ``all_gather``  Every worker ENCODEs its own gradient and the packed
-    payloads are all-gathered.  One decode over the M gathered streams
-    and one mean give the aggregate, identical for every worker (the
-    paper's broadcast-all scheme, Sec. 5).
+    payloads are all-gathered.  One fused decode+average pass over the
+    M gathered streams (``codec.decode_mean``) gives the aggregate,
+    identical for every worker (the paper's broadcast-all scheme, Sec.
+    5).
 ``two_phase``   The reduce direction moves the codec's *sharded* payload
     by an all-to-all (each worker ships each peer only that peer's
     shard), each worker averages its shard and re-quantizes it on a
@@ -29,9 +30,13 @@ update from each worker's own decode after DECODE.
 
 Every worker holds the same aggregate, so a process decodes it once;
 each local worker's own round trip Q(g_w) is decoded worker by worker
-and handed to ``on_own(i, own)`` (i its local index), so that no (L, d)
-tensor of own round trips is needed beside the aggregate's.  The
-collectives are booked to the clock's ``collective`` stage.
+(from its row of the gathered codes, or with integrity words from its
+local payload) and handed to ``on_own(i, own)`` (i its local index), so
+that neither an (M, d) float32 of decoded streams nor an (L, d) tensor
+of own round trips is held beside the aggregate.  The transport says
+how the streams are averaged (``mean_weights``); the codec decodes and
+averages them.  The collectives are booked to the clock's
+``collective`` stage.
 
 ``gather_stats`` is the sufficient-statistics path (Algorithm 1, line 4):
 one fused ``bucket_stats`` sweep per local worker, strided subsampling to
@@ -141,6 +146,13 @@ def _all_bits(transport, codec, payloads, plan, device) -> tuple:
         local, dtype=torch.float64, device=device)).tolist())
 
 
+def _sq_err(own: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """||own - row||^2 with one temporary: the difference, squared in
+    place (the same values as ``((own - row) ** 2).sum()``)."""
+    diff = own - row
+    return torch.sum(diff.square_())
+
+
 def _gather(transport, payloads, collective: str, clock) -> WirePayload:
     move = getattr(transport, collective)
     out = WirePayload(words=move([p.words for p in payloads]),
@@ -160,32 +172,24 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
     # every worker decodes the same gathered rows: one verdict for all
     corrupt = torch.zeros(transport.size(), device=flats.device)
     excluded = torch.zeros(transport.size(), device=flats.device)
+    # corrupt buckets leave the mean (with integrity words)
+    dec = codec.decode_mean(gathered, levels, plan, transport,
+                            checked=plan.integrity, clock=clock)
+    del gathered
+    out = dec.mean[:d]
     if plan.integrity:
-        # corrupt buckets leave the mean; each worker's own round trip
-        # comes from its local payload, not its gathered row, so that
-        # wire corruption cannot poison an error-feedback residual
-        per_worker, valid = codec.decode_checked(gathered, levels, plan,
-                                                 clock=clock)
-        del gathered
-        out = transport.mean_workers_bucketed(per_worker, valid,
-                                              plan.bucket_size)[:d]
-        del per_worker
-        clock.mark("decode")
-        corrupt[:] = 1.0 - valid.float().mean()
-        excluded[:] = (~valid).all(dim=1).float().sum()
-        for i in range(len(local)):
-            own = codec.decode(payloads[i], levels, plan)[:d]
-            qerr[i] = torch.sum((own - flats[i]) ** 2)
-            on_own(i, own)
-            del own
-    else:
-        per_worker = codec.decode(gathered, levels, plan, clock=clock)
-        del gathered
-        out = transport.mean_workers(per_worker)[:d]
-        # each worker's own round trip is its row of the gathered decode
-        for i, w in enumerate(local):
-            qerr[i] = torch.sum((per_worker[w, :d] - flats[i]) ** 2)
-            on_own(i, per_worker[w, :d])
+        corrupt[:] = 1.0 - dec.valid.float().mean()
+        excluded[:] = (~dec.valid).all(dim=1).float().sum()
+    for i, w in enumerate(local):
+        # with integrity words each worker's own round trip comes from its
+        # local payload, not its gathered row, so that wire corruption
+        # cannot poison an error-feedback residual
+        own = (codec.decode(payloads[i], levels, plan) if plan.integrity
+               else dec.row(w))[:d]
+        qerr[i] = _sq_err(own, flats[i])
+        on_own(i, own)
+        del own
+    del dec
     clock.mark("decode")
     # variable-volume codecs bill what each worker's headers say it ships
     bits = _all_bits(transport, codec, payloads, plan, flats.device)
@@ -221,16 +225,13 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     # each rank decodes, averages and re-quantizes its own shard
     for i, r in enumerate(local):
         mine = WirePayload(received.words[i], received.norm_words[i])
+        dec = codec.decode_mean(mine, levels, plan, transport, shard=r,
+                                checked=plan.integrity, clock=clock)
+        shard_mean = dec.mean
         if plan.integrity:
-            vals, valid1 = codec.decode_checked(mine, levels, plan, shard=r,
-                                                clock=clock)
-            shard_mean = transport.mean_workers_bucketed(vals, valid1, bs)
-            bad1[i] = (~valid1).float().sum()
-            excluded[i] = (~valid1).all(dim=1).float().sum()
-        else:
-            vals = codec.decode(mine, levels, plan, shard=r, clock=clock)
-            shard_mean = transport.mean_workers(vals)
-        del vals
+            bad1[i] = (~dec.valid).float().sum()
+            excluded[i] = (~dec.valid).all(dim=1).float().sum()
+        del dec
         clock.mark("decode")
 
         # ---- phase 2: re-quantize this rank's shard of the aggregate ----
@@ -262,7 +263,7 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     for i in range(len(local)):
         own = codec.decode(payloads[i], levels, plan,
                            clock=clock).reshape(-1)[:d]
-        qerr[i] = torch.sum((own - flats[i]) ** 2)
+        qerr[i] = _sq_err(own, flats[i])
         on_own(i, own)
         del own
     clock.mark("decode")

@@ -18,7 +18,10 @@ reference's ``MeshTransport`` over the data axes.
 A transport also owns the cross-worker averaging rule: the plain
 transport averages uniformly; ``MaskedTransport`` renormalizes over the
 workers whose payloads arrived (the simulator's dropout hook), so every
-wire mode gets dropout support without knowing about it.
+wire mode gets dropout support without knowing about it.  A codec that
+decodes and averages in one pass asks ``mean_weights`` which weights the
+rule uses (None for the plain mean, sum then divide), so the sync engine
+never needs to know which transport it holds.
 """
 from __future__ import annotations
 
@@ -78,6 +81,17 @@ class StackedTransport:
         return torch.full((self._size,), 1.0 / self._size,
                           dtype=torch.float32)
 
+    def mean_weights(self, valid: torch.Tensor | None = None
+                     ) -> torch.Tensor | None:
+        """The weights of this transport's mean: None for the plain mean
+        (sum, then divide by M); with an (M, nb) bool ``valid`` the (M,
+        nb) weights of ``mean_workers_bucketed``, on its device."""
+        if valid is None:
+            return None
+        a = (self.active_vector().to(valid.device)[:, None]
+             * valid.to(torch.float32))
+        return a / torch.clamp(a.sum(0), min=1.0)
+
     def mean_workers(self, stacked: torch.Tensor) -> torch.Tensor:
         """Mean over the leading (worker) axis: sum, then divide, the
         reduction order the reference's wire contract pins."""
@@ -95,9 +109,7 @@ class StackedTransport:
         out at the transport.  An all-invalid bucket gives 0.
         """
         M, nb = valid.shape
-        a = (self.active_vector().to(stacked.device)[:, None]
-             * valid.to(torch.float32))
-        w = a / torch.clamp(a.sum(0), min=1.0)                  # (M, nb)
+        w = self.mean_weights(valid)                            # (M, nb)
         # a corrupt bucket may decode to NaN or inf, and 0 * NaN = NaN:
         # zero its values as well as its weight
         vb = stacked.reshape(M, nb, bucket_size)
@@ -135,6 +147,12 @@ class MaskedTransport(StackedTransport):
 
     def weights(self) -> torch.Tensor:
         return self.active / torch.clamp(self.active.sum(), min=1.0)
+
+    def mean_weights(self, valid=None):
+        """``weights()`` for the plain mean; per bucket under ``valid``."""
+        if valid is None:
+            return self.weights()
+        return super().mean_weights(valid)
 
     def mean_workers(self, stacked: torch.Tensor) -> torch.Tensor:
         w = self.weights().to(stacked.device)

@@ -1,11 +1,13 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface, loaded with ``ctypes``.
-Builds happen at first use, into ``build/kernels/`` at the root of the
-checkout; a library's file name carries a hash of its sources and flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
-``build()`` starts one ``nvcc`` per missing library, all at once.
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``; a
+library may hold several kernels (``dequantize.cu`` holds dequantize and
+dequantize_mean).  Builds happen at first use, into ``build/kernels/`` at
+the root of the checkout; a library's file name carries a hash of its
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build()`` starts one ``nvcc`` per missing library,
+all at once.
 
 ``nvcc`` runs with ``-Xptxas -v``; its report (registers, shared memory
 and spill bytes of every entry point) is kept beside each library and
@@ -56,22 +58,33 @@ REG_SHAPES = {1024: (128, 8), 8192: (512, 16)}
 SMEM_LIMIT = 232_448   # shared memory a block may use on sm_90, bytes
 STATIC_SMEM = 4_096    # kept for the kernels' own tables and barrier
 
+# Threads of a block of the streaming kernels' persistent grids
+# (dequantize, dequantize_mean; csrc/dequantize.cu): 512 ran 0.5-1% faster
+# than 256 and 128 on an H100 (experiments/dequantize_variants.py).
+STREAM_THREADS = 512
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# name -> (C function, its argument types)
+# kernel name -> (source stem, C function, its argument types)
 KERNELS = {
-    "quantize": ("repro_quantize",
+    "quantize": ("quantize", "repro_quantize",
                  (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _P)),
-    "dequantize": ("repro_dequantize",
+    "dequantize": ("dequantize", "repro_dequantize",
                    (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P)),
-    "bucket_stats": ("repro_bucket_stats",
+    "dequantize_mean": ("dequantize", "repro_dequantize_mean",
+                        (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I,
+                         _P)),
+    "bucket_stats": ("bucket_stats", "repro_bucket_stats",
                      (_P, _P, _P, _P, _LL, _I, _I, _I,
                       _I, _I, _I, _I, _P)),
 }
+# the sources, one library each, in KERNELS' order
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAYOUTS: collections.Counter = collections.Counter()
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+_libraries: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -91,6 +104,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library built from ``csrc/<name>.cu`` (``name`` a source in
+    ``SOURCES``)."""
     h = hashlib.sha256()
     for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
@@ -98,8 +113,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names=tuple(KERNELS)) -> dict[str, float]:
-    """Compile every named library that is not built yet, all in parallel.
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every named source's library that is not built yet, all in
+    parallel.
 
     Returns the wall seconds of each build started (an already built
     library is not listed); raises with nvcc's output if one fails.
@@ -133,9 +149,12 @@ def kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded on first use."""
     fn = _loaded.get(name)
     if fn is None:
-        build((name,))
-        symbol, argtypes = KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        source, symbol, argtypes = KERNELS[name]
+        lib = _libraries.get(source)
+        if lib is None:
+            build((source,))
+            lib = _libraries[source] = ctypes.CDLL(str(library_path(source)))
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn
@@ -225,9 +244,11 @@ def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
 
 
 def ptxas_report(name: str) -> dict[str, dict[str, int]]:
-    """``parse_ptxas`` of the build of kernel ``name`` (mangled entry
-    names)."""
-    return parse_ptxas(library_path(name).with_suffix(".ptxas").read_text())
+    """``parse_ptxas`` of the library that holds kernel or source ``name``
+    (mangled entry names)."""
+    source = KERNELS[name][0] if name in KERNELS else name
+    return parse_ptxas(library_path(source).with_suffix(".ptxas")
+                       .read_text())
 
 
 def check(cond: bool, msg: str) -> None:

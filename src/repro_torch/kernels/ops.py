@@ -1,4 +1,4 @@
-"""Entry points of the three bucket kernels, dispatched by tensor device.
+"""Entry points of the port's kernels, dispatched by tensor device.
 
 A tensor on the CPU goes to the plain PyTorch version (``ref``); a CUDA
 tensor goes to the CUDA kernel, which either launches or raises.  A
@@ -21,7 +21,9 @@ from repro_torch.core.quantize import NORM_L2
 from . import ref
 from .bucket_stats import bucket_stats_cuda, bucket_stats_meta
 from .cuda import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
-from .dequantize import dequantize_cuda, dequantize_meta
+from .dequantize import (
+    dequantize_cuda, dequantize_mean_cuda, dequantize_mean_meta,
+    dequantize_meta)
 from .quantize import quantize_cuda, quantize_meta
 
 
@@ -53,6 +55,20 @@ def dequantize_op(codes: torch.Tensor, norms: torch.Tensor,
     if route == "meta":
         return dequantize_meta(codes, norms, levels)
     return ref.dequantize_ref(codes, norms, levels)
+
+
+def dequantize_mean_op(codes: torch.Tensor, norms: torch.Tensor,
+                       levels: torch.Tensor,
+                       weights: torch.Tensor | None = None,
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(M, nb, bs) codes -> (nb, bs): the M streams decoded and averaged
+    in worker order (``ref.dequantize_mean_ref``)."""
+    route = _route(codes, "dequantize_mean")
+    if route == "cuda":
+        return dequantize_mean_cuda(codes, norms, levels, weights, valid)
+    if route == "meta":
+        return dequantize_mean_meta(codes, norms, levels, weights, valid)
+    return ref.dequantize_mean_ref(codes, norms, levels, weights, valid)
 
 
 def bucket_stats_op(vb: torch.Tensor, *, norm_type: str = NORM_L2

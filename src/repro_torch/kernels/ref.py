@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three bucket kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 They define what the CUDA kernels compute: ``ops`` runs them for tensors
 on the CPU, and the kernels are checked against them on the card.  All
@@ -67,6 +67,43 @@ def dequantize_ref(codes: torch.Tensor, norms: torch.Tensor,
     L = levels.shape[0]
     mags = torch.where(idx < L, levels.float()[idx.clamp(max=L - 1)], 0.0)
     return mags * torch.sign(codes.float()) * norms[:, None]
+
+
+def dequantize_mean_ref(codes: torch.Tensor, norms: torch.Tensor,
+                        levels: torch.Tensor,
+                        weights: torch.Tensor | None = None,
+                        valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The decode of M streams of (nb, bs) codes with (M, nb) norms,
+    averaged over the streams in worker order -> (nb, bs) float32,
+    holding one decoded stream at a time.
+
+    Without ``weights``: the sum from 0, then divided by M (the
+    reference's wire contract, which the CPU's ``mean(0)`` computes).
+    With (M,) or (M, nb) ``weights``: ``w[0] * v[0] + w[1] * v[1] + ...``,
+    each product rounded before its add (``transport._weighted_sum``);
+    with an (M, nb) bool ``valid`` besides, an invalid bucket's values
+    count as 0 before their weight (they may decode to NaN).
+    """
+    M, nb = norms.shape
+    if weights is None:
+        out = torch.zeros(codes.shape[1:], dtype=torch.float32,
+                          device=codes.device)
+        for m in range(M):
+            out += dequantize_ref(codes[m], norms[m], levels)
+        # a tensor divisor: ATen's CUDA division by a Python number
+        # multiplies by its rounded reciprocal instead
+        return out.div_(torch.full((), M, dtype=torch.float32,
+                                   device=out.device))
+    if weights.dim() == 1:
+        weights = weights[:, None].expand(M, nb)
+    out = None
+    for m in range(M):
+        v = dequantize_ref(codes[m], norms[m], levels)
+        if valid is not None:
+            v = torch.where(valid[m][:, None], v, 0.0)
+        t = weights[m][:, None] * v
+        out = t if out is None else out.add_(t)
+    return out
 
 
 def bucket_stats_ref(vb: torch.Tensor, norm_type: str

@@ -21,8 +21,9 @@ reference's:
     counterparts of the reference's ``MAJOR_BYTES_PRIMS``: the matmuls
     and convolution, gathers and scatters, sorts, ``cumsum`` and the
     reductions (``MAJOR_OPS``), and each bucket kernel
-    (``repro_torch::quantize``, ``dequantize``, ``bucket_stats``) as the
-    one operator it is on the card, charged what its bound counts.
+    (``repro_torch::quantize``, ``dequantize``, ``dequantize_mean``,
+    ``bucket_stats``) as the one operator it is on the card, charged what
+    its bound counts.
     Elementwise chains are taken as fused into them, as the reference
     takes them (an estimate of fused traffic, not an upper bound).
   * ``collective_bytes``, by kind in ``by_collective``: each
@@ -75,7 +76,7 @@ GATHER_SCATTER_OPS = {
 VALUE_WRITES = {aten.copy_, aten.fill_, aten.zero_, aten.index_put_,
                 aten.masked_fill_, aten.clamp_}
 # the bucket kernels, charged operands + results as their bounds are
-KERNEL_OPS = ("quantize", "dequantize", "bucket_stats")
+KERNEL_OPS = ("quantize", "dequantize", "dequantize_mean", "bucket_stats")
 MAJOR_OPS = MATMUL_OPS | CONV_OPS | REDUCE_OPS | GATHER_SCATTER_OPS
 # c10d operator -> (kind, wire weight)
 COLLECTIVES = {

@@ -9,10 +9,11 @@ package's topology of the same name:
     ``MaskedTransport`` when some workers are absent or down-weighted and
     a ``FaultyTransport`` when the fault model corrupts the wire.
 ``param_server``  every worker ENCODEs and ships its payload up; the
-    server DECODEs the M streams, averages them (a weighted sum under a
-    mask), optionally RE-quantizes the aggregate on a fixed uniform L-inf
-    grid of ``server_bits`` (int16 codes at 8 bits) and broadcasts one
-    payload down.  With ``server_bits=None`` it broadcasts raw fp32, and
+    server DECODEs the M streams and averages them in one pass
+    (``codec.decode_mean``; a weighted sum under a mask), optionally
+    RE-quantizes the aggregate on a fixed uniform L-inf grid of
+    ``server_bits`` (int16 codes at 8 bits) and broadcasts one payload
+    down.  With ``server_bits=None`` it broadcasts raw fp32, and
     a homogeneous cluster gets the allreduce's aggregate bit for bit: the
     same encodes, the same decode and the same mean.
 ``ring``          chunked ring allreduce with per-hop re-quantization: the
@@ -159,14 +160,15 @@ def _topo_param_server(grads, scheme, state, active, *, server_bits, codec,
     # ---- uplink: every worker encodes, as the allreduce's workers do ----
     payloads = sync.encode_workers(grads, codec, levels, plan, u, generator)
 
-    # ---- server: decode the M streams, mean (weighted under a mask) ----
+    # ---- server: decode and average the M streams in one pass (weighted
+    # under a mask) ----
     gathered = WirePayload(torch.stack([p.words for p in payloads]),
                            torch.stack([p.norm_words for p in payloads]))
-    per_worker = codec.decode(gathered, levels, plan)        # (M, n)
-    del gathered
     transport = (MaskedTransport(active) if active is not None
                  else StackedTransport(M))
-    agg = transport.mean_workers(per_worker)                 # (n,)
+    dec = codec.decode_mean(gathered, levels, plan, transport)
+    del gathered
+    agg = dec.mean                                           # (n,)
 
     # uplink bytes: measured from the length headers for a
     # variable-volume codec, the plan's otherwise
@@ -176,10 +178,17 @@ def _topo_param_server(grads, scheme, state, active, *, server_bits, codec,
     else:
         up = np.full(M, plan.payload_bytes, np.float32)
     del payloads
-    qerr = torch.stack([torch.sum((per_worker[w, :d] - grads[w]) ** 2)
-                        for w in range(M)])
-    own = per_worker[:, :d] if want_own else None
-    del per_worker
+    # each worker's own round trip, one stream at a time
+    qerr = torch.empty(M, device=grads.device)
+    own = (torch.empty((M, d), dtype=torch.float32, device=grads.device)
+           if want_own else None)
+    for w in range(M):
+        row = dec.row(w)[:d]
+        qerr[w] = torch.sum((row - grads[w]) ** 2)
+        if own is not None:
+            own[w] = row
+        del row
+    del dec
 
     # ---- downlink: one payload, every worker decodes the same bytes ----
     if server_bits is None:

@@ -7,8 +7,11 @@ PyTorch is installed:
 
 Tolerances: norms rtol 1e-5 and stats rtol 1e-5 (float32 sums of up to
 65536 terms in another order); dequantized values exact (one rounding in
-the same order); codes exact except off by one where the plain
-version's |u - rho| < 1e-5 (a last-ulp norm difference).
+the same order), and dequantize and the fused decode-and-average
+dequantize_mean equal to their plain versions as bit patterns (the sign
+of zero included: the same products and sums in the same order); codes
+exact except off by one where the plain version's |u - rho| < 1e-5 (a
+last-ulp norm difference).
 
 quantize and bucket_stats lay a bucket out in registers, in shared
 memory or read twice (``kernels/cuda.py::bucket_launch``); the layout
@@ -107,12 +110,108 @@ def test_kernels_match_plain_versions(dev, bs, grid):
             for c in (c1, c1.to(torch.int32)):
                 assert torch.equal(ops.dequantize_op(c, n1, levels),
                                    ref.dequantize_ref(c, n1, levels))
+            # two streams: these codes and the same rows reversed
+            cm, nm = (torch.stack([c1, c1.flip(0)]),
+                      torch.stack([n1, n1.flip(0)]))
+            assert torch.equal(
+                _bits(ops.dequantize_mean_op(cm, nm, levels)),
+                _bits(ref.dequantize_mean_ref(cm, nm, levels)))
             for a, b in zip(ops.bucket_stats_op(vb, norm_type=norm),
                             ref.bucket_stats_ref(vb, norm)):
                 torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
     torch.cuda.synchronize()
     launched = {k: kcuda.LAUNCHES[k] - before.get(k, 0) for k in kcuda.KERNELS}
-    assert launched == {"quantize": 4, "dequantize": 8, "bucket_stats": 4}
+    assert launched == {"quantize": 4, "dequantize": 8, "dequantize_mean": 4,
+                        "bucket_stats": 4}
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor's bit patterns: equal only where the values and
+    the signs of zero are."""
+    return x.contiguous().view(torch.int32)
+
+
+def _wild_codes(dev, shape, dtype, L, g):
+    """Codes of ``dtype`` over ``L`` levels, about 5% of them outside the
+    table (|c| in [L, 2L)) and every 101st the type's most negative
+    value."""
+    codes = torch.randint(-(L - 1), L, shape, generator=g, device=dev)
+    outside = torch.randint(L, 2 * L, shape, generator=g, device=dev) * (
+        1 - 2 * torch.randint(0, 2, shape, generator=g, device=dev))
+    wild = torch.rand(shape, generator=g, device=dev) < 0.05
+    codes = torch.where(wild, outside, codes).to(dtype)
+    codes.view(-1)[::101] = torch.iinfo(dtype).min
+    return codes
+
+
+def _grid_for(dtype, dev):
+    """int16 codes come from 8-bit grids, the others from 3-bit ones."""
+    return lv.uniform_levels(8 if dtype == torch.int16 else 3, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [100, 128, 512, 1024, 8192])
+@pytest.mark.parametrize("code_dtype", [torch.int8, torch.int16, torch.int32])
+def test_dequantize_equals_its_plain_version_as_bit_patterns(dev, code_dtype,
+                                                             bs):
+    """The persistent-grid dequantize at an odd bucket count, on row
+    slices at odd offsets (off 16-byte alignment unless the rows before
+    are whole vectors) and on a buffer one code off alignment, with codes
+    outside the table and zero norms (a negative code then gives -0)."""
+    g = torch.Generator(device=dev).manual_seed(bs)
+    levels = _grid_for(code_dtype, dev)
+    L, nb = levels.numel(), 37
+    flat = _wild_codes(dev, ((nb + 8) * bs + 1,), code_dtype, L, g)
+    norms = torch.rand(nb + 8, generator=g, device=dev)
+    norms[::5] = 0.0
+    codes = flat[:(nb + 8) * bs].view(nb + 8, bs)
+    before = kcuda.LAUNCHES["dequantize"]
+    cases = [(codes[:nb], norms[:nb]),
+             (flat[1:nb * bs + 1].view(nb, bs), norms[:nb])]
+    cases += [(codes[r:r + nb], norms[r:r + nb]) for r in (1, 3, 7)]
+    for c, n in cases:
+        got = ops.dequantize_op(c, n, levels)
+        assert torch.equal(_bits(got), _bits(ref.dequantize_ref(c, n, levels)))
+    torch.cuda.synchronize()
+    assert kcuda.LAUNCHES["dequantize"] == before + len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "weights", "bucket_weights",
+                                  "masked"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5])
+def test_dequantize_mean_equals_its_plain_version_as_bit_patterns(dev, M,
+                                                                  mode):
+    """The fused decode-and-average of M streams in each mode: the plain
+    mean (sum from 0, then divide), (M,) and (M, nb) weights, and weights
+    with invalid buckets (one of which decodes to NaN), over int8, int16
+    and int32 codes at whole and ragged chunks, against the plain version
+    on the card, bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    cases = ((torch.int8, 128), (torch.int8, 100), (torch.int16, 512),
+             (torch.int32, 100), (torch.int32, 8192))
+    before = kcuda.LAUNCHES["dequantize_mean"]
+    for dtype, bs in cases:
+        levels = _grid_for(dtype, dev)
+        nb = 19
+        codes = _wild_codes(dev, (M, nb, bs), dtype, levels.numel(), g)
+        norms = torch.rand(M, nb, generator=g, device=dev)
+        norms[:, ::4] = 0.0
+        weights = valid = None
+        if mode == "weights":
+            weights = torch.rand(M, generator=g, device=dev)
+        elif mode != "plain":
+            weights = torch.rand(M, nb, generator=g, device=dev)
+        if mode == "masked":
+            valid = torch.rand(M, nb, generator=g, device=dev) < 0.7
+            valid[0, 1] = False
+            norms[0, 1] = float("nan")
+        got = ops.dequantize_mean_op(codes, norms, levels, weights, valid)
+        want = ref.dequantize_mean_ref(codes, norms, levels, weights, valid)
+        assert got.shape == (nb, bs)
+        assert torch.equal(_bits(got), _bits(want)), (dtype, bs)
+    torch.cuda.synchronize()
+    assert kcuda.LAUNCHES["dequantize_mean"] == before + len(cases)
 
 
 @pytest.mark.cuda
@@ -143,6 +242,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="norms"):
         ops.dequantize_op(torch.zeros(8, 256, dtype=torch.int8, device=dev),
                           torch.ones(7, device=dev), levels)
+    codes = torch.zeros(2, 8, 256, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="validity needs weights"):
+        ops.dequantize_mean_op(codes, torch.ones(2, 8, device=dev), levels,
+                               None, torch.ones(2, 8, dtype=torch.bool,
+                                                device=dev))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.dequantize_mean_op(codes, torch.ones(2, 8), levels)
 
 
 @pytest.mark.cuda

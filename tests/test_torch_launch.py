@@ -81,8 +81,8 @@ C_TYPES = {"long long": cuda._LL, "int": cuda._I}
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """Each C entry point's parameters, as declared in its source, are
     the argument types ``kernel()`` binds: pointers, long long, int."""
-    symbol, argtypes = cuda.KERNELS[name]
-    src = (cuda.CSRC / f"{name}.cu").read_text()
+    source, symbol, argtypes = cuda.KERNELS[name]
+    src = (cuda.CSRC / f"{source}.cu").read_text()
     decl = re.search(r'extern "C" int %s\(([^)]*)\)' % symbol, src)
     assert decl is not None
     params = [" ".join(p.split()[:-1]) for p in decl.group(1).split(",")]
@@ -119,25 +119,35 @@ def csrc_copy(tmp_path, monkeypatch):
     return src
 
 
-@pytest.mark.parametrize("name", sorted(cuda.KERNELS))
+@pytest.mark.parametrize("name", sorted(cuda.SOURCES))
 def test_an_edited_source_gets_a_new_library(csrc_copy, name):
-    before = {k: cuda.library_path(k) for k in cuda.KERNELS}
-    assert before == {k: cuda.library_path(k) for k in cuda.KERNELS}
-    assert len(set(before.values())) == len(cuda.KERNELS)
+    before = {k: cuda.library_path(k) for k in cuda.SOURCES}
+    assert before == {k: cuda.library_path(k) for k in cuda.SOURCES}
+    assert len(set(before.values())) == len(cuda.SOURCES)
     with open(csrc_copy / f"{name}.cu", "a") as f:
         f.write("// edited\n")
-    after = {k: cuda.library_path(k) for k in cuda.KERNELS}
-    assert {k for k in cuda.KERNELS if after[k] != before[k]} == {name}
+    after = {k: cuda.library_path(k) for k in cuda.SOURCES}
+    assert {k for k in cuda.SOURCES if after[k] != before[k]} == {name}
     assert after[name].parent == cuda.BUILD_DIR
     assert after[name].name.startswith(f"{name}-")
 
 
+def test_every_kernel_lives_in_a_source_of_its_own_library():
+    """dequantize.cu holds two kernels; every source is built once."""
+    assert cuda.SOURCES == ("quantize", "dequantize", "bucket_stats")
+    assert {k: v[0] for k, v in cuda.KERNELS.items()} == {
+        "quantize": "quantize", "dequantize": "dequantize",
+        "dequantize_mean": "dequantize", "bucket_stats": "bucket_stats"}
+    for source in cuda.SOURCES:
+        assert (cuda.CSRC / f"{source}.cu").exists()
+
+
 def test_an_edited_header_rebuilds_every_kernel(csrc_copy):
-    before = {k: cuda.library_path(k) for k in cuda.KERNELS}
+    before = {k: cuda.library_path(k) for k in cuda.SOURCES}
     with open(csrc_copy / "common.cuh", "a") as f:
         f.write("// edited\n")
-    after = {k: cuda.library_path(k) for k in cuda.KERNELS}
-    assert all(after[k] != before[k] for k in cuda.KERNELS)
+    after = {k: cuda.library_path(k) for k in cuda.SOURCES}
+    assert all(after[k] != before[k] for k in cuda.SOURCES)
 
 
 def _fake_nvcc(path, rc=0):
@@ -157,10 +167,12 @@ def test_build_compiles_only_what_is_missing_and_keeps_the_report(
     nvcc = _fake_nvcc(tmp_path / "nvcc")
     monkeypatch.setattr(cuda, "nvcc_path", lambda: nvcc)
     seconds = cuda.build()
-    assert set(seconds) == set(cuda.KERNELS)
-    for name in cuda.KERNELS:
+    assert set(seconds) == set(cuda.SOURCES)
+    for name in cuda.SOURCES:
         assert cuda.library_path(name).exists()
         assert cuda.ptxas_report(name) == cuda.parse_ptxas(PTXAS)
+    assert (cuda.ptxas_report("dequantize_mean")
+            == cuda.ptxas_report("dequantize"))
     assert cuda.build() == {}
     assert not list(cuda.BUILD_DIR.glob("*.tmp"))
 
