@@ -19,8 +19,7 @@ Phases, each of which must pass:
      them, where each kernel is timed in 3 rounds (median and spread)
      beside its plain version and its bound (phase B's: dequantize at the
      4 streams' int32 and at one stream's int8, its own round trip, and
-     dequantize_mean over the 4 streams' int8, with how many coordinates
-     the decode-then-``mean(0)`` route moves at M = 3; the simulator's:
+     dequantize_mean over the 4 streams' int8; the simulator's:
      the param server's 8-bit L-inf downlink, a ring hop over 4 workers'
      chunks, buckets of 512 in shared memory; phase H's 91,752 and phase
      I's 129,163 buckets of 8192), and the top-k selection is timed at
@@ -35,6 +34,13 @@ Phases, each of which must pass:
      agree; a table check: the gaussian-prior table fed a gradient that
      overflows every bucket's capacity flags every bucket that holds
      data, and the decode still equals the uniform codec's;
+  3b. division check: every route where the reference divides
+     (``division_routes``: the stacked and process-group transports'
+     means, FSDP's quantized and float32 reduce-scatters, fp32 and top-k
+     sync, three AdamW steps, a train step of 3 micro-batches, the
+     simulator's exact mean) on the card against the CPU at M = 3 and 5,
+     small shapes: no coordinate may differ; the count a route and the
+     phase's seconds are printed;
   4. fault check: a FaultyTransport flipping a word in a thousand on the
      card, all_gather and two_phase: with integrity words the aggregate
      is finite and the corrupt share of buckets is printed beside the
@@ -193,7 +199,7 @@ Phases, each of which must pass:
      ``Model(param_mode="fsdp")`` and ``Trainer``: 2 gloo ranks sharing
      cuda:0 against the stacked M = 2 FSDP run (losses and every shard's
      sha256 bit-equal; every rank launches the three kernels FSDP
-     runs: the reduce-scatter's quantize and dequantize, the level
+     runs: the reduce-scatter's quantize and dequantize_mean, the level
      update's bucket_stats), then the float32 FSDP run against the DP run
      (losses rtol 1e-5, the first step's first moment within 1e-6 of its
      largest entry); per run the steps, stages, peak memory and launches;
@@ -668,10 +674,7 @@ def mean_bytes(M, nb, bs) -> int:
 
 def decode_shapes(ops, ref, lv, out, nb=NB_B):
     """The main path's dequantize, a stream's own int8 rows at phase B's
-    nb, timed (record appended to ``out``); then the mean's order at M =
-    3 and 4: how many coordinates today's fused mean (sum, then divide)
-    and the decode-then-``mean(0)`` route it replaced (ATen's CUDA mean
-    multiplies by 1/M) part on.  Returns those counts."""
+    nb, timed (record appended to ``out``)."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -694,22 +697,8 @@ def decode_shapes(ops, ref, lv, out, nb=NB_B):
                  n * 5 + nb * 4, n * 5, 0.0,
                  "a worker's own round trip from its row of the codes")
     del c8, n8
-    moved = {}
-    for M in (3, 4):
-        codes, norms = mean_inputs(M, nb, levels, g)
-        old = ops.dequantize_op(codes.view(M * nb, BS_B), norms.view(-1),
-                                levels).view(M, -1).mean(0)
-        new = ops.dequantize_mean_op(codes, norms, levels).view(-1)
-        moved[M] = int((f32_bits(old) != f32_bits(new)).sum())
-        rel = float(((old - new).abs() / new.abs().clamp(min=1e-30)).max())
-        del old, new, codes, norms
-        print(f"mean order at M = {M}, ({nb}, {BS_B}) int8: decode then "
-              f"mean(0) against dequantize_mean (sum, then divide) differ "
-              f"at {moved[M]} of {n} coordinates ({moved[M] / n:.4%}), "
-              f"largest relative difference {rel:.3g}", flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return moved
 
 
 def slice_shapes(ops, ref, lv, codec_for_scheme, QuantScheme, SparseCodec,
@@ -886,6 +875,249 @@ def _agree(name, gpu, cpu, scale):
     close = float((err <= 1e-6 * scale + 1e-12).float().mean())
     check(close >= 0.999, f"{name}: card agrees with CPU at only {close:.5f}")
     return close, float(err.max())
+
+
+def _exact_buckets(g, M, nb, bs, top=None):
+    """(M, nb * bs) float32 rows whose bucket norms are exact, so that the
+    card's kernels and the CPU's plain versions draw the same codes from
+    the same uniforms: each bucket holds +-2^e (e per worker and bucket),
+    or with ``top`` magnitudes those (times 2^e, at random places, their
+    squares summing to a square) over smaller random ones."""
+    import torch
+    e = torch.randint(-12, -3, (M, nb, 1), generator=g).float()
+    sign = torch.randint(0, 2, (M, nb, bs), generator=g).float() * 2 - 1
+    if top is None:
+        mag = torch.ones(M, nb, bs)
+    else:
+        mag = torch.rand(M, nb, bs, generator=g) * 0.45
+        idx = torch.argsort(torch.rand(M, nb, bs, generator=g))[..., :len(top)]
+        mag.scatter_(2, idx, torch.tensor(top).expand(M, nb, len(top)))
+    return (sign * mag * torch.exp2(e)).reshape(M, nb * bs)
+
+
+class _Exact:
+    """A model whose loss and gradients both devices compute exactly: a
+    micro-batch's loss is ``(w * c).sum() + b`` of table row ``ids[0, 0]
+    % R`` (``w`` starts at 0), its gradient that row's ``c``.  It holds
+    what the trainer asks of a model on the data-parallel path."""
+
+    param_mode, tp = "dp", 1
+
+    def __init__(self, coef, bias):
+        import torch
+        self.coef, self.bias = coef, bias
+        self.flat = torch.zeros(coef.shape[1], device=coef.device)
+        self.d = self.flat.numel()
+        self.w = torch.nn.Parameter(self.flat)
+
+    def attach_grads(self, g):
+        self.w.grad = g
+
+    def loss(self, ids, labels, vision=None):
+        r = ids[:1, 0] % self.coef.shape[0]
+        return (self.w * self.coef[r][0]).sum() + self.bias[r][0]
+
+
+def division_routes():
+    """Every route where the reference divides, ``name -> fn(M, device)``:
+    each makes its inputs on the CPU from a seed, runs the route on
+    ``device`` and returns its float32 results on the CPU.  The routes: the
+    stacked transport's three means; the process-group transport's two,
+    rank by rank, with the collective played from every rank's rows (only
+    the arithmetic after it runs); FSDP's quantized reduce-scatter (its
+    rounds through ``decode_mean``) and float32 one; fp32 sync and the
+    top-k wire through ``quantized_allreduce``; three AdamW steps from one
+    state; a data-parallel train step of 3 micro-batches (fp32 sync, AdamW)
+    of ``_Exact``; the simulator's exact mean.  The quantized routes take
+    ``_exact_buckets`` rows: both devices then draw the same codes, and
+    what the card could round otherwise is the mean alone."""
+    import contextlib
+    from unittest import mock
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compress import SparseCodec
+    from repro_torch.core.codec import make_codec
+    from repro_torch.core.schemes import QuantScheme
+    from repro_torch.dist import fsdp, sync
+    from repro_torch.dist.transport import (
+        ProcessGroupTransport, StackedTransport)
+    from repro_torch.sim.scenario import exact_mean
+    from repro_torch.train.optim import (
+        OptimConfig, apply_updates, init_opt_state)
+    from repro_torch.train.train_step import TrainConfig, Trainer
+
+    bs = 1024
+    scheme = QuantScheme(name="alq", bits=3, bucket_size=bs)
+
+    def rows(M, n, seed):
+        g = torch.Generator().manual_seed(seed)
+        return (torch.randn(M, n, generator=g)
+                * torch.exp(3 * torch.randn(M, 1, generator=g)))
+
+    def stacked(name):
+        def run(M, dev):
+            t = StackedTransport(M)
+            x = rows(M, M * 4096, seed=M)
+            return [getattr(t, name)(x.to(dev)).cpu()]
+        return run
+
+    @contextlib.contextmanager
+    def played(x, rank):
+        """The collectives of rank ``rank`` of M, played from the M ranks'
+        rows ``x``: what they would deliver to it."""
+        M = x.shape[0]
+
+        def all_to_all_single(out, inp, group=None):
+            out.copy_(torch.stack([r.view(M, -1)[rank] for r in x]))
+
+        def all_reduce(t, group=None):
+            total = torch.zeros_like(t)
+            for r in x:
+                total += r.view(t.shape)
+            t.copy_(total)
+
+        with mock.patch.object(dist, "all_to_all_single", all_to_all_single), \
+                mock.patch.object(dist, "all_reduce", all_reduce):
+            yield
+
+    def group(name):
+        def run(M, dev):
+            x = rows(M, M * 4096, seed=10 + M).to(dev)
+            out = []
+            for rank in range(M):
+                t = ProcessGroupTransport.__new__(ProcessGroupTransport)
+                t._size, t._rank, t.group, t.backend = M, rank, None, "gloo"
+                with played(x, rank):
+                    out.append(getattr(t, name)(x[rank][None]).cpu())
+            return out
+        return run
+
+    def fsdp_rs(quantized):
+        def run(M, dev):
+            codec = make_codec(scheme, "uniform")
+            _, nb = fsdp.chunk_plan(24 * M * bs, bs, M)
+            g = torch.Generator().manual_seed(20 + M)
+            x = _exact_buckets(g, M, nb, bs)
+            k = fsdp._rounds_for(nb // M)
+            u = [[torch.rand(codec.rounding_shape(nb // k), generator=g)
+                  .to(dev) for _ in range(k)] for _ in range(M)]
+            t = StackedTransport(M)
+            if quantized:
+                out = fsdp._quantized_reduce_scatter(
+                    x.to(dev), scheme.init_levels(dev), None, transport=t,
+                    codec=codec, u=u)
+            else:
+                out = fsdp.reduce_scatter(x.to(dev), scheme.init_levels(dev),
+                                          None, transport=t, codec=codec,
+                                          quantized=False)
+            return [out.cpu()]
+        return run
+
+    def allreduce(kind):
+        def run(M, dev):
+            d, top = 40 * bs, (1.0, 2.0, 8.0, 10.0)   # 1+4+64+100 = 13^2
+            g = torch.Generator().manual_seed(30 + M)
+            if kind == "fp32":
+                s = QuantScheme(name="fp32")
+                out, _ = sync.quantized_allreduce(
+                    rows(M, d, seed=40 + M).to(dev), s, s.init_state(dev))
+                return [out.cpu()]
+            codec = SparseCodec(bucket_size=bs, num_levels=scheme.num_levels,
+                                k=len(top))
+            plan = codec.plan(d)
+            x = _exact_buckets(g, M, plan.nb, bs, top)[:, :d]
+            u = [torch.rand(codec.rounding_shape(plan.nb), generator=g)
+                 .to(dev) for _ in range(M)]
+            out, _ = sync.quantized_allreduce(
+                x.to(dev), scheme, scheme.init_state(dev), codec=codec, u=u)
+            return [out.cpu()]
+        return run
+
+    def adamw(M, dev):
+        del M
+        cfg = OptimConfig(name="adamw", lr=1e-2, weight_decay=1e-2)
+        x = rows(4, 1 << 16, seed=50)
+        flat = x[0].to(dev)
+        state = init_opt_state(cfg, flat)
+        out = []
+        for t in range(3):
+            state = apply_updates(cfg, flat, x[1 + t].to(dev) * 1e-2, state)
+            # copies: on the CPU, .cpu() would return the updated tensors
+            out += [t.to("cpu", copy=True)
+                    for t in (flat, state.mu, state.nu)]
+        return out
+
+    def micro(M, dev):
+        d, R, k = 1 << 14, 16, 3
+        g = torch.Generator().manual_seed(60 + M)
+        model = _Exact(rows(R, d, seed=61 + M).to(dev),
+                       torch.randn(R, generator=g).to(dev))
+        trainer = Trainer(model, TrainConfig(
+            scheme=scheme, sync_mode="fp32", optim=OptimConfig(
+                name="adamw", lr=1e-2, weight_decay=1e-2),
+            workers=M, microbatches=k, update_milestones=(),
+            update_every=0))
+        ids = torch.randint(0, 1 << 20, (M * k, 4), generator=g).to(dev)
+        m = trainer.step_tensors({"ids": ids, "labels": ids})
+        return [m["loss"].cpu()[None], model.flat.cpu(),
+                trainer.opt.mu.cpu(), trainer.opt.nu.cpu()]
+
+    def simulator(M, dev):
+        return [exact_mean(rows(M, 1 << 16, seed=70 + M).to(dev)).cpu()]
+
+    return {
+        "stacked mean_workers": stacked("mean_workers"),
+        "stacked mean_psum": stacked("mean_psum"),
+        "stacked reduce_scatter_mean": stacked("reduce_scatter_mean"),
+        "group reduce_scatter_mean": group("reduce_scatter_mean"),
+        "group mean_psum": group("mean_psum"),
+        "fsdp quantized reduce-scatter": fsdp_rs(True),
+        "fsdp float32 reduce-scatter": fsdp_rs(False),
+        "fp32 sync": allreduce("fp32"),
+        "topk sync": allreduce("topk"),
+        "adamw, 3 steps": adamw,
+        "micro-batch mean, k = 3": micro,
+        "simulator's exact mean": simulator,
+    }
+
+
+def division_check() -> dict:
+    """Every route of ``division_routes`` on the card against the CPU at
+    M = 3 and 5: the coordinates whose bits differ, which must be none
+    (the route rounds as the reference does on both devices), and the
+    kernels the card's FSDP rounds launch."""
+    import torch
+    from repro_torch.kernels import cuda
+    t0 = time.perf_counter()
+    out = {}
+    for name, run in division_routes().items():
+        for M in (3, 5):
+            before = dict(cuda.LAUNCHES)
+            got = run(M, "cuda")
+            torch.cuda.synchronize()
+            launched = {k: v - before.get(k, 0)
+                        for k, v in cuda.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            want = run(M, "cpu")
+            check(len(got) == len(want) and all(
+                a.shape == b.shape for a, b in zip(got, want)),
+                f"division {name} at M = {M}: shapes differ")
+            n = sum(int((f32_bits(a) != f32_bits(b)).sum())
+                    for a, b in zip(got, want))
+            total = sum(b.numel() for b in want)
+            out[f"{name}, M = {M}"] = n
+            print(f"division {name} at M = {M}: {n} of {total} coordinates "
+                  f"differ between the card and the CPU; card launches "
+                  f"{launched}", flush=True)
+            if name == "fsdp quantized reduce-scatter":
+                check(launched.get("dequantize_mean", 0) > 0,
+                      f"FSDP's rounds launched {launched}")
+    bad = {k: v for k, v in out.items() if v}
+    check(not bad, f"division: the card and the CPU differ: {bad}")
+    secs = time.perf_counter() - t0
+    print(f"division: {len(out)} cases bit-equal between the card and the "
+          f"CPU in {secs:.1f} s", flush=True)
+    return {"differ": out, "seconds": secs}
 
 
 def sync_check(sync, compress, QuantScheme, make_codec):
@@ -3010,7 +3242,9 @@ def phase_o(smi: str) -> dict:
     large tensor on the card.  O1: qwen3-0.6b whole in 2 gloo ranks on
     cuda:0, the quantized reduce-scatter, against the stacked M = 2 FSDP
     run: every rank's losses and shard digest bit-equal; every rank
-    launches the three kernels FSDP runs (no dequantize_mean).  O2: the
+    launches the three kernels FSDP runs (quantize, dequantize_mean for
+    each round's decode-and-mean, bucket_stats; no own round trip, so no
+    dequantize).  O2: the
     float32 FSDP run against the DP run (``sync_mode="fp32"``), one after
     the other in the process of the stacked O1 run: losses rtol 1e-5,
     the first step's first moment (0.1 x the aggregate) within 1e-6 of its
@@ -3032,7 +3266,7 @@ def phase_o(smi: str) -> dict:
             check(dg == stacked["digests"][w], f"phase O rank {r['rank']} "
                   f"shard {w} differs from the stacked run's")
         check(all(r["launches"].get(k, 0) > 0 for k in (
-            "quantize", "dequantize", "bucket_stats")),
+            "quantize", "dequantize_mean", "bucket_stats")),
             f"phase O rank {r['rank']} launches {r['launches']}")
         check(all(math.isfinite(x) for x in r["loss"]), "phase O loss")
     rel = max(abs(a - b) / abs(b) for a, b in zip(fp32["loss"], dp["loss"]))
@@ -3070,8 +3304,9 @@ def phase_o(smi: str) -> dict:
 def fsdp_shapes(ops, ref, lv, out):
     """Each FSDP round's kernels at phase O's shapes (qwen3-0.6b, M = 2,
     buckets of 8192: a layer slot's round encodes 240 buckets, embed's
-    and lm_head's 2376; a round decodes as many, the M received streams
-    of ppr buckets), against the plain versions, timed in 3 rounds."""
+    and lm_head's 2376; a round decodes and averages the M received
+    streams of ppr = nb / M buckets in one dequantize_mean), against the
+    plain versions, timed in 3 rounds."""
     import torch
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(13)
@@ -3095,17 +3330,19 @@ def fsdp_shapes(ops, ref, lv, out):
                      n * 9 + nb * 4, n * (20 + math.log2(L)), worst,
                      f"FSDP encode of {what}, {mism} codes off by one at "
                      "ties")
-        c32 = codes.to(torch.int32)
-        got = ops.dequantize_op(c32, norms, levels)
-        check(torch.equal(got, ref.dequantize_ref(c32, norms, levels)),
-              f"dequantize at FSDP's {nb} buckets not exact")
-        record_shape(out, "phase O shape", "dequantize",
-                     f"({nb}, {BS_B}) int32",
-                     lambda: ops.dequantize_op(c32, norms, levels),
-                     lambda: ref.dequantize_ref(c32, norms, levels),
-                     n * 8 + nb * 4, n * 5, 0.0,
-                     f"FSDP decode of {what}'s 2 received streams")
-        del vb, u, codes, norms, c2, n2, c32, got
+        # the M = 2 received streams, ppr buckets each
+        cm, nm = codes.view(2, nb // 2, BS_B), norms.view(2, nb // 2)
+        got = ops.dequantize_mean_op(cm, nm, levels)
+        check(torch.equal(f32_bits(got), f32_bits(
+            ref.dequantize_mean_ref(cm, nm, levels))),
+              f"dequantize_mean at FSDP's {nb} buckets not bit-equal")
+        record_shape(out, "phase O shape", "dequantize_mean",
+                     f"(2, {nb // 2}, {BS_B}) int8",
+                     lambda: ops.dequantize_mean_op(cm, nm, levels),
+                     lambda: ref.dequantize_mean_ref(cm, nm, levels),
+                     mean_bytes(2, nb // 2, BS_B), n * 6, 0.0,
+                     f"FSDP decode-and-mean of {what}'s 2 received streams")
+        del vb, u, codes, norms, c2, n2, cm, nm, got
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3901,13 +4138,14 @@ def main() -> None:
                                 QuantScheme)
     shapes, t_select = slice_shapes(ops, ref, lv, codec_for_scheme,
                                     QuantScheme, SparseCodec, resample_levels)
-    mean_order = decode_shapes(ops, ref, lv, shapes)
+    decode_shapes(ops, ref, lv, shapes)
     sim_shapes(ops, ref, lv, cuda, shapes)
     phase_shapes(ops, ref, lv, shapes, "H", NB_H)
     phase_shapes(ops, ref, lv, shapes, "I", NB_I)
     lap("the build and the kernels")
     fsdp_shapes(ops, ref, lv, shapes)
     sync_check(sync, compress, QuantScheme, make_codec)
+    division = division_check()
     entropy_words_check(ops, QuantScheme, make_codec)
     table_check(QuantScheme, make_codec, from_int32_bits)
     fault_check(sync, faults, transport, QuantScheme, make_codec,
@@ -4070,7 +4308,7 @@ def main() -> None:
         "steps": [{"step_ms": h["step_ms"], "stage_ms": h["stage_ms"],
                    "loss": h["loss"]} for h in r["history"]]}
         for k, (r, c, ly, pk) in phases.items()},
-        "select_ms": t_select, "mean_order": mean_order}), flush=True)
+        "select_ms": t_select, "division": division}), flush=True)
     del phases, res
 
     # ---- phase G: the cluster simulator at full width ----

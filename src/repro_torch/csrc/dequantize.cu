@@ -35,10 +35,12 @@
 // The products and sums are taken in the plain versions' order with explicit
 // round-to-nearest intrinsics, so nvcc contracts nothing into an FMA and both
 // kernels equal their plain versions bit for bit: (level * sign) * norm; the
-// plain mean adds the M streams in worker order from 0 and then divides by M
-// (the reference's wire contract: sum, then divide); the weighted means start
-// from w[0] * v[0] and add w[m] * v[m], each product rounded, with an invalid
-// bucket's value taken as 0 before its weight (it may decode to NaN).
+// plain mean adds the M streams in worker order from 0 and then multiplies by
+// the float32 reciprocal of M (the reference's mean_workers as XLA compiles
+// it: its simplifier turns the division by the constant M into that product);
+// the weighted means start from w[0] * v[0] and add w[m] * v[m], each product
+// rounded, with an invalid bucket's value taken as 0 before its weight (it may
+// decode to NaN).
 #include <algorithm>
 
 #include "common.cuh"
@@ -109,9 +111,10 @@ __device__ __forceinline__ float add_term(float acc, float x, int m, float w, bo
   return m == 0 ? t : __fadd_rn(acc, t);
 }
 
+// inv: the float32 reciprocal of M, __frcp_rn((float)M).
 template <int MODE>
-__device__ __forceinline__ float finish(float acc, int M) {
-  return MODE == kMeanPlain ? __fdiv_rn(acc, (float)M) : acc;
+__device__ __forceinline__ float finish(float acc, float inv) {
+  return MODE == kMeanPlain ? __fmul_rn(acc, inv) : acc;
 }
 
 // A unit's 4 codes as one load: 4, 8 or 16 bytes.
@@ -219,6 +222,7 @@ __global__ void mean_vec(const TCode* __restrict__ codes, const float* __restric
   constexpr int U = kMeanUnits, B = kMeanBlock;
   __shared__ float tab[table_size<TCode>()];
   stage_table<TCode>(tab, levels, L);
+  const float inv = __frcp_rn((float)M);
   for (UnitWalk<U> w((long long)blockIdx.x * blockDim.x + threadIdx.x,
                      (long long)gridDim.x * blockDim.x, upb);
        w.u < units; w.next()) {
@@ -258,8 +262,8 @@ __global__ void mean_vec(const TCode* __restrict__ codes, const float* __restric
     for (int k = 0; k < U; ++k)
       if (w.unit(k) < units)
         store_unit(out, w.unit(k),
-                   make_float4(finish<MODE>(acc[k][0], M), finish<MODE>(acc[k][1], M),
-                               finish<MODE>(acc[k][2], M), finish<MODE>(acc[k][3], M)));
+                   make_float4(finish<MODE>(acc[k][0], inv), finish<MODE>(acc[k][1], inv),
+                               finish<MODE>(acc[k][2], inv), finish<MODE>(acc[k][3], inv)));
   }
 }
 
@@ -271,6 +275,7 @@ __global__ void mean_scalar(const TCode* __restrict__ codes, const float* __rest
                             long long n, long long nb, int bs, int M, int L) {
   __shared__ float tab[table_size<TCode>()];
   stage_table<TCode>(tab, levels, L);
+  const float inv = __frcp_rn((float)M);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const long long b = i / bs;
@@ -283,7 +288,7 @@ __global__ void mean_scalar(const TCode* __restrict__ codes, const float* __rest
                                                   __ldg(norms + mb)),
                            m, wt, ok);
     }
-    out[i] = finish<MODE>(acc, M);
+    out[i] = finish<MODE>(acc, inv);
   }
 }
 

@@ -165,7 +165,7 @@ def _quantized_reduce_scatter(rows: torch.Tensor, levels: torch.Tensor,
     shards=M)``, with the uniforms ``u[i][c]`` or else
     ``keys[i].fold(rank).fold(c).uniform(...)``; the all_to_all moves
     segment j to worker j, which decodes the M streams of its segment and
-    takes their mean.
+    takes their mean (``codec.decode_mean``).
 
     ``residual`` (L, Lp) enables error feedback: the residual is added to
     the cotangent before ENCODE and the new residual ``inp - Q(inp)`` is
@@ -212,8 +212,10 @@ def _quantized_reduce_scatter(rows: torch.Tensor, levels: torch.Tensor,
         del payloads
         for i in range(L):
             mine = WirePayload(received.words[i], received.norm_words[i])
-            vals = codec.decode(mine, levels, plan, shard=local[i])
-            pieces[i].append(vals.mean(0))
+            # the reference's decode of the M streams and their mean, in one
+            # dequantize_mean where the codec fuses them
+            pieces[i].append(codec.decode_mean(
+                mine, levels, plan, transport, shard=local[i]).mean)
         del received
     shard_mean = torch.stack([torch.cat(p) for p in pieces])
     if residual is None:

@@ -58,6 +58,7 @@ from repro_torch.core.schemes import QuantScheme, SchemeState
 from repro_torch.core.stats import (
     TruncNormStats, merge_stats, stats_from_moments)
 from repro_torch.kernels import ops
+from repro_torch.numerics import reciprocal
 from repro_torch.timing import NO_CLOCK, Renamed
 from .transport import StackedTransport, make_transport
 
@@ -178,7 +179,9 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
     del gathered
     out = dec.mean[:d]
     if plan.integrity:
-        corrupt[:] = 1.0 - dec.valid.float().mean()
+        # the reference's mean(1 - valid): an exact count, times 1/n
+        corrupt[:] = ((~dec.valid).float().sum()
+                      * reciprocal(dec.valid.numel()))
         excluded[:] = (~dec.valid).all(dim=1).float().sum()
     for i, w in enumerate(local):
         # with integrity words each worker's own round trip comes from its
@@ -251,7 +254,8 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
         # as it may decode to NaN)
         out.view(M, snb, bs).masked_fill_(~valid2[:, :, None], 0.0)
         bad2 = (~valid2).float().sum()
-        corrupt = (_all_workers(transport, bad1) + bad2) / (2 * M * snb)
+        corrupt = ((_all_workers(transport, bad1) + bad2)
+                   * reciprocal(2 * M * snb))
     else:
         out = codec2.decode(g2, lv2, plan2, clock=clock)
         corrupt = torch.zeros(M, device=dev)

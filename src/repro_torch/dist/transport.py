@@ -8,9 +8,12 @@ argument is a list (or leading axis) over them, in that order; what a
 collective returns covers all M workers.
 
 ``StackedTransport`` holds all M logical workers on one device: a gather
-is a ``torch.stack`` and the cross-worker mean is ``mean(0)``.  It is the
-counterpart of the reference's vmap-axis transport, which its cluster
-simulator uses to run M logical workers on one host.
+is a ``torch.stack`` and the cross-worker mean is ``numerics.worker_mean``
+(the rows added in worker order from 0, then the product with the float32
+reciprocal of M, as XLA compiles the reference's ``mean(0)`` and ``psum /
+M``; alike on the CPU and the card).  It is the counterpart of the
+reference's vmap-axis transport, which its cluster simulator uses to run M
+logical workers on one host.
 ``ProcessGroupTransport`` holds one worker a process and moves the words
 with ``torch.distributed`` collectives: the counterpart of the
 reference's ``MeshTransport`` over the data axes.
@@ -20,13 +23,15 @@ transport averages uniformly; ``MaskedTransport`` renormalizes over the
 workers whose payloads arrived (the simulator's dropout hook), so every
 wire mode gets dropout support without knowing about it.  A codec that
 decodes and averages in one pass asks ``mean_weights`` which weights the
-rule uses (None for the plain mean, sum then divide), so the sync engine
-never needs to know which transport it holds.
+rule uses (None for the plain mean), so the sync engine never needs to know
+which transport it holds.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.numerics import reciprocal, worker_mean
 
 
 def _weighted_sum(weights: torch.Tensor, stacked: torch.Tensor
@@ -84,7 +89,7 @@ class StackedTransport:
     def mean_weights(self, valid: torch.Tensor | None = None
                      ) -> torch.Tensor | None:
         """The weights of this transport's mean: None for the plain mean
-        (sum, then divide by M); with an (M, nb) bool ``valid`` the (M,
+        (``worker_mean``); with an (M, nb) bool ``valid`` the (M,
         nb) weights of ``mean_workers_bucketed``, on its device."""
         if valid is None:
             return None
@@ -93,9 +98,10 @@ class StackedTransport:
         return a / torch.clamp(a.sum(0), min=1.0)
 
     def mean_workers(self, stacked: torch.Tensor) -> torch.Tensor:
-        """Mean over the leading (worker) axis: sum, then divide, the
-        reduction order the reference's wire contract pins."""
-        return stacked.mean(0)
+        """Mean over the leading (worker) axis, the reference's
+        ``stacked.mean(0)``: the sum in worker order, then the product with
+        the float32 reciprocal of M (``numerics.worker_mean``)."""
+        return worker_mean(stacked)
 
     def mean_workers_bucketed(self, stacked: torch.Tensor,
                               valid: torch.Tensor,
@@ -117,15 +123,16 @@ class StackedTransport:
         return _weighted_sum(w[:, :, None], vb).reshape(-1)
 
     def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
-        """fp32 mean-allreduce of per-worker local values (M, ...)."""
-        return stacked.mean(0)
+        """fp32 mean-allreduce of per-worker local values (M, ...), the
+        reference's ``psum / M``: summed in float32 (``worker_mean``)."""
+        return worker_mean(stacked)
 
     def reduce_scatter_mean(self, rows: torch.Tensor) -> torch.Tensor:
         """The local workers' (L, n) rows -> (L, n/M): local worker i's
         shard (the i-th of M equal slices) of the mean over all M
         workers' rows, the reference's ``psum_scatter / M``."""
         M = self._size
-        return rows.view(M, M, rows.shape[1] // M).mean(0)
+        return worker_mean(rows.view(M, M, rows.shape[1] // M))
 
 
 class MaskedTransport(StackedTransport):
@@ -214,18 +221,23 @@ class ProcessGroupTransport(StackedTransport):
     def reduce_scatter_mean(self, rows: torch.Tensor) -> torch.Tensor:
         """This process's (1, n) row -> (1, n/M), its shard of the mean:
         an ``all_to_all_single`` of the M slices (gloo has no
-        reduce-scatter), then the mean of the M received slices."""
+        reduce-scatter), then the stacked transport's mean of the M
+        received slices: the same additions in the same order."""
         x = self._own(rows).view(self._size, -1)
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
-        return out.mean(0)[None]
+        return worker_mean(out)[None]
 
     def mean_psum(self, stacked: torch.Tensor) -> torch.Tensor:
         """The reference's ``psum / size`` of this process's (1, ...)
-        row: a float32 sum over the ranks, divided, in the row's dtype."""
+        row: a float32 sum over the ranks, times the float32 reciprocal of
+        the size (as XLA compiles the division), in the row's dtype.  The
+        product rounds alike on both devices; the order in which NCCL's or
+        gloo's all-reduce adds the ranks is its own, a separate and
+        standing difference from the stacked transport's worker order."""
         total = self._own(stacked).to(torch.float32, copy=True)
         dist.all_reduce(total, group=self.group)
-        return (total / self._size).to(stacked.dtype)
+        return total.mul_(reciprocal(self._size)).to(stacked.dtype)
 
 
 def make_transport(size: int, active: torch.Tensor | None = None

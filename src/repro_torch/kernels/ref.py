@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core.quantize import (
     bucket_norm, code_dtype, rounding_interval)
+from repro_torch.numerics import reciprocal
 
 
 def rounding(vb: torch.Tensor, norms: torch.Tensor, levels: torch.Tensor
@@ -77,8 +78,9 @@ def dequantize_mean_ref(codes: torch.Tensor, norms: torch.Tensor,
     averaged over the streams in worker order -> (nb, bs) float32,
     holding one decoded stream at a time.
 
-    Without ``weights``: the sum from 0, then divided by M (the
-    reference's wire contract, which the CPU's ``mean(0)`` computes).
+    Without ``weights``: the sum from 0, then the product with the float32
+    reciprocal of M (the reference's ``mean_workers`` as XLA compiles it,
+    ``numerics.worker_mean``).
     With (M,) or (M, nb) ``weights``: ``w[0] * v[0] + w[1] * v[1] + ...``,
     each product rounded before its add (``transport._weighted_sum``);
     with an (M, nb) bool ``valid`` besides, an invalid bucket's values
@@ -90,10 +92,7 @@ def dequantize_mean_ref(codes: torch.Tensor, norms: torch.Tensor,
                           device=codes.device)
         for m in range(M):
             out += dequantize_ref(codes[m], norms[m], levels)
-        # a tensor divisor: ATen's CUDA division by a Python number
-        # multiplies by its rounded reciprocal instead
-        return out.div_(torch.full((), M, dtype=torch.float32,
-                                   device=out.device))
+        return out.mul_(reciprocal(M))
     if weights.dim() == 1:
         weights = weights[:, None].expand(M, nb)
     out = None

@@ -56,6 +56,7 @@ from repro_torch.core.stats import expected_variance
 from repro_torch.dist import sync
 from repro_torch.dist.faults import FaultModel
 from repro_torch.models.transformer import Model
+from repro_torch.numerics import worker_mean
 from repro_torch.timing import NO_CLOCK, StageClock
 from repro_torch.train.data import DataConfig, Pipeline
 from repro_torch.train.optim import OptimConfig, apply_updates, init_opt_state
@@ -265,6 +266,17 @@ register(Scenario(
 # one grid cell = (scheme, topology, compress, fault) for `steps` steps
 # ---------------------------------------------------------------------------
 
+def exact_mean(flats: torch.Tensor, active=None) -> torch.Tensor:
+    """The exact fp32 mean of the (M, d) gradient rows, against which the
+    aggregate's end-to-end error is measured: the reference's
+    ``flats.mean(0)`` (``numerics.worker_mean``), or with the (M,) float32
+    ``active`` weights of a masked cell their renormalized combination."""
+    if active is None:
+        return worker_mean(flats)
+    wmask = (active / torch.clamp(active.sum(), min=1.0)).to(flats.device)
+    return torch.tensordot(wmask, flats, dims=([0], [0]))
+
+
 def step_seed(seed: int, step: int) -> int:
     """The seed of step ``step``'s rounding generator: (seed + 7, step)
     -> a 63-bit int, the counterpart of the reference's
@@ -322,15 +334,9 @@ class Cell:
         flats = self.grads
         clock.mark("grad")
 
-        # the exact (masked) fp32 mean, against which the aggregate's
-        # end-to-end error is measured; taken before the compression hook
-        # forms its input in the gradient rows
+        # taken before the compression hook forms its input in the rows
         act = torch.as_tensor(np.asarray(active), dtype=torch.float32)
-        if self.masked:
-            wmask = (act / torch.clamp(act.sum(), min=1.0)).to(flats.device)
-            exact = torch.tensordot(wmask, flats, dims=([0], [0]))
-        else:
-            exact = flats.mean(0)
+        exact = exact_mean(flats, act if self.masked else None)
 
         # Algorithm 1 line 4 on the simulated cluster: statistics merged
         # over the M logical workers; the new levels apply from the next
@@ -371,11 +377,12 @@ class Cell:
         self.scheme_state = new_state
         clock.mark("optimizer")
         return {
-            "loss": torch.stack(losses).mean().item(),
+            "loss": worker_mean(torch.stack(losses)).item(),
             "agg_err": agg_err.item(),
             "cum_agg_err": cum_agg_err.item(),
-            "quant_error": res.quant_error.mean().item(),
-            "residual_norm": self.comp_state.residual_norm.mean().item(),
+            "quant_error": worker_mean(res.quant_error).item(),
+            "residual_norm": worker_mean(
+                self.comp_state.residual_norm).item(),
             "kept_fraction": float(np.float32(self.algo.kept_fraction)),
             "grad_norm": grad_norm.item(),
             "sent_bytes": res.sent_bytes,

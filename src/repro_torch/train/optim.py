@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import numerics
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimConfig:
@@ -96,8 +98,10 @@ def apply_updates(cfg: OptimConfig, flat: torch.Tensor, grad: torch.Tensor,
             _weak(1 - cfg.b1, grad) * grad)
         v = state.nu.mul_(_weak(cfg.b2, grad)).add_(
             _weak(1 - cfg.b2, grad) * grad * grad)
-        # float32 from here on: the reference's corrections are float32
-        upd = (m.float() / c1) / (torch.sqrt(v.float() / c2) + cfg.eps)
+        # float32 from here on: the reference's corrections are float32,
+        # and it divides by them (they come from the traced step)
+        upd = numerics.divide(m.float(), c1) / (
+            numerics.sqrt(numerics.divide(v.float(), c2)) + cfg.eps)
         flat.sub_(lr * (upd + decay))
         return OptState(mu=m, nu=v, count=step + 1)
     raise ValueError(cfg.name)

@@ -69,6 +69,7 @@ from repro_torch.dist.transport import StackedTransport
 from repro_torch.models.layers import tp_all_gather
 from repro_torch.models.transformer import (
     Model, final_norm_slice, from_global, fsdp_views, to_global)
+from repro_torch.numerics import reciprocal, worker_mean
 from repro_torch.timing import NO_CLOCK
 from .optim import OptimConfig, OptState, apply_updates, init_opt_state
 
@@ -239,9 +240,9 @@ class Trainer:
                     None if vision is None else vision[i:i + mb])
                 part.backward()     # accumulates into the worker's row
                 loss = loss + part.detach()
-            if k > 1:
-                g.div_(k)
-                loss = loss / k
+            if k > 1:   # the reference's g / k, as XLA compiles it
+                g.mul_(reciprocal(k))
+                loss = loss * reciprocal(k)
             losses.append(loss)
         clock.mark("grad")
         # float32 rows are the same tensor
@@ -268,14 +269,14 @@ class Trainer:
         # every worker's loss, in worker order, in every process
         losses = self.transport.all_gather(losses)
         return {
-            "loss": losses.mean(),
+            "loss": worker_mean(losses),
             "grad_norm": grad_norm,
             "comm_bits_per_coord": m.comm_bits_per_coord,
             "quant_error": m.quant_error[0],
             "reduce_bits_per_coord": m.reduce_bits_per_coord,
             "broadcast_bits_per_coord": m.broadcast_bits_per_coord,
             "entropy_bits_per_coord": m.entropy_bits_per_coord,
-            "residual_norm": m.residual_norm.mean(),
+            "residual_norm": worker_mean(m.residual_norm),
             "kept_fraction": m.kept_fraction,
             "corrupt_fraction": m.corrupt_fraction[0],
             "excluded_workers": m.excluded_workers[0],
@@ -352,16 +353,17 @@ class Trainer:
         fn = torch.stack([self._fsdp_views(g)["final_norm"]
                           for g in self.grads])
         if k > 1:
-            synced.div_(k)
-            fn = fn / k
-            losses = [x / k for x in losses]
+            synced.mul_(reciprocal(k))
+            fn = fn * reciprocal(k)
+            losses = [x * reciprocal(k) for x in losses]
         sv = self._fsdp_views(synced)
         # the reference's grad_norm: worker 0's local gradient leaves
         sq = torch.stack([sum(torch.sum(
             (fn[i] if e.meta is None else sv[e.name][:, i]).float() ** 2)
             for e in model.fsdp_entries) for i in range(len(self.local))])
         # gathered, then one mean: the same additions in every form
-        sv["final_norm"].copy_(self.transport.all_gather(list(fn)).mean(0))
+        sv["final_norm"].copy_(
+            worker_mean(self.transport.all_gather(list(fn))))
         slot0 = torch.stack([sv["slots.0"][:, i].reshape(-1)
                              for i in range(len(self.local))])
         self.scheme_state = maybe_update_levels(
@@ -380,7 +382,7 @@ class Trainer:
         wire = (model.fsdp_codec.nominal_bits_per_coord if quantized
                 else 32.0)
         return {
-            "loss": losses.mean(),
+            "loss": worker_mean(losses),
             "grad_norm": grad_norm,
             "comm_bits_per_coord": 2.0 * wire if quantized else 32.0,
             "quant_error": 0.0,

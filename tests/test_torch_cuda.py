@@ -36,7 +36,13 @@ the card (losses and the final parameters' sha256).
 Rematerialization: every ``remat`` mode's gradients equal ``"none"``'s
 bit for bit on the card.  FSDP: the quantized reduce-scatter on the card
 against the CPU (every codec, with error feedback), launching the CUDA
-kernels, and a stacked FSDP trainer's steps on the card against the CPU.
+kernels (its rounds' decode-and-mean ``dequantize_mean``), and a stacked
+FSDP trainer's steps on the card against the CPU.
+
+Division: every route where the reference divides (``chip_smoke.py``'s
+``division_routes``: the transports' means, FSDP's reduce-scatters, fp32
+and top-k sync, three AdamW steps, a train step of 3 micro-batches, the
+simulator's exact mean) bit-equal on the card and the CPU at M = 3 and 5.
 
 Serving: a SMOKE config's prefill and decode steps on the card against
 the CPU (logits and caches within 1e-5 of their largest entry, 5e-5 for
@@ -957,7 +963,8 @@ def test_fsdp_reduce_scatter_on_card_matches_cpu(dev, kind):
     """``_quantized_reduce_scatter`` of 4 stacked workers (buckets of 1024,
     with error feedback) on the card against the CPU with the same keys:
     shard means and residuals within 1e-6 of the terms' magnitude, and
-    the card's encodes launch the CUDA quantize, its decodes dequantize."""
+    the card's encodes launch the CUDA quantize, its rounds' decodes
+    dequantize_mean and its own round trips dequantize."""
     from repro_torch.dist import fsdp
     from repro_torch.dist.transport import StackedTransport
     M, bs = 4, 1024
@@ -985,6 +992,7 @@ def test_fsdp_reduce_scatter_on_card_matches_cpu(dev, kind):
     launched = {k: kcuda.LAUNCHES[k] - before.get(k, 0) for k in kcuda.KERNELS}
     # one encode a worker and round (mixed widths: one quantize a group)
     assert launched["quantize"] >= M * k
+    assert launched["dequantize_mean"] >= M * k
     assert launched["dequantize"] >= M * k
     on_cpu = run("cpu")
     scale = float(rows.abs().max() + res.abs().max())
@@ -997,8 +1005,8 @@ def test_fsdp_trainer_launches_the_kernels_on_card(dev):
     """Two stacked workers of qwen3-0.6b's SMOKE config in FSDP, two steps
     with a level update at step 1, on the card against the CPU: losses
     within rtol 1e-5; every encode of the reduce-scatter launches the CUDA
-    quantize (the plain version never runs on card tensors), the level
-    update bucket_stats."""
+    quantize and every round's decode dequantize_mean (the plain versions
+    never run on card tensors), the level update bucket_stats."""
     from repro_torch import configs
     from repro_torch.models.transformer import Model
     from repro_torch.train.data import DataConfig, Pipeline
@@ -1036,7 +1044,8 @@ def test_fsdp_trainer_launches_the_kernels_on_card(dev):
                           for t in range(2)]
         if d.type == "cuda":
             launched = dict(kcuda.LAUNCHES)
-            assert launched["quantize"] > 0 and launched["dequantize"] > 0
+            assert launched["quantize"] > 0
+            assert launched["dequantize_mean"] > 0
             assert launched["bucket_stats"] > 0
         else:
             assert sum(kcuda.LAUNCHES.values()) == 0
@@ -1130,3 +1139,17 @@ def test_tp_pair_sharing_the_card_matches_the_cpu(dev, tmp_path):
         assert torch.equal(a["dpsum"], b["dpsum"])
         assert torch.equal(a["raw"], b["raw"])
     assert torch.equal(card[0]["psum"], card[1]["psum"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [3, 5])
+@pytest.mark.parametrize("route", list(_chip_smoke().division_routes()))
+def test_division_route_on_card_is_bit_equal_to_the_cpu(dev, route, M):
+    """The route (``chip_smoke.division_routes``) run on the card and on
+    the CPU from the same inputs: every result equal as bit patterns."""
+    run = _chip_smoke().division_routes()[route]
+    got, want = run(M, dev), run(M, "cpu")
+    assert [a.shape for a in got] == [b.shape for b in want]
+    for a, b in zip(got, want):
+        differ = int((_bits(a) != _bits(b)).sum())
+        assert differ == 0, f"{differ} of {b.numel()} differ"
