@@ -1,0 +1,5 @@
+"""The share of the traced window in which nothing ran on the card."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx.busy_s / ctx.window_s)
