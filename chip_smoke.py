@@ -3403,7 +3403,7 @@ def tp_check(argv: list[str]) -> None:
     from repro_torch.core.schemes import QuantScheme
     from repro_torch.kernels import cuda
     from repro_torch.launch import mesh
-    from repro_torch.models.layers import TPStats
+    from repro_torch import timing
     from repro_torch.models.transformer import Model, param_layout
     from repro_torch.train.optim import OptimConfig
     from repro_torch.train.train_step import TrainConfig, Trainer
@@ -3442,10 +3442,11 @@ def tp_check(argv: list[str]) -> None:
                 two.load_flat(mine)
                 del mine
                 torch.cuda.reset_peak_memory_stats()
-                TPStats.reset()
-                l2, g2, ms2 = grad_of(two, ids)
+                with timing.recording(dev):
+                    l2, g2, ms2 = grad_of(two, ids)
+                tp = timing.totals("tp_all_reduce")
                 rec.update(loss1=l1, loss2=l2, ms1=ms1, ms2=ms2,
-                           tp_calls=TPStats.calls, tp_bytes=TPStats.bytes,
+                           tp_calls=tp["calls"], tp_bytes=tp.get("bytes", 0),
                            peak_bytes=torch.cuda.max_memory_allocated())
                 worst = {"sharded": 0.0, "replicated": 0.0}
                 off = 0
@@ -3496,16 +3497,17 @@ def tp_check(argv: list[str]) -> None:
                             update_milestones=(0,), update_every=0, workers=1),
                             seed=0, transport=grid.transport)
                         cuda.reset_launches()
-                        TPStats.reset()
                         t0 = time.perf_counter()
-                        m = trainer.train_step(
-                            {k: v.to(d) for k, v in batch.items()},
-                            u=[u.to(d)])
+                        with timing.recording(d):
+                            m = trainer.train_step(
+                                {k: v.to(d) for k, v in batch.items()},
+                                u=[u.to(d)])
                         res.append({"loss": m["loss"],
                                     "grad": trainer.grads[0].float().cpu(),
                                     "ms": (time.perf_counter() - t0) * 1e3,
                                     "launches": dict(cuda.LAUNCHES),
-                                    "tp_calls": TPStats.calls})
+                                    "tp_calls": timing.totals(
+                                        "tp_all_reduce")["calls"]})
                     cpu_r, card_r = res
                     rel = (abs(card_r["loss"] - cpu_r["loss"])
                            / abs(cpu_r["loss"]))
@@ -3558,7 +3560,7 @@ def serve_tp(grid) -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.kernels import cuda
-    from repro_torch.models.layers import TPStats
+    from repro_torch import timing
     from repro_torch.models.transformer import Model
     from repro_torch.serve import (ServeConfig, make_decode_step,
                                    make_prefill_step)
@@ -3588,7 +3590,6 @@ def serve_tp(grid) -> dict:
     out = [tok]
     for i in range(gen - 1):
         pos = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
-        TPStats.reset()
         t0 = time.perf_counter()
         tok, caches = decode(tok, pos, caches)
         torch.cuda.synchronize()
@@ -3596,13 +3597,11 @@ def serve_tp(grid) -> dict:
         out.append(tok)
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     rec["tokens"] = torch.stack(out, dim=1).tolist()
-    TPStats.reset()
-    TPStats.timed = True
-    decode(tok, torch.full((batch,), prompt + gen - 1, dtype=torch.int32,
-                           device=dev), caches)
-    TPStats.timed = False
-    rec["collectives"] = {k: getattr(TPStats, k) for k in (
-        "calls", "bytes", "ms", "gather_calls", "gather_bytes", "gather_ms")}
+    with timing.recording(dev):
+        decode(tok, torch.full((batch,), prompt + gen - 1, dtype=torch.int32,
+                               device=dev), caches)
+    rec["collectives"] = {k: timing.totals(f"tp_{k}") for k in (
+        "all_reduce", "all_gather")}
     del model, caches, prefill, decode
     torch.cuda.empty_cache()
 
@@ -3763,7 +3762,7 @@ def phase_q(smi: str, q1: list[dict], q2: list[dict],
         med = statistics.median(r["step_ms"][1:])
         spread = max(r["step_ms"][1:]) - min(r["step_ms"][1:])
         tps = r["batch"] * (r["gen"] - 1) / (sum(r["step_ms"]) / 1e3)
-        c = r["collectives"]
+        ar, ag = r["collectives"]["all_reduce"], r["collectives"]["all_gather"]
         check(r["tokens"] == q1[0]["tokens"], "phase Q1: the ranks' tokens "
               "differ")
         check(all(0 <= t < 128256 for row in r["tokens"] for t in row)
@@ -3782,10 +3781,10 @@ def phase_q(smi: str, q1: list[dict], q2: list[dict],
               f"{r['prefill_ms']:.1f} ms; "
               f"{r['gen'] - 1} decode steps: first {r['step_ms'][0]:.2f} ms, "
               f"then median {med:.2f} ms (spread {spread:.2f}), {tps:.1f} "
-              f"tokens/s; a step's collectives: {c['calls']} all-reduces "
-              f"({c['bytes'] / 2**10:.1f} KiB, {c['ms']:.2f} ms), "
-              f"{c['gather_calls']} all-gathers "
-              f"({c['gather_bytes'] / 2**10:.1f} KiB, {c['gather_ms']:.2f} "
+              f"tokens/s; a step's collectives: {ar['calls']} all-reduces "
+              f"({ar.get('bytes', 0) / 2**10:.1f} KiB, {ar['ms']:.2f} ms), "
+              f"{ag['calls']} all-gathers "
+              f"({ag.get('bytes', 0) / 2**10:.1f} KiB, {ag['ms']:.2f} "
               f"ms); caches {r['cache_bytes'] / 2**20:.1f} MiB (phase K: "
               f"{k_cache_bytes / 2**20:.1f}), peak "
               f"{r['peak_bytes'] / 2**30:.2f} GiB; float32 against tp = 1: "

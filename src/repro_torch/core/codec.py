@@ -50,6 +50,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import timing
 from repro_torch.kernels import ops
 from repro_torch.timing import NO_CLOCK
 from . import packing
@@ -340,16 +341,18 @@ class UniformCodec(GradientCodec):
         """
         if plan is None:
             plan = self.plan_buckets(vb.shape[0])
-        u = rounding_uniforms(vb.shape, vb.device, u, generator)
-        codes, norms = ops.quantize_op(vb, u, levels,
-                                       norm_type=self.norm_type)
-        del u
+        with timing.span("quantize"):
+            u = rounding_uniforms(vb.shape, vb.device, u, generator)
+            codes, norms = ops.quantize_op(vb, u, levels,
+                                           norm_type=self.norm_type)
+            del u
         clock.mark("encode")
         L = levels.shape[0]
         snb = plan.shard_nb
         csum = None
         if self.integrity:
-            csum = self._checksums(codes, norms, L)
+            with timing.span("checksum"):
+                csum = self._checksums(codes, norms, L)
             clock.mark("checksum")
 
         def seg_words(j):
@@ -358,8 +361,9 @@ class UniformCodec(GradientCodec):
                 w = torch.cat([csum[j * snb:(j + 1) * snb], w])
             return w
 
-        words = torch.stack([seg_words(j) for j in range(plan.shards)])
-        payload = self._payload(words, norms, plan)
+        with timing.span("pack"):
+            words = torch.stack([seg_words(j) for j in range(plan.shards)])
+            payload = self._payload(words, norms, plan)
         clock.mark("pack")
         return payload
 
@@ -385,10 +389,13 @@ class UniformCodec(GradientCodec):
             valid = torch.ones((M, snb), dtype=torch.bool,
                                device=words.device)
         for m in range(M):
-            packing.unpack_signed(words[m], n, L, out=codes[m])
+            with timing.span("unpack", stream=m):
+                packing.unpack_signed(words[m], n, L, out=codes[m])
             if want_valid and stored is not None:
                 clock.mark("unpack")
-                valid[m] = self._checksums(codes[m], norms[m], L) == stored[m]
+                with timing.span("checksum", stream=m):
+                    valid[m] = (self._checksums(codes[m], norms[m], L)
+                                == stored[m])
                 clock.mark("checksum")
         clock.mark("unpack")
         return codes, norms, valid, single

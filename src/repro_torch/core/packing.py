@@ -16,12 +16,16 @@ sum of shifted fragments, with no scatter and no atomics.
 ``bucket_checksums`` gives the per-bucket integrity words of the
 ``integrity=`` wire: the reference's uint32 arithmetic, taken in int64
 and reduced mod 2**32, over row chunks of about ``CHUNK_SYMBOLS``.
+Each adds its chunk iterations to the recorder's ``chunks`` counter
+(``repro_torch.timing``) of the span open around it.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch import timing
 
 CHUNK_SYMBOLS = 1 << 22
 MASK32 = 0xFFFFFFFF
@@ -84,6 +88,7 @@ def pack(codes: torch.Tensor, bits: int) -> torch.Tensor:
     nwords = packed_words(n, bits)
     out = torch.empty(nwords, dtype=torch.int32, device=codes.device)
     mask = (1 << bits) - 1
+    timing.count("chunks", -(-n // CHUNK_SYMBOLS))
     for start in range(0, n, CHUNK_SYMBOLS):
         chunk = codes[start:start + CHUNK_SYMBOLS].to(torch.int64) & mask
         pad = -chunk.numel() % 32
@@ -110,6 +115,7 @@ def unpack(words: torch.Tensor, n: int, bits: int, *, bias: int = 0,
     widx, off = _group_layout(bits, words.device)
     spill = torch.where(off > 0, 32 - off, torch.zeros_like(off))
     mask = (1 << bits) - 1
+    timing.count("chunks", -(-n // CHUNK_SYMBOLS))
     for start in range(0, n, CHUNK_SYMBOLS):
         cnt = min(CHUNK_SYMBOLS, n - start)
         groups = -(-cnt // 32)
@@ -235,6 +241,7 @@ def bucket_checksums(symbols: torch.Tensor,
     mult = ((2 * i + 1) * _CSUM_SYM_MULT) & MASK32
     out = torch.empty(nb, dtype=torch.int64, device=dev)
     rows = max(1, CHUNK_SYMBOLS // bs)
+    timing.count("chunks", -(-nb // rows))
     for r in range(0, nb, rows):
         sym = symbols[r:r + rows].to(torch.int64)
         out[r:r + rows] = (sym * mult).sum(dim=1)

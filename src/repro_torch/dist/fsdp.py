@@ -46,8 +46,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import timing
 from repro_torch.core.codec import GradientCodec, WirePayload, codec_for_scheme
 from repro_torch.core.schemes import QuantScheme
+from .sync import moved
 from .transport import StackedTransport
 
 # ---------------------------------------------------------------------------
@@ -206,9 +208,13 @@ def _quantized_reduce_scatter(rows: torch.Tensor, levels: torch.Tensor,
                 own[i, :, c * ppr:(c + 1) * ppr] = codec.decode(
                     p, levels, plan, shard=None).view(M, ppr, bs)
             payloads.append(p)
-        received = WirePayload(
-            transport.all_to_all([p.words for p in payloads]),
-            transport.all_to_all([p.norm_words for p in payloads]))
+        words = [p.words for p in payloads]
+        norm_words = [p.norm_words for p in payloads]
+        with timing.span("collective"):
+            moved(words)
+            moved(norm_words)
+            received = WirePayload(transport.all_to_all(words),
+                                   transport.all_to_all(norm_words))
         del payloads
         for i in range(L):
             mine = WirePayload(received.words[i], received.norm_words[i])
@@ -235,8 +241,10 @@ def reduce_scatter(rows: torch.Tensor, levels: torch.Tensor, keys, *,
         return _quantized_reduce_scatter(rows, levels, keys,
                                          transport=transport, codec=codec,
                                          residual=residual)
-    inp = rows if residual is None else rows + residual
-    out = transport.reduce_scatter_mean(inp.float())
+    inp = (rows if residual is None else rows + residual).float()
+    with timing.span("collective"):
+        moved([inp])
+        out = transport.reduce_scatter_mean(inp)
     return out if residual is None else (out, torch.zeros_like(residual))
 
 
@@ -246,7 +254,9 @@ def reduce_scatter(rows: torch.Tensor, levels: torch.Tensor, keys, *,
 
 def _all_gather_shard(shard: torch.Tensor, transport) -> torch.Tensor:
     """This worker's (1, Lp/M) shard -> the (Lp,) vector of all shards."""
-    return transport.all_gather([shard[0]]).reshape(-1)
+    with timing.span("collective"):
+        moved([shard[0]])
+        return transport.all_gather([shard[0]]).reshape(-1)
 
 
 class FsdpGather(torch.autograd.Function):

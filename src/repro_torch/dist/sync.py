@@ -36,7 +36,15 @@ that neither an (M, d) float32 of decoded streams nor an (L, d) tensor
 of own round trips is held beside the aggregate.  The transport says
 how the streams are averaged (``mean_weights``); the codec decodes and
 averages them.  The collectives are booked to the clock's
-``collective`` stage.
+``collective`` stage, the fp32 wire's mean too.
+
+While a step is being recorded (``repro_torch.timing``) the wire opens
+its spans: ``encode`` a worker (the codec's ``quantize``, ``checksum``
+and ``pack`` inside), ``collective`` with the ``bytes`` and ``calls`` it
+hands the transport (tensors of one dimension or more, as the
+benchmark's counting transport counts them), ``decode`` (the codec's
+per-stream ``unpack`` and ``checksum`` inside), ``requant``,
+``compress``, and on update steps ``stats`` and ``fit``.
 
 ``gather_stats`` is the sufficient-statistics path (Algorithm 1, line 4):
 one fused ``bucket_stats`` sweep per local worker, strided subsampling to
@@ -47,10 +55,12 @@ only.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Sequence
 
 import torch
 
+from repro_torch import timing
 from repro_torch.core.codec import (
     GradientCodec, WirePayload, codec_for_scheme, requant_codec)
 from repro_torch.core.levels import uniform_levels
@@ -109,17 +119,21 @@ def _generator_of(generator, i):
 
 
 def encode_workers(flats, codec, levels, plan, u=None, generator=None,
-                   clock=NO_CLOCK) -> list[WirePayload]:
+                   clock=NO_CLOCK, workers=None) -> list[WirePayload]:
     """Every local worker's payload of its row of ``flats``, local worker
     i rounding with ``u[i]`` or else drawing from its generator (see
-    ``_generator_of``; a shared one is drawn in local order)."""
+    ``_generator_of``; a shared one is drawn in local order).  ``workers``
+    names the rows' workers in the ``encode`` spans (their local indices
+    by default)."""
     payloads = []
     for i in range(flats.shape[0]):
-        vb = codec.bucketize(flats[i], plan)
-        payloads.append(codec.encode(
-            vb, levels, plan=plan, u=None if u is None else u[i],
-            generator=_generator_of(generator, i), clock=clock))
-        del vb
+        with timing.span("encode", worker=i if workers is None
+                         else workers[i]):
+            vb = codec.bucketize(flats[i], plan)
+            payloads.append(codec.encode(
+                vb, levels, plan=plan, u=None if u is None else u[i],
+                generator=_generator_of(generator, i), clock=clock))
+            del vb
     return payloads
 
 
@@ -154,10 +168,22 @@ def _sq_err(own: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     return torch.sum(diff.square_())
 
 
+def moved(tensors) -> None:
+    """Count one transport call, and the bytes of the ``tensors`` of one
+    dimension or more handed to it, in the open ``collective`` span."""
+    timing.count("calls")
+    timing.count("bytes", sum(t.numel() * t.element_size() for t in tensors
+                              if t.dim() >= 1))
+
+
 def _gather(transport, payloads, collective: str, clock) -> WirePayload:
     move = getattr(transport, collective)
-    out = WirePayload(words=move([p.words for p in payloads]),
-                      norm_words=move([p.norm_words for p in payloads]))
+    words = [p.words for p in payloads]
+    norm_words = [p.norm_words for p in payloads]
+    with timing.span("collective"):
+        moved(words)
+        moved(norm_words)
+        out = WirePayload(words=move(words), norm_words=move(norm_words))
     clock.mark("collective")
     return out
 
@@ -167,32 +193,34 @@ def _allreduce_all_gather(flats, codec, levels, transport, u, u2, generator,
     d = flats.shape[1]
     local = transport.local_workers()
     plan = codec.plan(d)
-    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock)
+    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock,
+                              local)
     gathered = _gather(transport, payloads, "all_gather", clock)
     qerr = torch.empty(len(local), device=flats.device)
     # every worker decodes the same gathered rows: one verdict for all
     corrupt = torch.zeros(transport.size(), device=flats.device)
     excluded = torch.zeros(transport.size(), device=flats.device)
-    # corrupt buckets leave the mean (with integrity words)
-    dec = codec.decode_mean(gathered, levels, plan, transport,
-                            checked=plan.integrity, clock=clock)
-    del gathered
-    out = dec.mean[:d]
-    if plan.integrity:
-        # the reference's mean(1 - valid): an exact count, times 1/n
-        corrupt[:] = ((~dec.valid).float().sum()
-                      * reciprocal(dec.valid.numel()))
-        excluded[:] = (~dec.valid).all(dim=1).float().sum()
-    for i, w in enumerate(local):
-        # with integrity words each worker's own round trip comes from its
-        # local payload, not its gathered row, so that wire corruption
-        # cannot poison an error-feedback residual
-        own = (codec.decode(payloads[i], levels, plan) if plan.integrity
-               else dec.row(w))[:d]
-        qerr[i] = _sq_err(own, flats[i])
-        on_own(i, own)
-        del own
-    del dec
+    with timing.span("decode"):
+        # corrupt buckets leave the mean (with integrity words)
+        dec = codec.decode_mean(gathered, levels, plan, transport,
+                                checked=plan.integrity, clock=clock)
+        del gathered
+        out = dec.mean[:d]
+        if plan.integrity:
+            # the reference's mean(1 - valid): an exact count, times 1/n
+            corrupt[:] = ((~dec.valid).float().sum()
+                          * reciprocal(dec.valid.numel()))
+            excluded[:] = (~dec.valid).all(dim=1).float().sum()
+        for i, w in enumerate(local):
+            # with integrity words each worker's own round trip comes from
+            # its local payload, not its gathered row, so that wire
+            # corruption cannot poison an error-feedback residual
+            own = (codec.decode(payloads[i], levels, plan) if plan.integrity
+                   else dec.row(w))[:d]
+            qerr[i] = _sq_err(own, flats[i])
+            on_own(i, own)
+            del own
+        del dec
     clock.mark("decode")
     # variable-volume codecs bill what each worker's headers say it ships
     bits = _all_bits(transport, codec, payloads, plan, flats.device)
@@ -213,7 +241,8 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     snb, bs = plan.shard_nb, plan.bucket_size
 
     # ---- phase 1: quantized reduce-scatter (the scheme's grid) ----
-    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock)
+    payloads = encode_workers(flats, codec, levels, plan, u, generator, clock,
+                              local)
     if M == 1:  # an unsharded payload is 1-D; the wire still sees a row
         payloads = [WirePayload(p.words[None], p.norm_words[None])
                     for p in payloads]
@@ -228,48 +257,52 @@ def _allreduce_two_phase(flats, codec, levels, transport, u, u2, generator,
     # each rank decodes, averages and re-quantizes its own shard
     for i, r in enumerate(local):
         mine = WirePayload(received.words[i], received.norm_words[i])
-        dec = codec.decode_mean(mine, levels, plan, transport, shard=r,
-                                checked=plan.integrity, clock=clock)
-        shard_mean = dec.mean
-        if plan.integrity:
-            bad1[i] = (~dec.valid).float().sum()
-            excluded[i] = (~dec.valid).all(dim=1).float().sum()
-        del dec
+        with timing.span("decode", worker=r):
+            dec = codec.decode_mean(mine, levels, plan, transport, shard=r,
+                                    checked=plan.integrity, clock=clock)
+            shard_mean = dec.mean
+            if plan.integrity:
+                bad1[i] = (~dec.valid).float().sum()
+                excluded[i] = (~dec.valid).all(dim=1).float().sum()
+            del dec
         clock.mark("decode")
 
         # ---- phase 2: re-quantize this rank's shard of the aggregate ----
-        phase2.append(codec2.encode(
-            shard_mean.view(snb, bs), lv2, plan=plan2,
-            u=None if u2 is None else u2[i],
-            generator=_generator_of(generator, i),
-            clock=Renamed(clock, "requant")))
+        with timing.span("requant", worker=r):
+            phase2.append(codec2.encode(
+                shard_mean.view(snb, bs), lv2, plan=plan2,
+                u=None if u2 is None else u2[i],
+                generator=_generator_of(generator, i),
+                clock=Renamed(clock, "requant")))
         del shard_mean
     del received
     g2 = _gather(transport, phase2, "all_gather", clock)
     # every worker decodes the same gathered bytes: decode them once
-    if plan2.integrity:
-        out, valid2 = codec2.decode_checked(g2, lv2, plan2, clock=clock)
-        # phase 2 carries each shard once, with nothing to renormalize
-        # over: a corrupt bucket zero-fills (masked_fill, not a product,
-        # as it may decode to NaN)
-        out.view(M, snb, bs).masked_fill_(~valid2[:, :, None], 0.0)
-        bad2 = (~valid2).float().sum()
-        corrupt = ((_all_workers(transport, bad1) + bad2)
-                   * reciprocal(2 * M * snb))
-    else:
-        out = codec2.decode(g2, lv2, plan2, clock=clock)
-        corrupt = torch.zeros(M, device=dev)
-    del g2
-    out = out.reshape(-1)[:d]
+    with timing.span("decode"):
+        if plan2.integrity:
+            out, valid2 = codec2.decode_checked(g2, lv2, plan2, clock=clock)
+            # phase 2 carries each shard once, with nothing to renormalize
+            # over: a corrupt bucket zero-fills (masked_fill, not a
+            # product, as it may decode to NaN)
+            out.view(M, snb, bs).masked_fill_(~valid2[:, :, None], 0.0)
+            bad2 = (~valid2).float().sum()
+            corrupt = ((_all_workers(transport, bad1) + bad2)
+                       * reciprocal(2 * M * snb))
+        else:
+            out = codec2.decode(g2, lv2, plan2, clock=clock)
+            corrupt = torch.zeros(M, device=dev)
+        del g2
+        out = out.reshape(-1)[:d]
 
     # each worker's own phase-1 payload, decoded shard by shard
     qerr = torch.empty(len(local), device=dev)
-    for i in range(len(local)):
-        own = codec.decode(payloads[i], levels, plan,
-                           clock=clock).reshape(-1)[:d]
-        qerr[i] = _sq_err(own, flats[i])
-        on_own(i, own)
-        del own
+    for i, w in enumerate(local):
+        with timing.span("decode", worker=w):
+            own = codec.decode(payloads[i], levels, plan,
+                               clock=clock).reshape(-1)[:d]
+            qerr[i] = _sq_err(own, flats[i])
+            on_own(i, own)
+            del own
     clock.mark("decode")
     bits_reduce = _all_bits(transport, codec, payloads, plan, dev)
     bits_bcast = 32.0 * (plan2.code_words + plan2.norm_words) / d
@@ -306,7 +339,11 @@ def _allreduce(flats, scheme, state, mode, transport, codec, u, u2,
     if mode == "fp32" or not scheme.quantized:
         for i in range(flats.shape[0]):  # lossless: own round trip = input
             on_own(i, flats[i])
-        return transport.mean_psum(flats), _fp32_metrics(M, flats.device)
+        with timing.span("collective"):
+            moved([flats])
+            out = transport.mean_psum(flats)
+        clock.mark("collective")
+        return out, _fp32_metrics(M, flats.device)
     if mode not in _MODES:
         raise ValueError(f"unknown sync mode {mode!r}; known: "
                          f"('fp32', {', '.join(map(repr, _MODES))})")
@@ -411,12 +448,19 @@ def compressed_allreduce(
     transport = _transport_for(flats, transport)
     # the stateless passthrough has no stage of its own
     hook_clock = clock if algorithm.stateful else NO_CLOCK
-    inp = algorithm.prepare(flats, comp_state)
+
+    def hook_span(**kw):
+        return (timing.span("compress", **kw) if algorithm.stateful
+                else contextlib.nullcontext())
+
+    with hook_span():
+        inp = algorithm.prepare(flats, comp_state)
     hook_clock.mark("compress")
 
     def feedback(w, own):
         hook_clock.mark("decode")
-        algorithm.feedback(comp_state, w, inp[w], own)
+        with hook_span(worker=transport.local_workers()[w]):
+            algorithm.feedback(comp_state, w, inp[w], own)
         hook_clock.mark("compress")
 
     out, m = _allreduce(inp, scheme, state, mode, transport, algorithm.codec,
@@ -424,8 +468,9 @@ def compressed_allreduce(
     new_state = algorithm.advance(comp_state)
     m = m._replace(kept_fraction=algorithm.kept_fraction)
     if algorithm.stateful:
-        m = m._replace(residual_norm=_all_workers(
-            transport, new_state.residual_norm))
+        with hook_span():
+            m = m._replace(residual_norm=_all_workers(
+                transport, new_state.residual_norm))
         hook_clock.mark("compress")
     return out, new_state, m
 
@@ -456,8 +501,12 @@ def gather_stats(flats: torch.Tensor, scheme: QuantScheme,
             mu[:nb_valid], var[:nb_valid], norms[:nb_valid],
             weighted=scheme.weighted_stats,
             max_components=scheme.max_stat_components))
-    return merge_stats(TruncNormStats(*(transport.all_gather(list(f))
-                                        for f in zip(*per_worker))))
+    with timing.span("collective"):
+        fields = []
+        for f in zip(*per_worker):
+            moved(f)
+            fields.append(transport.all_gather(list(f)))
+    return merge_stats(TruncNormStats(*fields))
 
 
 def maybe_update_levels(flats: torch.Tensor, scheme: QuantScheme,
@@ -468,7 +517,9 @@ def maybe_update_levels(flats: torch.Tensor, scheme: QuantScheme,
     steps pay nothing."""
     if not (scheme.adaptive and do_update):
         return state
-    state = scheme.update_state(state, gather_stats(flats, scheme,
-                                                    transport))
+    with timing.span("stats"):
+        stats = gather_stats(flats, scheme, transport)
+    with timing.span("fit"):
+        state = scheme.update_state(state, stats)
     clock.mark("stats")
     return state

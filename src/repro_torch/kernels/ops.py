@@ -11,12 +11,15 @@ pays no custom-op dispatch.  There is no other path: nothing falls back
 and nothing moves between devices.
 
 ``LAUNCHES`` (from ``cuda``) counts the kernel launches; the CPU
-versions do not count.
+versions do not count.  Each launch also adds 1 to the recorder's
+``launches`` counter (``repro_torch.timing``) of the span open around
+it.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import timing
 from repro_torch.core.quantize import NORM_L2
 from . import ref
 from .bucket_stats import bucket_stats_cuda, bucket_stats_meta
@@ -41,6 +44,7 @@ def quantize_op(vb: torch.Tensor, u: torch.Tensor, levels: torch.Tensor, *,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     route = _route(vb, "quantize")
     if route == "cuda":
+        timing.count("launches")
         return quantize_cuda(vb, u, levels, norm_type)
     if route == "meta":
         return quantize_meta(vb, u, levels, norm_type)
@@ -51,6 +55,7 @@ def dequantize_op(codes: torch.Tensor, norms: torch.Tensor,
                   levels: torch.Tensor) -> torch.Tensor:
     route = _route(codes, "dequantize")
     if route == "cuda":
+        timing.count("launches")
         return dequantize_cuda(codes, norms, levels)
     if route == "meta":
         return dequantize_meta(codes, norms, levels)
@@ -65,6 +70,7 @@ def dequantize_mean_op(codes: torch.Tensor, norms: torch.Tensor,
     in worker order (``ref.dequantize_mean_ref``)."""
     route = _route(codes, "dequantize_mean")
     if route == "cuda":
+        timing.count("launches")
         return dequantize_mean_cuda(codes, norms, levels, weights, valid)
     if route == "meta":
         return dequantize_mean_meta(codes, norms, levels, weights, valid)
@@ -75,6 +81,7 @@ def bucket_stats_op(vb: torch.Tensor, *, norm_type: str = NORM_L2
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     route = _route(vb, "bucket_stats")
     if route == "cuda":
+        timing.count("launches")
         return bucket_stats_cuda(vb, norm_type)
     if route == "meta":
         return bucket_stats_meta(vb, norm_type)

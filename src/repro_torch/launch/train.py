@@ -10,9 +10,13 @@ a process.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``run``
 returns the per-step metrics (and, with ``--time-stages``, the per-stage
-milliseconds of each step; at ``--tp`` > 1 the model group's all-reduces
-of each step, ``tp_all_reduce``: calls, bytes and, with
-``--time-stages``, milliseconds) so that scripts can drive it too.
+milliseconds of each step and, at ``--tp`` > 1, the model group's
+all-reduces of each step, ``tp_all_reduce``: calls, bytes and device
+milliseconds, from the recorder's spans) so that scripts can drive it
+too.  ``--trace-out PATH`` records the steps' spans too
+(``repro_torch.timing``) and writes those of the last eight steps to
+PATH as Chrome-trace JSON, which opens beside a ``torch.profiler`` trace
+in Perfetto.
 
 Started by ``torch.distributed.run`` (``WORLD_SIZE`` in the environment)
 it runs one worker a process over a ``ProcessGroupTransport``
@@ -50,15 +54,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import json
 import time
 
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, timing
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.launch import mesh
-from repro_torch.models.layers import TPStats, tp_all_gather
+from repro_torch.models.layers import tp_all_gather
 from repro_torch.models.transformer import Model, to_global
 from repro_torch.timing import NO_CLOCK, StageClock
 from repro_torch.train.data import DataConfig, Pipeline
@@ -133,6 +138,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "nccl on a card, gloo on the CPU)")
     ap.add_argument("--time-stages", action="store_true",
                     help="time the stages of every step (CUDA events)")
+    ap.add_argument("--trace-out", default="",
+                    help="record every step's spans and write the last "
+                         "eight steps' to this path as Chrome-trace JSON")
     return ap.parse_args(argv)
 
 
@@ -224,22 +232,20 @@ def run(args: argparse.Namespace) -> dict:
                                seq_len=args.seq, global_batch=args.batch,
                                seed=SEED))
     history = []
+    record = args.time_stages or bool(args.trace_out)
+    timing.reset()
     t0 = time.perf_counter()
     for t in range(start, args.steps):
         batch = pipe.batch(t, device)
-        clock = StageClock(device) if args.time_stages else NO_CLOCK
-        TPStats.reset()
-        TPStats.timed = args.time_stages and model.tp > 1
+        clock = StageClock(device) if record else NO_CLOCK
         t_step = time.perf_counter()
         metrics = trainer.train_step(batch, clock=clock)
         metrics["step_ms"] = (time.perf_counter() - t_step) * 1e3
-        if model.tp > 1:    # the model group's all-reduces of the step
-            metrics["tp_all_reduce"] = {"calls": TPStats.calls,
-                                        "bytes": TPStats.bytes,
-                                        "ms": TPStats.ms}
         metrics["levels"] = trainer.scheme_state.levels.tolist()
         if args.time_stages:
             metrics["stage_ms"] = clock.stage_ms()
+            if model.tp > 1:    # the model group's all-reduces of the step
+                metrics["tp_all_reduce"] = timing.totals("tp_all_reduce")
         metrics["step"] = t
         history.append(metrics)
         if args.ckpt_dir and ((args.save_every > 0
@@ -267,6 +273,11 @@ def run(args: argparse.Namespace) -> dict:
     ran = args.steps - start
     log(f"done: {ran} steps in {dt:.1f}s "
         f"({dt / max(ran, 1) * 1e3:.0f} ms/step)")
+    if args.trace_out and rank0:
+        with open(args.trace_out, "w") as f:
+            json.dump(timing.chrome_trace(timing.recorded()), f)
+        log(f"wrote the spans of the last {timing.KEEP_STEPS} steps to "
+            f"{args.trace_out}")
     if transport is not None:
         check_replicas(transport, model.flat, "after the last step")
     if args.save:

@@ -24,12 +24,14 @@ projections, the norms, the router) is tp times that rank's own partial.
 That is what the reference computes, and the port keeps it.
 
 At tp = 1 ``psum_tp`` is the identity and no collective is issued.
+While a step is being recorded (``repro_torch.timing``) each all-reduce
+and all-gather of the model group is a device span, ``tp_all_reduce`` or
+``tp_all_gather``, with the ``bytes`` of this rank's input.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
-import time
 from typing import Iterator, NamedTuple
 
 import torch
@@ -37,6 +39,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import timing
 from .config import ModelConfig
 
 # the model groups the collectives run over, by the name a TPCtx holds
@@ -55,49 +58,16 @@ def group_scope() -> Iterator[None]:
             del _GROUPS[name]
 
 
-class TPStats:
-    """Counts of the collectives that ``TPCtx`` groups issue in this
-    process: the all-reduces (``calls``, ``bytes`` of their inputs,
-    ``ms``) and the all-gathers (``gather_calls``, ``gather_bytes`` of
-    each rank's part, ``gather_ms``); with ``timed`` set the milliseconds
-    on the host clock around each (after synchronising the device, so
-    that a collective's time is its own)."""
-
-    calls = 0
-    bytes = 0
-    ms = 0.0
-    gather_calls = 0
-    gather_bytes = 0
-    gather_ms = 0.0
-    timed = False
-
-    @classmethod
-    def reset(cls) -> None:
-        cls.calls, cls.bytes, cls.ms = 0, 0, 0.0
-        cls.gather_calls, cls.gather_bytes, cls.gather_ms = 0, 0, 0.0
-
-
-def _sync(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-
-
 @torch.library.custom_op("repro_torch::tp_all_reduce", mutates_args=())
 def tp_all_reduce(x: torch.Tensor, group: str, op: str) -> torch.Tensor:
     """A new tensor: x reduced (``op`` "sum" or "max") over the model
     group registered as ``group``.  A functional operator, so that a
     selective checkpoint can keep its output (``remat="psum"``)."""
     out = x.clone(memory_format=torch.contiguous_format)
-    TPStats.calls += 1
-    TPStats.bytes += out.numel() * out.element_size()
-    if TPStats.timed:
-        _sync(out)
-        t0 = time.perf_counter()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
-                    else dist.ReduceOp.MAX, group=_GROUPS[group])
-    if TPStats.timed:
-        _sync(out)
-        TPStats.ms += (time.perf_counter() - t0) * 1e3
+    with timing.span("tp_all_reduce", device=True):
+        timing.count("bytes", out.numel() * out.element_size())
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=_GROUPS[group])
     return out
 
 
@@ -187,15 +157,9 @@ def tp_all_gather(ctx: TPCtx, x: torch.Tensor) -> torch.Tensor:
         return x[None]
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.tp)]
-    TPStats.gather_calls += 1
-    TPStats.gather_bytes += x.numel() * x.element_size()
-    if TPStats.timed:
-        _sync(x)
-        t0 = time.perf_counter()
-    dist.all_gather(parts, x, group=ctx.process_group)
-    if TPStats.timed:
-        _sync(x)
-        TPStats.gather_ms += (time.perf_counter() - t0) * 1e3
+    with timing.span("tp_all_gather", device=True):
+        timing.count("bytes", x.numel() * x.element_size())
+        dist.all_gather(parts, x, group=ctx.process_group)
     return torch.stack(parts)
 
 
@@ -327,7 +291,9 @@ def lm_head_loss(w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     B, S, _ = x.shape
     ce = functools.partial(_ce_chunk, ctx=ctx, vocab=vocab)
     if S <= chunk or S % chunk:
+        timing.count("chunks")
         return ce(w, x, labels) / (B * S)
+    timing.count("chunks", S // chunk)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(0, S, chunk):
         xc, lc = x[:, c:c + chunk], labels[:, c:c + chunk]

@@ -51,6 +51,12 @@ is replicated.  ``Model.flat`` then holds the local workers' shards,
 into the gathered vector of its slot (``dist.fsdp.make_gather``), which
 the checkpointed group body gathers again in the backward.
 
+While a step is being recorded (``repro_torch.timing``) the training
+forward opens ``embed`` and ``loss`` spans (with the chunked loss's
+``chunks``), and the recorder's forward hooks on ``layers`` give each
+slot's ``block`` span, or ``recompute`` where the checkpoint replays it
+inside a backward; the model takes no clock.
+
 Serving runs the same layers in another mode (``PREFILL``: the sequence
 forward that also returns each mixer's decode cache; ``DECODE``: one
 token a row against those caches), without autograd.  Caches keep the
@@ -87,6 +93,7 @@ from .layers import (TP1, TPCtx, embed_lookup, lm_head_logits, lm_head_loss,
 from .mamba import A_LOG_INIT, mamba_dims, mamba_forward, mamba_specs
 from .moe import moe_factor, moe_ffn
 from .rwkv import rwkv_decode, rwkv_dims, rwkv_forward, rwkv_specs
+from repro_torch import timing
 from repro_torch.core.codec import codec_for_scheme
 from repro_torch.core.schemes import QuantScheme
 from repro_torch.dist.fsdp import (
@@ -847,7 +854,8 @@ class Model(nn.Module):
         cross slots (without them those blocks are skipped).
         ``sync_ctx`` = (levels, key) routes FSDP's reduce-scatters."""
         cd = self.compute_dtype
-        x = embed_lookup(self.ctx, self._embed_weights(sync_ctx), ids)
+        with timing.span("embed"):
+            x = embed_lookup(self.ctx, self._embed_weights(sync_ctx), ids)
         x, aux = self._run_stack(x, vision, sync_ctx)
         return rms_norm(x, self.final_norm.to(cd), self.cfg.norm_eps), aux
 
@@ -858,8 +866,9 @@ class Model(nn.Module):
         ``lm_head_loss``), plus the MoE layers' aux losses summed in layer
         order over ``num_layers``."""
         x, aux = self.forward(ids, vision, sync_ctx)
-        ce = lm_head_loss(self._lm_weights(sync_ctx), x, labels,
-                          ctx=self.ctx, vocab=self.cfg.vocab_size)
+        with timing.span("loss"):
+            ce = lm_head_loss(self._lm_weights(sync_ctx), x, labels,
+                              ctx=self.ctx, vocab=self.cfg.vocab_size)
         return ce + aux / max(self.cfg.num_layers, 1)
 
     @torch.inference_mode()

@@ -46,6 +46,13 @@ model ranks of a data rank draw the same uniforms.  The metrics are this
 rank's: the launcher reports model rank 0's, as the reference's
 replicated out-specs give device 0's.
 
+Handed a clock other than ``timing.NO_CLOCK``, a step is recorded
+(``timing.recording``): the ``step`` span with its ``tokens``, each
+worker's ``forward`` and ``backward`` a micro-batch (device spans; the
+model's ``embed``, ``block``, ``loss`` and ``recompute`` inside them),
+the wire's spans (``dist.sync``) and ``optimizer``; the clock's marks
+are kept as the step's stages and reach the clock handed in.
+
 ``Trainer.state_arrays`` / ``load_state_arrays`` give its whole state as
 named tensors for ``train.checkpoint`` (under FSDP in the global layout;
 at tp > 1 the parameters and moments in the reference's global layout,
@@ -59,6 +66,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import timing
 from repro_torch.compress import make_algorithm
 from repro_torch.core.codec import make_codec
 from repro_torch.core.schemes import QuantScheme, SchemeState
@@ -223,8 +231,17 @@ class Trainer:
         """``train_step``'s device work: its metrics, those the step
         computes as 0-d tensors on the model's device, unread.  The dry
         run (``launch.dryrun``) drives it on the meta device."""
+        if clock is NO_CLOCK:
+            return self._step(batch, u, u2, clock)
+        with timing.recording(self.model.flat.device, clock=clock,
+                              model=self.model, step=self.step) as clock:
+            return self._step(batch, u, u2, clock)
+
+    def _step(self, batch, u, u2, clock) -> dict:
         tcfg, model = self.tcfg, self.model
         rows, k, mb = self._split(batch)
+        timing.count("tokens", len(self.local) * rows
+                     * batch["ids"].shape[1])
         if self.fsdp:
             return self._fsdp_step(batch, rows, k, mb, clock)
         vision = batch.get("vision")
@@ -234,11 +251,14 @@ class Trainer:
             g.zero_()
             model.attach_grads(g)
             loss = 0.0
-            for i in range(w * rows, (w + 1) * rows, mb):
-                part = model.loss(
-                    batch["ids"][i:i + mb], batch["labels"][i:i + mb],
-                    None if vision is None else vision[i:i + mb])
-                part.backward()     # accumulates into the worker's row
+            for j, lo in enumerate(range(w * rows, (w + 1) * rows, mb)):
+                with timing.span("forward", device=True, worker=w, micro=j):
+                    part = model.loss(
+                        batch["ids"][lo:lo + mb], batch["labels"][lo:lo + mb],
+                        None if vision is None else vision[lo:lo + mb])
+                # accumulates into the worker's row
+                with timing.span("backward", device=True, worker=w, micro=j):
+                    part.backward()
                 loss = loss + part.detach()
             if k > 1:   # the reference's g / k, as XLA compiles it
                 g.mul_(reciprocal(k))
@@ -261,9 +281,11 @@ class Trainer:
                 self.compress_state, mode=tcfg.sync_mode,
                 transport=self.transport, u=u, u2=u2,
                 generator=self.generators, clock=clock)
-        grad_norm = torch.sqrt(torch.sum(synced * synced))
-        self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
-        del synced, rows
+        with timing.span("optimizer"):
+            grad_norm = torch.sqrt(torch.sum(synced * synced))
+            self.opt = apply_updates(tcfg.optim, model.flat, synced,
+                                     self.opt)
+            del synced, rows
         clock.mark("optimizer")
         self.step += 1
         # every worker's loss, in worker order, in every process
@@ -338,11 +360,13 @@ class Trainer:
             for i, w in enumerate(self.local):
                 model.attach_grads(self.grads[i])
                 lo = w * rows + j * mb
-                part = model.loss(
-                    batch["ids"][lo:lo + mb], batch["labels"][lo:lo + mb],
-                    None if vision is None else vision[lo:lo + mb],
-                    sync_ctx=(levels, keys[i]))
-                part.backward()
+                with timing.span("forward", device=True, worker=w, micro=j):
+                    part = model.loss(
+                        batch["ids"][lo:lo + mb], batch["labels"][lo:lo + mb],
+                        None if vision is None else vision[lo:lo + mb],
+                        sync_ctx=(levels, keys[i]))
+                with timing.span("backward", device=True, worker=w, micro=j):
+                    part.backward()
                 losses[i] = losses[i] + part.detach()
             if deposit:
                 clock.mark("grad")
@@ -371,7 +395,9 @@ class Trainer:
             is_update_step(tcfg, self.step), transport=self.transport,
             clock=clock)
         del slot0
-        self.opt = apply_updates(tcfg.optim, model.flat, synced, self.opt)
+        with timing.span("optimizer"):
+            self.opt = apply_updates(tcfg.optim, model.flat, synced,
+                                     self.opt)
         del synced, sv
         clock.mark("optimizer")
         self.step += 1
