@@ -3,11 +3,12 @@
 Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``; a
 library may hold several kernels (``dequantize.cu`` holds dequantize and
-dequantize_mean).  Builds happen at first use, into ``build/kernels/`` at
-the root of the checkout; a library's file name carries a hash of its
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``build()`` starts one ``nvcc`` per missing library,
-all at once.
+dequantize_mean, ``attention.cu`` the attention's forward and its
+backward's two kernels).  Builds happen at first use, into
+``build/kernels/`` at the root of the checkout; a library's file name
+carries a hash of its sources and flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  ``build()`` starts one
+``nvcc`` per missing library, all at once.
 
 ``nvcc`` runs with ``-Xptxas -v``; its report (registers, shared memory
 and spill bytes of every entry point) is kept beside each library and
@@ -77,7 +78,16 @@ KERNELS = {
     "bucket_stats": ("bucket_stats", "repro_bucket_stats",
                      (_P, _P, _P, _P, _LL, _I, _I, _I,
                       _I, _I, _I, _I, _P)),
+    "attention_fwd": ("attention", "repro_attention_fwd",
+                      (_P,) * 7 + (_LL,) * 9 + (_I,) * 7 + (_P,)),
+    "attention_bwd_dq": ("attention", "repro_attention_bwd_dq",
+                         (_P,) * 9 + (_LL,) * 9 + (_I,) * 8 + (_P,)),
+    "attention_bwd_dkv": ("attention", "repro_attention_bwd_dkv",
+                          (_P,) * 9 + (_LL,) * 9 + (_I,) * 8 + (_P,)),
 }
+# the wire's kernels: the reference's three TPU kernels and the fused
+# decode-and-average
+WIRE_KERNELS = ("quantize", "dequantize", "dequantize_mean", "bucket_stats")
 # the sources, one library each, in KERNELS' order
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in KERNELS.values()))
 

@@ -23,7 +23,9 @@ reference's:
     reductions (``MAJOR_OPS``), and each bucket kernel
     (``repro_torch::quantize``, ``dequantize``, ``dequantize_mean``,
     ``bucket_stats``) as the one operator it is on the card, charged what
-    its bound counts.
+    its bound counts; the attention kernels' operators
+    (``repro_torch::attention_fwd``, ``attention_bwd``) likewise, and
+    their FLOPs are the products they run (``kernels.attention``).
     Elementwise chains are taken as fused into them, as the reference
     takes them (an estimate of fused traffic, not an upper bound).
   * ``collective_bytes``, by kind in ``by_collective``: each
@@ -55,6 +57,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.kernels import attention as kattn
+
 aten = torch.ops.aten
 
 MATMUL_OPS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
@@ -75,8 +79,9 @@ GATHER_SCATTER_OPS = {
 # in-place writers of values besides the pointwise ones
 VALUE_WRITES = {aten.copy_, aten.fill_, aten.zero_, aten.index_put_,
                 aten.masked_fill_, aten.clamp_}
-# the bucket kernels, charged operands + results as their bounds are
-KERNEL_OPS = ("quantize", "dequantize", "dequantize_mean", "bucket_stats")
+# the port's kernels, charged operands + results as their bounds are
+KERNEL_OPS = ("quantize", "dequantize", "dequantize_mean", "bucket_stats",
+              *kattn.PRODUCTS)
 MAJOR_OPS = MATMUL_OPS | CONV_OPS | REDUCE_OPS | GATHER_SCATTER_OPS
 # c10d operator -> (kind, wire weight)
 COLLECTIVES = {
@@ -277,6 +282,8 @@ class CostMode(TorchDispatchMode):
         ns, name = func.namespace, packet.__name__
         if packet in MATMUL_OPS or packet in CONV_OPS:
             flops = "matmul"
+        elif ns == "repro_torch" and name in kattn.PRODUCTS:
+            flops = "attention"
         elif (torch.Tag.pointwise in func.tags and packet is not aten.clone
               or packet is aten.cumsum):
             flops = "out"
@@ -317,6 +324,11 @@ class CostMode(TorchDispatchMode):
         c = self.cost
         if flops == "matmul":
             f = _matmul_flops(func.overloadpacket, args, out)
+            c.flops += f
+            c.matmul_flops += f
+        elif flops == "attention":      # (q, k, v, heads, window, ...)
+            f = (kattn.PRODUCTS[func.overloadpacket.__name__]
+                 * kattn.product_flops(args[0].shape, args[4]))
             c.flops += f
             c.matmul_flops += f
         elif flops == "out":

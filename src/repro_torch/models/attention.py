@@ -4,13 +4,25 @@ cross-attention to image embeddings; and serving's decode of one token
 against a ring-addressed KV cache.
 
 The reference computes attention outside any TPU kernel, as a
-flash-style loop in plain jnp (``_flash``), and so does the port: a
-Python loop over at most ``MAX_Q_BLOCKS`` query blocks, and for each
-only the kv blocks that the causal and window structure admits, in
-float32 with a running max and sum.  Every operation in it (matmuls,
+flash-style loop in plain jnp (``_flash``), and so does the port's plain
+version: a Python loop over at most ``MAX_Q_BLOCKS`` query blocks, and
+for each only the kv blocks that the causal and window structure admits,
+in float32 with a running max and sum.  Every operation in it (matmuls,
 elementwise, reductions along one axis, and the sum that is the
 backward of the GQA ``expand``) is deterministic on the card, so two
 backward passes on the same inputs give the same bits.
+
+``attn_forward``'s self-attention on CUDA tensors runs the hand-written
+kernels of ``kernels/attention.py`` instead (forward and backward on the
+tensor cores, float32 wherever ``_flash`` is, and deterministic too),
+which read k and v through a map of kv heads (``_kv_heads``) rather than
+an expanded copy; they take bfloat16 and float32 tensors and raise on
+any other dtype, with no fall-back.  ``q_block`` and ``kv_block`` are
+the plain loop's alone.  Meta tensors (the dry run) take the kernels'
+operators, which allocate what the card allocates.  Tensors on the CPU
+keep ``_flash``, and so do the VLM's cross-attention (its kv in the
+embeddings' promoted dtype, without a causal mask) and serving's decode
+step.
 
 At tp > 1 (``ctx``) the query heads are padded to a multiple of tp and
 sharded over the model group, the small kv projection is replicated, and
@@ -37,6 +49,7 @@ import itertools
 
 import torch
 
+from repro_torch.kernels.attention import attention as attention_kernel
 from .config import CHUNKED, SLIDING, ModelConfig
 from .layers import (TP1, TPCtx, head_mask, make_dims, pad_to, rms_norm,
                      rope, shard_of, tp_all_gather)
@@ -130,6 +143,13 @@ def _kv_index(cfg: ModelConfig, first: int, count: int) -> list[int]:
             for h in range(count)]
 
 
+def _kv_heads(cfg: ModelConfig, ctx: TPCtx, count: int) -> list[int]:
+    """The kv head of each of this rank's ``count`` q heads, as ``_expand``
+    assigns them: by the heads' global indices, the padding heads at tp >
+    1 on the last kv head."""
+    return _kv_index(cfg, ctx.tp_rank() * count, count)
+
+
 def _take_heads(t: torch.Tensor, idx: list[int]) -> torch.Tensor:
     """(B, S, KV, hd) -> (B, S, len(idx), hd), head h holding kv head
     idx[h].  Consecutive heads share a kv head, so the copy is a
@@ -219,6 +239,44 @@ def cache_spec(cfg: ModelConfig, kind: str, max_len: int, shards: int = 1
     return C, C // shards
 
 
+def _self_attention(cfg: ModelConfig, ctx: TPCtx, q: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, kind: str, *,
+                    q_block: int = 512, kv_block: int = 512
+                    ) -> torch.Tensor:
+    """q (B, S, H, hd), k, v (B, S, KV, hd) -> (B, S, H, hd): causal
+    attention of the slot's ``kind`` (a sliding window, or chunks folded
+    into the batch with a trailing partial chunk on its own), by
+    ``_flash`` over kv heads expanded to q's for CPU tensors, else by the
+    kernels (their operators on the meta device)."""
+    B, S, H, hd = q.shape
+    if q.device.type != "cpu":
+        heads = _kv_heads(cfg, ctx, H)
+
+        def attend(q, k, v, window):
+            return attention_kernel(q, k, v, heads, window)
+    else:
+        k, v = _expand(k, cfg, ctx), _expand(v, cfg, ctx)
+
+        def attend(q, k, v, window):
+            return _flash(q, k, v, causal=True, window=window,
+                          q_block=q_block, kv_block=kv_block)
+
+    if kind != CHUNKED or S <= cfg.chunk:
+        return attend(q, k, v, cfg.window if kind == SLIDING else 0)
+    c = cfg.chunk
+    n_full = S // c
+    body = n_full * c
+
+    def fold(t):
+        return t[:, :body].reshape(B * n_full, c, *t.shape[2:])
+
+    out = attend(fold(q), fold(k), fold(v), 0).reshape(B, body, H, hd)
+    if body < S:  # a trailing partial chunk is its own causal block
+        tail = attend(q[:, body:], k[:, body:], v[:, body:], 0)
+        out = torch.cat([out, tail], dim=1)
+    return out
+
+
 def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
                  x: torch.Tensor, kind: str, *, return_cache: bool = False,
                  max_len: int = 0, q_block: int = 512, kv_block: int = 512,
@@ -237,29 +295,9 @@ def attn_forward(cfg: ModelConfig, p: dict[str, torch.Tensor],
     seq_ctxs)``) keeps its own tokens' k (after RoPE) and v, the other
     slots zero: ``attn_decode``'s ring addressing."""
     B, S, _ = x.shape
-    hd = cfg.head_dim_
     q, k, v = _project_qkv(cfg, p, x, x, torch.arange(S, device=x.device))
-    H = q.shape[2]
-    ke, ve = _expand(k, cfg, ctx), _expand(v, cfg, ctx)
-    blocks = dict(q_block=q_block, kv_block=kv_block)
-
-    if kind == CHUNKED and S > cfg.chunk:
-        c = cfg.chunk
-        n_full = S // c
-        body = n_full * c
-
-        def fold(t):
-            return t[:, :body].reshape(B * n_full, c, H, hd)
-
-        out = _flash(fold(q), fold(ke), fold(ve), causal=True, window=0,
-                     **blocks).reshape(B, body, H, hd)
-        if body < S:  # a trailing partial chunk is its own causal block
-            tail = _flash(q[:, body:], ke[:, body:], ve[:, body:],
-                          causal=True, window=0, **blocks)
-            out = torch.cat([out, tail], dim=1)
-    else:
-        window = cfg.window if kind == SLIDING else 0
-        out = _flash(q, ke, ve, causal=True, window=window, **blocks)
+    out = _self_attention(cfg, ctx, q, k, v, kind, q_block=q_block,
+                          kv_block=kv_block)
     y = _combine_heads(cfg, p, out, ctx)
     if not return_cache:
         return y

@@ -133,11 +133,15 @@ def test_an_edited_source_gets_a_new_library(csrc_copy, name):
 
 
 def test_every_kernel_lives_in_a_source_of_its_own_library():
-    """dequantize.cu holds two kernels; every source is built once."""
-    assert cuda.SOURCES == ("quantize", "dequantize", "bucket_stats")
+    """dequantize.cu holds two kernels, attention.cu three; every source
+    is built once."""
+    assert cuda.SOURCES == ("quantize", "dequantize", "bucket_stats",
+                            "attention")
     assert {k: v[0] for k, v in cuda.KERNELS.items()} == {
         "quantize": "quantize", "dequantize": "dequantize",
-        "dequantize_mean": "dequantize", "bucket_stats": "bucket_stats"}
+        "dequantize_mean": "dequantize", "bucket_stats": "bucket_stats",
+        "attention_fwd": "attention", "attention_bwd_dq": "attention",
+        "attention_bwd_dkv": "attention"}
     for source in cuda.SOURCES:
         assert (cuda.CSRC / f"{source}.cu").exists()
 
