@@ -3,9 +3,11 @@ share the benchmark reports.
 
 Peaks are NVIDIA's data-sheet figures for the H100 SXM5 at its full
 700 W: 989.4 TFLOP/s of dense bfloat16 tensor-core math and 3.35 TB/s of
-HBM3.  A kernel's least time is its bytes over the bandwidth (these
-kernels do a few operations a byte, far under the compute bound): every
-input byte read once and every output byte written once.
+HBM3.  The wire's kernels do a few operations a byte, far under the
+compute bound, so their least time is their bytes over the bandwidth:
+every input byte read once and every output byte written once.  The
+attention's is its FLOPs over the bfloat16 peak: the products of the
+(query, key) pairs that the causal window admits.
 """
 from __future__ import annotations
 
@@ -54,3 +56,24 @@ def dequantize_mean_bytes(streams: int, nb: int, bucket_size: int,
 
 def bound_s(nbytes: int, peak: Peak = H100) -> float:
     return nbytes / peak.hbm_bytes
+
+
+def attention_pairs(S: int, window: int = 0) -> int:
+    """The (query, key) pairs of a sequence of S that the causal window
+    admits: query t sees the keys t - window < s <= t (every s <= t where
+    ``window`` is 0)."""
+    w = S if window <= 0 else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def attention_flops(B: int, S: int, H: int, hd: int, window: int = 0
+                    ) -> tuple[int, int]:
+    """(forward, backward) FLOPs of the attention of B rows of S over H
+    query heads of ``hd``: each admitted pair is a product of 2 hd FLOPs
+    in q k^T, p v (the forward) and in the backward's dv, dp, dq and dk."""
+    pair = B * H * attention_pairs(S, window) * 2 * hd
+    return 2 * pair, 4 * pair
+
+
+def flops_bound_s(flops: float, peak: Peak = H100) -> float:
+    return flops / peak.bf16_flops

@@ -1,28 +1,41 @@
-"""What the benchmark works out from a configuration's numbers alone: the
-parameter leaves in the order of the flat vector that the trainer
-updates, how each leaf is drawn, the coordinate count d, the parameter
-counts that model FLOPs are taken from, and the wire's bucket layout.
+"""What the benchmark works out from a configuration's numbers alone: its
+layer slots and the kind (``layers/``) that is each slot's mixer and
+FFN, the parameter leaves in the order of the flat vector that the
+trainer updates, how each leaf is drawn, the coordinate count d, the
+parameter counts that model FLOPs are taken from, and the wire's bucket
+layout.
 
 The flat order is the reference package's ``ravel_pytree`` order, which
 the port keeps: ``embed`` (1, V, d), ``final_norm`` (d,), ``lm_head``
-(1, d, V), then each layer slot's leaves with their keys sorted, every
-leaf stacked over the layer groups as (groups, 1, ...).  Only the layer
-kinds of the benchmark's configurations are known here (attention with
-a SwiGLU FFN, RWKV6's time-mix with a SwiGLU FFN); a configuration of
-another kind is refused.
+(1, d, V), then for each of the ``group_size`` slots of a group its
+leaves with their paths sorted (``norm1``, ``norm2``, the mixer's as
+``mixer.*``, the FFN's as ``ffn.*``), every leaf stacked over the
+``num_layers // group_size`` groups as (groups, 1, ...).  ``group_size``
+is the lcm of the kinds' periods.
+
+Resolution fails closed: a slot that no kind, or two, take is refused,
+and so is a ``model`` key that neither the stack nor a kind that takes a
+slot reads.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
-# how a leaf is drawn: normal * fan_in ** -0.5, ones, zeros, or one of
-# the trained-like draws of RWKV6's time-mix (``weights.py``)
-NORMAL, ONES, ZEROS = "normal", "ones", "zeros"
-MIX, DECAY_BASE, DECAY_LORA_B = "mix", "decay_base", "decay_lora_b"
+import layers
 
-RWKV_LORA = 64
+# how a leaf is drawn: normal * fan_in ** -0.5, ones, zeros, or a draw of
+# its kind's own (``layers.DRAWS``)
+NORMAL, ONES, ZEROS = layers.BASE_DRAWS
+
 BUCKET_TILE = 8     # the wire pads its bucket count to a multiple of this
+# the keys the stack reads: the port's fields that every configuration
+# names (the head counts too, which a recurrent mixer does not use), the
+# norms' epsilon and the dtypes
+STACK_KEYS = frozenset({
+    "name", "arch_type", "num_layers", "d_model", "num_heads",
+    "num_kv_heads", "vocab_size", "norm_eps", "compute_dtype",
+    "param_dtype"})
 
 
 class Leaf(NamedTuple):
@@ -37,59 +50,69 @@ class Leaf(NamedTuple):
         return math.prod(self.shape)
 
 
-def head_dim(m: dict) -> int:
-    return m.get("head_dim") or m["d_model"] // m["num_heads"]
+class Slot(NamedTuple):
+    """The kinds of one layer slot."""
+
+    mixer: object
+    ffn: object
 
 
-def _slot_leaves(m: dict) -> dict[str, tuple[tuple, str, int]]:
-    """A layer's leaves: path -> (shape, draw, fan_in)."""
-    d, ff = m["d_model"], m["d_ff"]
-    leaves = {"norm1": ((d,), ONES, 0), "norm2": ((d,), ONES, 0),
-              "ffn.w1": ((d, ff), NORMAL, d), "ffn.w2": ((ff, d), NORMAL, ff),
-              "ffn.w3": ((d, ff), NORMAL, d)}
-    pattern = m.get("layer_pattern", "attn")
-    if m.get("moe") or m.get("cross_attn_every") or pattern not in (
-            "attn", "rwkv") or m.get("qkv_bias"):
-        raise ValueError(f"{m['name']}: only dense attention and RWKV6 "
-                         "layers are laid out by the benchmark")
-    if pattern == "rwkv":
-        hd = m.get("rwkv_head_dim", 64)
-        dl = (d // hd) * hd
-        for k in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
-            leaves[f"mixer.{k}"] = ((d,), MIX, 0)
-        leaves.update({
-            "mixer.w0": ((d,), DECAY_BASE, 0),
-            "mixer.w_lora_a": ((d, RWKV_LORA), NORMAL, d),
-            "mixer.w_lora_b": ((RWKV_LORA, d), DECAY_LORA_B, RWKV_LORA),
-            "mixer.proj_r": ((d, dl), NORMAL, d),
-            "mixer.proj_k": ((d, dl), NORMAL, d),
-            "mixer.proj_v": ((d, dl), NORMAL, d),
-            "mixer.proj_g": ((d, dl), NORMAL, d),
-            "mixer.u": ((dl,), ZEROS, 0),
-            "mixer.ln_x": ((dl,), ONES, 0),
-            "mixer.wo": ((dl, d), NORMAL, d)})
-        return leaves
-    hd = head_dim(m)
-    nq, nkv = m["num_heads"] * hd, m["num_kv_heads"] * hd
-    leaves.update({"mixer.wq": ((d, nq), NORMAL, d),
-                   "mixer.wk": ((d, nkv), NORMAL, d),
-                   "mixer.wv": ((d, nkv), NORMAL, d),
-                   "mixer.wo": ((nq, d), NORMAL, nq)})
-    if m.get("qk_norm"):
-        leaves["mixer.q_norm"] = ((hd,), ONES, 0)
-        leaves["mixer.k_norm"] = ((hd,), ONES, 0)
-    return leaves
+def group_size(m: dict) -> int:
+    return math.lcm(*(k.period(m) for k in layers.KINDS
+                      if hasattr(k, "period")), 1)
+
+
+def _taker(m: dict, slot: int, role: str):
+    kinds = [k for k in layers.KINDS if k.ROLE == role and k.takes(m, slot)]
+    own = [k for k in kinds if not getattr(k, "DEFAULT", False)]
+    pick = own or kinds
+    if len(pick) != 1:
+        raise ValueError(
+            f"{m['name']}: the {role} of slot {slot} is taken by "
+            f"{[layers.name(k) for k in pick] or 'no layer kind'}")
+    return pick[0]
+
+
+def slots(m: dict) -> list[Slot]:
+    """Each slot of a group of the configuration ``m`` (the numbers of
+    its ``model`` entry), with its mixer's and its FFN's kinds."""
+    G = group_size(m)
+    if m["num_layers"] % G:
+        raise ValueError(f"{m['name']}: {m['num_layers']} layers in groups "
+                         f"of {G}")
+    out = [Slot(_taker(m, j, "mixer"), _taker(m, j, "ffn"))
+           for j in range(G)]
+    read = STACK_KEYS.union(*(k.KEYS for s in out for k in s))
+    unread = sorted(set(m) - read)
+    if unread:
+        raise ValueError(f"{m['name']}: no layer kind that takes a slot "
+                         f"reads {unread}")
+    return out
+
+
+def _slot_leaves(m: dict, slot: int, kinds: Slot
+                ) -> dict[str, tuple[tuple, str, int]]:
+    """A slot's leaves: path -> (per-layer shape, draw, fan_in)."""
+    d = m["d_model"]
+    out = {"norm1": ((d,), ONES, 0), "norm2": ((d,), ONES, 0)}
+    for role, kind in zip(layers.ROLES, kinds):
+        out.update({f"{role}.{p}": v
+                    for p, v in kind.leaves(m, slot).items()})
+    return out
 
 
 def leaves(m: dict) -> list[Leaf]:
-    """Every parameter leaf of the configuration ``m`` (the numbers of
-    its ``model`` entry), in flat order, with its offset."""
-    d, V, L = m["d_model"], m["vocab_size"], m["num_layers"]
+    """Every parameter leaf of the configuration ``m``, in flat order,
+    with its offset."""
+    d, V = m["d_model"], m["vocab_size"]
+    kinds = slots(m)
+    G = m["num_layers"] // len(kinds)
     top = [("embed", (1, V, d), NORMAL, d), ("final_norm", (d,), ONES, 0),
            ("lm_head", (1, d, V), NORMAL, d)]
-    slot = _slot_leaves(m)
-    top += [(f"slots.0.{p}", (L, 1, *slot[p][0]), *slot[p][1:])
-            for p in sorted(slot, key=lambda p: p.split("."))]
+    for j, slot in enumerate(kinds):
+        sl = _slot_leaves(m, j, slot)
+        top += [(f"slots.{j}.{p}", (G, 1, *sl[p][0]), *sl[p][1:])
+                for p in sorted(sl, key=lambda p: p.split("."))]
     out, off = [], 0
     for name, shape, draw, fan_in in top:
         leaf = Leaf(name, shape, off, draw, fan_in)
@@ -105,22 +128,17 @@ def coordinates(m: dict) -> int:
 
 
 def param_count(m: dict) -> int:
-    """Parameters as the dry run counts them for model FLOPs: the
-    embedding and the head, and per layer the mixer (attention's four
-    projections; RWKV6's time-mix as 6 d^2) and the SwiGLU FFN (3 d d_ff),
-    without norms, biases or the decay LoRA."""
-    d, ff, V = m["d_model"], m["d_ff"], m["vocab_size"]
-    if m.get("layer_pattern", "attn") == "rwkv":
-        mix = 6 * d * d
-    else:
-        hd = head_dim(m)
-        nq, nkv = m["num_heads"] * hd, m["num_kv_heads"] * hd
-        mix = d * nq + 2 * d * nkv + nq * d
-    return 2 * V * d + m["num_layers"] * (mix + 3 * d * ff)
+    """The parameters a token touches, as the dry run counts them for
+    model FLOPs: the embedding and the head, and each layer's mixer and
+    FFN as their kinds count them (``active``), without norms."""
+    kinds = slots(m)
+    G = m["num_layers"] // len(kinds)
+    return 2 * m["vocab_size"] * m["d_model"] + G * sum(
+        k.active(m, j) for j, s in enumerate(kinds) for k in s)
 
 
 def model_flops(m: dict, tokens: int) -> float:
-    """Training's model FLOPs, 6 N D (dense: every parameter is active)."""
+    """Training's model FLOPs, 6 N D, N the parameters a token touches."""
     return 6.0 * param_count(m) * tokens
 
 

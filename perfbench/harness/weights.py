@@ -1,13 +1,10 @@
 """The weights of a run, made from its seed on the device.
 
-One normal draw fills the whole flat vector, each leaf is then scaled by
-its fan-in (or set to ones or zeros) in place, and RWKV6's time-mix
-leaves that a trained model holds away from their init get one uniform
-draw each: token-shift mixes in [0, 1], the decay base w0 in [-4, -0.5],
-the decay LoRA's B at a fifth of its scale.  With the init's zero mixes
-and w0 the log decays of random tokens reach tens a token, the chunked
-``exp`` of the time-mix overflows, and the gradient holds NaN; with these
-they stay within about -0.01 to -1 a token.
+One normal draw fills the whole flat vector, and each leaf is then, in
+flat order, scaled by its fan-in or set to ones or zeros in place, or
+drawn by its layer kind's own draw (``layers.DRAWS``; RWKV6's time-mix
+draws three of its leaves as a trained model holds them), which may use
+the same generator.
 
 Both sides get these weights: the program has them copied into its flat
 buffer, the reference makes them again from the same seed.
@@ -16,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+import layers
 
 from . import shapes
 
@@ -43,12 +42,8 @@ def fill(flat: torch.Tensor, m: dict, seed: int) -> torch.Tensor:
             view.fill_(1.0)
         elif leaf.draw == shapes.ZEROS:
             view.zero_()
-        elif leaf.draw == shapes.MIX:
-            view.uniform_(0.0, 1.0, generator=gen)
-        elif leaf.draw == shapes.DECAY_BASE:
-            view.uniform_(-4.0, -0.5, generator=gen)
-        elif leaf.draw == shapes.DECAY_LORA_B:
-            view.mul_(0.2 * leaf.fan_in ** -0.5)
+        elif leaf.draw in layers.DRAWS:
+            layers.DRAWS[leaf.draw](view, gen, leaf.fan_in)
         else:
             raise ValueError(leaf.draw)
     return flat

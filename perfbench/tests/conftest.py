@@ -17,7 +17,7 @@ from harness import cells, traffic as traffic_lib  # noqa: E402
 
 torch.set_num_threads(1)
 
-# a few layers of each benchmark layer kind at test widths
+# a few layers of each layer kind under layers/ at test widths
 TINY = {
     "attn": {"name": "tiny-attn", "arch_type": "dense", "num_layers": 2,
              "d_model": 64, "num_heads": 4, "num_kv_heads": 2,
@@ -29,6 +29,13 @@ TINY = {
              "d_ff": 256, "vocab_size": 256, "layer_pattern": "rwkv",
              "rwkv_head_dim": 64, "norm_eps": 1e-5,
              "compute_dtype": "bfloat16", "param_dtype": "float32"},
+    # sliding attention of window 16 (at S = 64), every 2nd slot full
+    "window": {"name": "tiny-window", "arch_type": "dense", "num_layers": 4,
+               "d_model": 64, "num_heads": 4, "num_kv_heads": 2,
+               "head_dim": 16, "d_ff": 128, "vocab_size": 256,
+               "qk_norm": True, "rope_theta": 1e6, "norm_eps": 1e-6,
+               "attn_kind": "sliding", "window": 16, "full_attn_every": 2,
+               "compute_dtype": "float32", "param_dtype": "float32"},
 }
 
 

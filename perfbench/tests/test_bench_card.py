@@ -100,3 +100,48 @@ def test_roofline_readers_count_their_launches(mode):
             nb // M, bs, 256))) / 2
     assert q(ctx(2 * nq, 2 * ndm)) == pytest.approx(100 * want / 1e-6)
     assert dm(ctx(2 * nq, 2 * ndm)) > 0
+
+
+ATTN_NAMES = {
+    "fwd": "void repro::(anonymous namespace)::attn_fwd<128, __nv_bfloat16>"
+           "(repro::(anonymous namespace)::Args)",
+    "bwd_dq": "_ZN5repro12_GLOBAL__N_111attn_bwd_dqILi128E13__nv_bfloat16S2_"
+              "EEvNS0_4ArgsE",
+    "bwd_dkv": "void repro::(anonymous namespace)::attn_bwd_dkv<128, "
+               "__nv_bfloat16, __nv_bfloat16>(repro::(anonymous namespace)"
+               "::Args)"}
+
+
+@pytest.mark.parametrize("kind", ["attn", "window", "rwkv"])
+def test_attention_roofline_counts_its_launches(kind):
+    """Each attention layer a worker launches the forward twice a step and
+    each backward kernel once; the least time is each slot's FLOPs at its
+    window.  Another count, or a configuration with no attention kernel,
+    reads nothing."""
+    from conftest import TINY
+    read = cells.load_reader("attention_roofline")
+    m, tr = TINY[kind], tiny_cell("attn").traffic
+    L, M = m["num_layers"], tr.workers
+
+    def ctx(n_fwd, n_bwd, ns=1000):
+        ops = ([(ATTN_NAMES["fwd"], 0, ns, "kernel")] * n_fwd
+               + [(ATTN_NAMES[k], 0, ns, "kernel")
+                  for k in ("bwd_dq", "bwd_dkv")] * n_bwd
+               + [("void at::native::attn_fwd_lookalike", 0, ns, "kernel")])
+        return trace.TraceContext(
+            steps=2, ops=ops, stage_ms=[], window_s=1.0, busy_s=0.5,
+            marks=[], window_ns=(0, 1), m=m, traffic=tr, d=0,
+            peak=roofline.H100)
+
+    n = 2 * M * L
+    if kind == "rwkv":
+        assert read(ctx(2 * n, n)) is None
+        return
+    assert read(ctx(2 * n + 1, n)) is None
+    assert read(ctx(2 * n, n - 1)) is None
+    B, S, H, hd = tr.rows_per_worker, tr.seq_len, m["num_heads"], m["head_dim"]
+    windows = [m.get("window", 0), 0] * (L // 2) if kind == "window" else [0] * L
+    flops = sum(2 * f + b for f, b in (
+        roofline.attention_flops(B, S, H, hd, w) for w in windows))
+    want = 2 * M * flops / roofline.H100.bf16_flops
+    assert read(ctx(2 * n, n)) == pytest.approx(100 * want / (4 * n * 1e-6))

@@ -72,15 +72,22 @@ def test_contract_keys_and_names():
                          + sorted(TINY))
 def test_layout_is_the_programs(name):
     """The benchmark's own leaf layout (which the reference and the
-    per-leaf readings use) is the port's flat layout, leaf for leaf."""
+    per-leaf readings use) is the port's flat layout, leaf for leaf, in
+    the port's groups of slots; a leaf of the plain draws is drawn as the
+    port's init code says (normal at the code's fan-in, ones, zeros),
+    and the parameters a token touches are the port's count."""
     from repro_torch.models.transformer import param_layout
     m = (TINY[name] if name in TINY else json.loads(
         (ROOT / next(c["file"] for c in SPEC["configs"]
                      if c["name"] == name)).read_text())["model"])
     cfg = system.model_config(m)
+    assert shapes.group_size(m) == cfg.group_size
     assert [(n, tuple(s)) for n, s, _ in param_layout(cfg)] == [
         (lf.name, lf.shape) for lf in shapes.leaves(m)]
-    assert cfg.param_count() == shapes.param_count(m)
+    for (_, _, code), lf in zip(param_layout(cfg), shapes.leaves(m)):
+        plain = {shapes.NORMAL: lf.fan_in, shapes.ONES: -1, shapes.ZEROS: 0}
+        assert plain.get(lf.draw, code) == code, lf
+    assert cfg.active_param_count() == shapes.param_count(m)
 
 
 def test_coordinates_as_stated():

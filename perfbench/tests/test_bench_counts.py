@@ -60,6 +60,19 @@ def test_kernel_bounds_at_phase_b_shapes():
     assert roofline.code_bytes(256) == 2
 
 
+def test_attention_bounds_at_the_kernels_shape():
+    """PERF.md's attention bounds at (8, 1024, 16 heads, 128), causal:
+    forward 0.0348 ms, backward 0.0695 ms at 989.4 TFLOP/s; a window
+    admits w (w + 1) / 2 + (S - w) w pairs."""
+    fwd, bwd = roofline.attention_flops(8, 1024, 16, 128)
+    assert fwd == 2 * 8 * 16 * (1024 * 1025 // 2) * 2 * 128 and bwd == 2 * fwd
+    assert round(roofline.flops_bound_s(fwd) * 1e3, 4) == 0.0348
+    assert round(roofline.flops_bound_s(bwd) * 1e3, 4) == 0.0695
+    for S, w in ((64, 16), (64, 64), (64, 0), (5, 9), (1024, 1)):
+        assert roofline.attention_pairs(S, w) == sum(
+            min(t + 1, w if w > 0 else S) for t in range(S))
+
+
 def test_wire_buckets_match_the_plan():
     from repro_torch.core.codec import codec_for_scheme
     from repro_torch.core.schemes import QuantScheme

@@ -1,7 +1,8 @@
 """What the benchmark may import: nothing under perfbench/ imports a
 module whose top-level name, compared whole, is ``jax``, ``jaxlib``,
 ``flax`` or ``repro`` (the port's ``repro_torch`` begins with ``repro``
-and is another name), and the reference imports nothing of the port."""
+and is another name), and the reference, with every layer kind under
+``layers/``, imports nothing of the port."""
 import ast
 import subprocess
 import sys
@@ -14,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 # the harness modules the reference uses: the inputs it makes itself
 REFERENCE_SIDE = ["reference/model.py", "reference/wire.py",
                   "reference/step.py", "harness/shapes.py",
-                  "harness/traffic.py", "harness/weights.py"]
+                  "harness/traffic.py", "harness/weights.py"] + sorted(
+    str(p.relative_to(BENCH)) for p in (BENCH / "layers").glob("*.py"))
 
 
 def imported(path) -> set[str]:
@@ -40,7 +42,8 @@ def test_reference_imports_nothing_of_the_port(rel):
     names = imported(BENCH / rel)
     assert "repro_torch" not in names
     assert names <= {"__future__", "math", "json", "pathlib", "typing",
-                     "numpy", "torch", "harness", "reference"}
+                     "importlib", "numpy", "torch", "harness", "reference",
+                     "layers"}
 
 
 def test_reference_loads_no_port_module():
