@@ -10,6 +10,13 @@ selective scan in the hybrid stack (an attention slot every
 cross-attention every ``cross_attn_every`` layers, and the parameters'
 dtype.  Layers repeat as ``num_groups`` groups of ``group_size`` slots,
 in the reference's parameter layout.
+
+One field is the port's own: ``experts_held``, the share of an MoE
+layer's experts that this card holds where expert parallelism splits
+the layer over ``num_experts // experts_held`` cards (0, the default:
+all of them).  The router still routes over every expert; the card
+holds the first block of experts and computes only the pairs routed to
+it (``moe.moe_ffn``).
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ class ModelConfig:
     shared_expert: bool = False  # llama4
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    experts_held: int = 0     # this card's block of the experts; 0 -> all
 
     # recurrent mixers
     layer_pattern: str = ATTN  # attn | rwkv | mamba_hybrid
@@ -96,6 +104,16 @@ class ModelConfig:
         if self.num_heads % self.num_kv_heads:
             raise ValueError(f"{self.name}: {self.num_heads} heads do not "
                              f"share {self.num_kv_heads} kv heads evenly")
+        if self.experts_held and not (
+                self.moe and 0 < self.experts_held <= self.num_experts
+                and self.num_experts % self.experts_held == 0):
+            raise ValueError(f"{self.name}: experts_held "
+                             f"{self.experts_held} is not a block of "
+                             f"{self.num_experts} experts")
+        if self.experts_held and self.shared_expert:
+            # every card would add the shared expert to its share
+            raise ValueError(f"{self.name}: experts_held with a shared "
+                             "expert")
 
     @property
     def head_dim_(self) -> int:
@@ -165,7 +183,9 @@ class ModelConfig:
     def param_count(self) -> int:
         """Approximate global parameter count, unpadded and without norms
         or biases, exactly as the reference counts it (RWKV6's time-mix
-        as 6 d^2)."""
+        as 6 d^2).  With ``experts_held`` it is this card's: an MoE
+        layer's held experts and its router (d E), which the reference's
+        count leaves out."""
         d, ff, V = self.d_model, self.d_ff, self.vocab_size
         hd = self.head_dim_
         n_q = self.num_heads * hd
@@ -184,7 +204,9 @@ class ModelConfig:
             if self.slot_has_cross(slot):
                 mix += d * n_q + 2 * d * n_kv + n_q * d
             if self.slot_is_moe(slot):
-                ffp = self.num_experts * 3 * d * ff
+                ffp = (self.experts_held or self.num_experts) * 3 * d * ff
+                if self.experts_held:
+                    ffp += d * self.num_experts
                 if self.shared_expert:
                     ffp += 3 * d * ff
             else:
@@ -194,11 +216,15 @@ class ModelConfig:
 
     def active_param_count(self) -> int:
         """Parameters a token touches: an MoE slot's top_k experts (and
-        its shared expert) only."""
+        its shared expert) only; with ``experts_held``, the share of its
+        top_k that this card holds on average, top_k * experts_held /
+        num_experts."""
         total = self.param_count()
         if not self.moe:
             return total
-        unused = (self.num_experts - self.top_k) * 3 * self.d_model * self.d_ff
+        E, held = self.num_experts, self.experts_held or self.num_experts
+        expert = 3 * self.d_model * self.d_ff
+        unused = held * expert - self.top_k * held * expert // E
         for slot in range(self.group_size):
             if self.slot_is_moe(slot):
                 total -= unused * self.num_groups

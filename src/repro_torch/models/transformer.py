@@ -36,6 +36,9 @@ LoRA and mixing factors replicated), with the mesh axis of extent 1 that
 wire holds what it holds in the reference.  ``to_global`` and
 ``from_global`` convert the ranks' flats to and from the reference's
 global layout, where every sharded leaf is stacked over the tp axis.
+An MoE layer with ``cfg.experts_held`` (at tp = 1) lays out the card's
+block of experts, as a rank of an expert-parallel group does
+(``moe.moe_factor``).
 The replicated leaves are drawn rank-invariantly (``REPLICATED_LEAVES``);
 they train on rank-local gradients, as in the reference (see
 ``layers``), and may drift apart across the model group.  A

@@ -6,10 +6,13 @@ it ran for (where there is one), its host start and end in nanoseconds
 of ``time.time_ns()`` (the clock that ``torch.profiler`` converts the
 device's timestamps to, so spans and a device trace share one time
 axis), and a dict of counters that ``count(name, n)`` adds to while the
-span is the innermost one open.  A *device* span also records a CUDA
-event at each end, and its ``device_ms`` is the stream's time between
-them; on the CPU it is the host's.  ``self_ns`` is the span's host time
-less the host time of the spans opened inside it.
+span is the innermost one open.  ``n`` is a host int or a 0-d device
+tensor: a device value is summed on the device, with no synchronisation,
+and becomes an int when the span's device times are resolved.  A
+*device* span also records a CUDA event at each end, and its
+``device_ms`` is the stream's time between them; on the CPU it is the
+host's.  ``self_ns`` is the span's host time less the host time of the
+spans opened inside it.
 
 ``recording(device, clock=..., model=...)`` records one step: it opens
 the ``step`` span, installs forward hooks on the model's layer slots
@@ -18,9 +21,11 @@ slot's forward runs inside a ``backward`` span: the checkpoint's
 replay), and on exit removes them and keeps the step's spans.  The
 trainer records whenever it is handed a clock other than ``NO_CLOCK``.
 ``recorded()`` returns the spans of the last ``KEEP_STEPS`` recorded
-steps, their device times resolved; ``reset()`` forgets them.  While
-nothing is recorded ``span(...)`` returns one shared null context and
-``count`` does nothing: no hook, no CUDA event, no allocation.
+steps, their device times and counters resolved; ``reset()`` forgets
+them.  While nothing is recorded ``span(...)`` returns one shared null
+context and ``count`` does nothing: no hook, no CUDA event, no
+allocation; ``active()`` says whether a step is being recorded, so that
+a caller computes a device counter's value only then.
 
 A ``StageClock`` marks the end of each stage of a step; the time from
 one mark (or the clock's creation) to the next goes to the later mark's
@@ -79,7 +84,10 @@ class Span:
     def ms(self) -> float | None:
         """The device milliseconds of a device span or stage (the host's
         without CUDA events), None for a host span; call it once the
-        device has passed the span's end."""
+        device has passed the span's end.  Device counters become ints."""
+        for k, v in self.counters.items():
+            if isinstance(v, torch.Tensor):
+                self.counters[k] = int(v)
         if self.device_ms is None and self.device:
             self.device_ms = (self.events[0].elapsed_time(self.events[1])
                               if self.events else self.host_ns * 1e-6)
@@ -168,8 +176,15 @@ def span(name: str, *, device: bool = False, worker: int | None = None,
     return _Open(name, device, worker, attrs)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name`` of the innermost open span."""
+def active() -> bool:
+    """Whether a step is being recorded."""
+    return _REC.spans is not None
+
+
+def count(name: str, n: int | torch.Tensor = 1) -> None:
+    """Add ``n`` (a host int, or a 0-d device tensor that is resolved with
+    the device times) to the counter ``name`` of the innermost open
+    span."""
     if _REC.stack:
         c = _REC.stack[-1].counters
         c[name] = c.get(name, 0) + n
@@ -256,8 +271,8 @@ def recording(device, *, clock=None, model=None, step: int | None = None):
 
 def recorded() -> list[Span]:
     """The spans of the last ``KEEP_STEPS`` recorded steps, in the order
-    they opened (stages in the order they ended), device times resolved
-    (a synchronisation where any are CUDA events)."""
+    they opened (stages in the order they ended), device times and
+    counters resolved (a synchronisation where any are CUDA events)."""
     spans = [s for step in _REC.steps for s in step]
     if any(s.events for s in spans):
         torch.cuda.synchronize()
